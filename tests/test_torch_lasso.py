@@ -1,0 +1,347 @@
+"""The port's lasso steps and solvers against the JAX reference, on the CPU.
+
+The same numpy inputs, made from a seed, go through ``proxtpu`` (its Pallas
+kernels in interpret mode, as ``tests/test_kernels.py`` runs them) and
+through ``proxtpu_torch``, whose wrappers run their plain versions for CPU
+tensors.  Tolerances are the reference's own: 5e-6 on one step
+(``test_kernels.py:45-46``); counts within +-1 and solutions within 1e-4
+across solver paths (``test_kernels.py:58-61``).
+"""
+
+import os
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from proxtpu.kernels import lasso as jl
+from proxtpu_torch import problems_from_numpy
+from proxtpu_torch.kernels import lasso as tl
+
+TOL = 1e-5
+
+
+def _problems(B, M, N, seed):
+    rng = np.random.default_rng(seed)
+    A = (rng.standard_normal((B, M, N)) / np.sqrt(M)).astype(np.float32)
+    b = rng.standard_normal((B, M)).astype(np.float32)
+    lam = (0.1 * np.max(np.abs(np.einsum("bmn,bm->bn", A, b)), axis=1)
+           ).astype(np.float32)
+    Lf = np.array([np.linalg.norm(A[i], 2) ** 2 for i in range(B)],
+                  np.float32)
+    return A, b, lam, Lf
+
+
+def _t(a):
+    return torch.tensor(np.asarray(a))
+
+
+def _fb_residual(A, b, lam, Lf, x):
+    """||x - prox(x - grad/Lf)||_inf * Lf per lane, in numpy (bench.py's
+    residual recheck)."""
+    gam = (1.0 / Lf)[:, None]
+    grad = np.einsum("bmn,bm->bn", A, np.einsum("bmn,bn->bm", A, x) - b)
+    y = x - gam * grad
+    z = np.sign(y) * np.maximum(np.abs(y) - gam * lam[:, None], 0.0)
+    return np.max(np.abs(x - z), axis=1) / gam[:, 0]
+
+
+def _assert_solver_parity(port, ref, every_lane_done=True):
+    """The reference's cross-path contract between two solver results."""
+    z_p, it_p, d_p = (np.asarray(v) for v in port)
+    z_r, it_r, d_r = (np.asarray(v) for v in ref)
+    if every_lane_done:
+        assert d_p.all() and d_r.all()
+    np.testing.assert_array_equal(d_p, d_r)
+    assert int(np.max(np.abs(it_p.astype(np.int64) - it_r))) <= 1
+    np.testing.assert_allclose(z_p, z_r, atol=1e-4)
+
+
+@pytest.fixture(scope="module")
+def step_data():
+    A, b, lam, Lf = _problems(8, 16, 24, 0)
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((8, 24)).astype(np.float32)
+    z_prev = rng.standard_normal((8, 24)).astype(np.float32)
+    beta = rng.uniform(0.1, 0.9, 8).astype(np.float32)
+    gamma = (1.0 / Lf).astype(np.float32)
+    thr = (gamma * lam).astype(np.float32)
+    shrink = (1.0 + gamma * 0.3).astype(np.float32)
+    done = np.array([0, 1, 0, 0, 1, 0, 0, 0], np.float32)
+    return dict(A=A, b=b, x=x, z_prev=z_prev, beta=beta, gamma=gamma,
+                thr=thr, shrink=shrink, done=done)
+
+
+@pytest.mark.parametrize("with_shrink", [False, True])
+def test_fb_step_matches_jax(step_data, with_shrink):
+    d = step_data
+    shrink = d["shrink"] if with_shrink else None
+    args = (d["A"], d["b"], d["x"], d["gamma"], d["thr"])
+    z_k, r_k = jl.fused_fb_prox_grad(
+        *map(jnp.asarray, args),
+        shrink=None if shrink is None else jnp.asarray(shrink),
+        interpret=True)
+    z_x, r_x = jl.reference_fb_prox_grad(
+        *map(jnp.asarray, args),
+        shrink=None if shrink is None else jnp.asarray(shrink))
+    before = tl.fused_fb_prox_grad.launches
+    z_p, r_p = tl.fused_fb_prox_grad(
+        *map(_t, args), shrink=None if shrink is None else _t(shrink))
+    # a CPU tensor runs the plain version: no kernel launch is counted
+    assert tl.fused_fb_prox_grad.launches == before
+    for z_j, r_j in ((z_k, r_k), (z_x, r_x)):
+        np.testing.assert_allclose(z_p.numpy(), np.asarray(z_j), atol=5e-6)
+        np.testing.assert_allclose(r_p.numpy(), np.asarray(r_j), atol=5e-6)
+
+
+def _port_full_step(d, restart, shrink=None, x=None, z_prev=None):
+    x = _t(d["x"] if x is None else x)
+    z_prev = _t(d["z_prev"] if z_prev is None else z_prev)
+    out = tl.fused_fista_full_step(
+        _t(d["A"]), _t(d["b"]), x, z_prev, _t(d["beta"]), _t(d["gamma"]),
+        _t(d["thr"]), _t(d["done"]),
+        shrink=None if shrink is None else _t(shrink), restart=restart)
+    # updated in place and returned, like the aliased JAX kernel outputs
+    assert out[0] is x and out[1] is z_prev
+    return [v.numpy() for v in out]
+
+
+@pytest.mark.parametrize("with_shrink", [False, True])
+@pytest.mark.parametrize("restart", [False, True])
+def test_full_step_matches_jax(step_data, restart, with_shrink):
+    d = step_data
+    shrink = d["shrink"] if with_shrink else None
+    ref = jl.fused_fista_full_step(
+        *(jnp.asarray(d[k]) for k in ("A", "b", "x", "z_prev", "beta",
+                                      "gamma", "thr", "done")),
+        shrink=None if shrink is None else jnp.asarray(shrink),
+        interpret=True, restart=restart)
+    port = _port_full_step(d, restart, shrink)
+    for p, r in zip(port, ref):
+        np.testing.assert_allclose(p, np.asarray(r), atol=5e-6)
+    live = d["done"] == 0
+    rs = np.asarray(ref[3])
+    # the inputs exercise both sides of the restart test, and frozen lanes
+    assert (rs[live] > 0).any() and (rs[live] <= 0).any()
+    np.testing.assert_array_equal(port[0][~live], d["x"][~live])
+    np.testing.assert_array_equal(port[1][~live], d["z_prev"][~live])
+    assert (port[2][~live] == 0).all() and (port[3][~live] == 0).all()
+
+
+def test_full_step_rejects_aliased_carries(step_data):
+    x = _t(step_data["x"])
+    with pytest.raises(ValueError, match="separate buffers"):
+        tl.fused_fista_full_step(
+            _t(step_data["A"]), _t(step_data["b"]), x, x,
+            *(_t(step_data[k]) for k in ("beta", "gamma", "thr", "done")))
+
+
+@pytest.mark.parametrize("restart", [False, True])
+def test_packed_step_matches_jax(restart):
+    """The JAX packed kernel (pack = 4 at N = 160), unpacked, against the
+    port's full step on the natural layout."""
+    B, M, N, pack = 8, 16, 160, 4
+    A, b, lam, Lf = _problems(B, M, N, 3)
+    rng = np.random.default_rng(4)
+    d = dict(A=A, b=b,
+             x=rng.standard_normal((B, N)).astype(np.float32),
+             z_prev=rng.standard_normal((B, N)).astype(np.float32),
+             beta=rng.uniform(0.1, 0.9, B).astype(np.float32),
+             gamma=(1.0 / Lf).astype(np.float32),
+             done=np.array([0, 0, 1, 0, 0, 0, 1, 0], np.float32))
+    d["thr"] = (d["gamma"] * lam).astype(np.float32)
+    assert jl._pack_count(N, B) == pack
+    nfull = (N // 128) * 128
+    Ap, bp = jl.pack_lasso_batch(jnp.asarray(A), jnp.asarray(b), pack)
+    rows = lambda v: jl._pack_rows(jnp.asarray(v), pack, nfull)
+    cols = lambda v: jnp.asarray(v).reshape(B // pack, pack)
+    x_n, z_n, res, rs = jl.fused_fista_packed_step(
+        Ap, bp, rows(d["x"]), rows(d["z_prev"]), cols(d["beta"]),
+        cols(d["gamma"]), cols(d["thr"]), cols(d["done"]), N=N, pack=pack,
+        interpret=True, restart=restart)
+    ref = [jl._unpack_rows(x_n, pack, N), jl._unpack_rows(z_n, pack, N),
+           res.reshape(B), rs.reshape(B)]
+    port = _port_full_step(d, restart)
+    for p, r in zip(port, ref):
+        np.testing.assert_allclose(p, np.asarray(r), atol=5e-6)
+
+
+@pytest.fixture(scope="module")
+def small():
+    return _problems(5, 16, 24, 0)
+
+
+_SOLVE_CASES = {
+    "textbook": {},
+    "restart": {"restart": True},
+    "lam2": {"lam2": 0.3},
+    "restart_lam2_x0": {"restart": True, "lam2": 0.3, "x0": True},
+}
+
+
+@pytest.mark.parametrize("case", list(_SOLVE_CASES))
+def test_solve_lasso_batch_matches_jax(small, case):
+    A, b, lam, Lf = small
+    kw = dict(_SOLVE_CASES[case])
+    if kw.pop("x0", False):
+        kw["x0"] = np.random.default_rng(2).standard_normal(
+            (A.shape[0], A.shape[2])).astype(np.float32) * 0.1
+    jkw = {k: (jnp.asarray(v) if k == "x0" else v) for k, v in kw.items()}
+    tkw = {k: (_t(v) if k == "x0" else v) for k, v in kw.items()}
+    ref = jl.solve_lasso_batch(*map(jnp.asarray, small), TOL, maxit=3000,
+                               use_kernel=True, interpret=True, **jkw)
+    port = tl.solve_lasso_batch(*map(_t, small), TOL, maxit=3000, **tkw)
+    _assert_solver_parity(port, ref)
+    # the plain route of the port holds the same contract
+    plain = tl.solve_lasso_batch(*map(_t, small), TOL, maxit=3000,
+                                 use_kernel=False, **tkw)
+    _assert_solver_parity(plain, ref)
+
+
+@pytest.fixture(scope="module")
+def packed_problems():
+    return _problems(8, 16, 160, 5)
+
+
+@pytest.mark.parametrize("restart", [False, True])
+def test_solve_lasso_batch_packed_matches_jax(packed_problems, restart):
+    ref = jl.solve_lasso_batch_packed(
+        *map(jnp.asarray, packed_problems), TOL, maxit=3000, interpret=True,
+        restart=restart)
+    port = tl.solve_lasso_batch_packed(
+        *map(_t, packed_problems), TOL, maxit=3000, restart=restart, pack=4)
+    _assert_solver_parity(port, ref)
+
+
+def test_solve_lasso_batch_packed_keeps_x0_and_checks_pack(packed_problems):
+    A, b, lam, Lf = map(_t, packed_problems)
+    x0 = torch.full((8, 160), 0.01)
+    kept = x0.clone()
+    tl.solve_lasso_batch_packed(A, b, lam, Lf, TOL, maxit=5, x0=x0)
+    assert torch.equal(x0, kept)
+    for pack in (0, 3):
+        with pytest.raises(ValueError, match="pack"):
+            tl.solve_lasso_batch_packed(A, b, lam, Lf, TOL, pack=pack)
+
+
+@pytest.fixture(scope="module")
+def tail_ref(packed_problems):
+    """The JAX solves the tail tests compare with, computed once: the
+    packed single-phase solve, the narrow branch and the wide branch."""
+    args = (*map(jnp.asarray, packed_problems), TOL)
+    z0, i0, d0 = jl.solve_lasso_batch_packed(*args, maxit=3000,
+                                             interpret=True, restart=True)
+    k1 = int(np.median(np.asarray(i0)))
+    narrow = jl.solve_lasso_batch_packed_tail(
+        *args, maxit=3000, k1=k1, tail=4, restart=True, interpret=True)
+    wide = jl.solve_lasso_batch_packed_tail(
+        *args, maxit=3000, k1=5, tail=1, restart=True, interpret=True)
+    return dict(single=(z0, i0, d0), k1=k1, narrow=narrow, wide=wide)
+
+
+def _port_tail(packed_problems, **kw):
+    return tl.solve_lasso_batch_packed_tail(*map(_t, packed_problems), **kw)
+
+
+@pytest.mark.parametrize("branch", ["narrow", "wide"])
+def test_packed_tail_matches_jax(packed_problems, tail_ref, branch):
+    """Both branches converge every lane to the shared criterion and agree
+    with the JAX tail solver on the same inputs (narrow: k1 past the median
+    with a tail of B/2; wide: k1 so small that a tail of 1 cannot fit)."""
+    kw = (dict(k1=tail_ref["k1"], tail=4) if branch == "narrow"
+          else dict(k1=5, tail=1))
+    n_live_after_k1 = int(np.sum(~np.asarray(tl.solve_lasso_batch_packed(
+        *map(_t, packed_problems), TOL, maxit=kw["k1"], restart=True)[2])))
+    assert (n_live_after_k1 <= kw["tail"]) == (branch == "narrow")
+    port = _port_tail(packed_problems, tol=TOL, maxit=3000, restart=True,
+                      **kw)
+    _assert_solver_parity(port, tail_ref[branch])
+    assert _fb_residual(*packed_problems, port[0].numpy()).max() <= 1.1 * TOL
+    np.testing.assert_allclose(port[0].numpy(),
+                               np.asarray(tail_ref["single"][0]), atol=1e-3)
+
+
+def test_packed_tail_k1_at_least_maxit(packed_problems):
+    """k1 >= maxit degrades to the single-phase solve."""
+    z, it, done = _port_tail(packed_problems, tol=TOL, maxit=100, k1=100,
+                             tail=4)
+    single = tl.solve_lasso_batch_packed(*map(_t, packed_problems), TOL,
+                                         maxit=100, restart=True)
+    assert (it.numpy() <= 100).all()
+    for a, b in zip((z, it, done), single):
+        assert torch.equal(a, b)
+
+
+def test_packed_tail_maxit_below_k1(packed_problems):
+    """maxit < k1: phase 1 is capped at maxit."""
+    z, it, done = _port_tail(packed_problems, tol=1e-12, maxit=7, k1=100,
+                             tail=4)
+    assert (it.numpy() <= 7).all() and it.numpy().max() == 7
+    assert not done.any()
+
+
+def test_packed_tail_rejects_zero_tail(packed_problems):
+    with pytest.raises(ValueError, match="tail"):
+        _port_tail(packed_problems, tol=TOL, tail=0)
+
+
+def test_packed_tail_scalar_lam_and_Lf(packed_problems, tail_ref):
+    A, b, lam, Lf = packed_problems
+    z, it, done = tl.solve_lasso_batch_packed_tail(
+        _t(A), _t(b), 0.05, float(np.max(Lf)), TOL, maxit=3000,
+        k1=tail_ref["k1"], tail=4, restart=True)
+    assert bool(done.all())
+    lam_b = np.full(8, 0.05, np.float32)
+    Lf_b = np.full(8, np.max(Lf), np.float32)
+    assert _fb_residual(A, b, lam_b, Lf_b, z.numpy()).max() <= 1.1 * TOL
+
+
+def test_packed_tail_plain_route_matches_kernel_route(packed_problems,
+                                                      tail_ref):
+    """``use_kernel=False`` (the plain route the chip smoke test
+    cross-checks against) holds the contract against the wrapper route."""
+    kw = dict(tol=TOL, maxit=3000, k1=tail_ref["k1"], tail=4, restart=True)
+    _assert_solver_parity(_port_tail(packed_problems, use_kernel=False, **kw),
+                          _port_tail(packed_problems, **kw))
+
+
+@pytest.mark.parametrize("solver", [tl.solve_lasso_batch,
+                                    tl.solve_lasso_batch_packed])
+@pytest.mark.parametrize("kw", [{"mf": 0.5}, {"step_mult": 1.5}])
+def test_unported_options_raise(small, solver, kw):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        solver(*map(_t, small), TOL, **kw)
+
+
+def test_problems_from_numpy_round_trip(small):
+    A, b, lam, Lf = small
+    out = problems_from_numpy(jnp.asarray(A), b.astype(np.float64), lam,
+                              float(Lf[0]), device="cpu")
+    for t, ref in zip(out, (A, b, lam, np.full(5, Lf[0], np.float32))):
+        assert t.dtype == torch.float32 and t.is_contiguous()
+        assert t.device.type == "cpu"
+        np.testing.assert_array_equal(t.numpy(), ref)
+
+
+@pytest.mark.parametrize("bad", ["A2d", "b", "lam"])
+def test_problems_from_numpy_rejects_bad_shapes(small, bad):
+    A, b, lam, Lf = small
+    args = {"A2d": (A[0], b, lam, Lf), "b": (A, b[:, :-1], lam, Lf),
+            "lam": (A, b, lam[:-1], Lf)}[bad]
+    with pytest.raises(ValueError):
+        problems_from_numpy(*args, device="cpu")
+
+
+def test_port_imports_without_jax_nvcc_or_triton():
+    """Importing the port loads no JAX and needs neither nvcc nor triton."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = ("import sys; import proxtpu_torch, proxtpu_torch.kernels.lasso;"
+            " bad = [m for m in ('jax', 'triton') if m in sys.modules];"
+            " assert not bad, bad")
+    env = dict(os.environ, PATH="/usr/bin:/bin", CUDA_HOME="/nonexistent",
+               PYTHONPATH=root)
+    subprocess.run([sys.executable, "-c", code], check=True, env=env,
+                   cwd=root, timeout=120)
