@@ -7,6 +7,7 @@
 //                  same per-problem math in a layout that only strips the
 //                  TPU's 128-lane padding; a 400-float row has none here.
 //   fb_step     <- _fb_step_kernel (lasso.py:37, via fused_fb_prox_grad)
+//   fista_k_steps <- _fb_k_steps_kernel (lasso.py:768, via fused_fista_k_steps)
 //
 // Per lane i (one CTA each), with A_i (M, N) row-major f32:
 //   r = A x - b;  g = A^T r;  y = x - gamma g;  z = sign(y) max(|y| - thr, 0)
@@ -28,89 +29,39 @@
 // (a 2-CTA cluster reducing A^T r through DSMEM, or a persistent kernel) is
 // later work.
 //
+// fista_k_steps runs K full iterations per lane in one launch: the FB step,
+// with RESTART t <- 1 where rs > 0 (before the coefficient is drawn, as
+// AdaptiveRestartSequence does), t' = (1 + sqrt(1 + 4 t^2)) / 2, beta =
+// (t - 1) / t', x <- z + beta (z - z_prev), z_prev <- z; x, z_prev and t
+// live in shared memory and registers across the K steps and go back to
+// device memory (in place) once; res is the last step's.  What bounds it:
+// the TPU kernel kept the lane's A in VMEM for all K steps, but a lane of
+// the blocked route holds at least 1 MB of A (2 MB at 512 x 1024), far
+// beyond the 227 KB of shared memory a CTA can use, and at B = 64 all of A
+// (128 MB) exceeds the 50 MB L2.  So each inner step still reads A twice
+// from device memory: the gain over K fista_step launches is K times fewer
+// launches and host checks, not fewer bytes.  One CTA per lane also leaves
+// 68 of the 132 SMs idle at B = 64; 1024 threads per CTA keep more reads in
+// flight on the SMs that work.  Splitting a lane's rows over a cluster of
+// CTAs that reduce A^T r through distributed shared memory is later work.
+//
 // Plain C interface for ctypes.  Every entry launches on the given stream,
 // does not synchronise, and returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 
+#include "common.cuh"
+
 namespace {
 
+using proxtpu::block_reduce;
+using proxtpu::nanmax;
+using proxtpu::prepare;
+using proxtpu::rows_dot;
+
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 constexpr int kUnroll = 8;  // loads of A each thread keeps in flight
-
-// max that propagates NaN like jnp.max / torch.amax
-__device__ __forceinline__ float nanmax(float a, float b) {
-  return (a > b || a != a) ? a : b;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_nanmax(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = nanmax(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// Block-wide reductions; every thread gets the result.  `scratch` holds
-// 2 * kWarps floats.
-__device__ __forceinline__ void block_reduce(float& mx, float& sum,
-                                             float* scratch) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  mx = warp_nanmax(mx);
-  sum = warp_sum(sum);
-  if (lane == 0) {
-    scratch[warp] = mx;
-    scratch[kWarps + warp] = sum;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    float m = lane < kWarps ? scratch[lane] : 0.f;
-    float s = lane < kWarps ? scratch[kWarps + lane] : 0.f;
-    m = warp_nanmax(m);
-    s = warp_sum(s);
-    if (lane == 0) {
-      scratch[0] = m;
-      scratch[kWarps] = s;
-    }
-  }
-  __syncthreads();
-  mx = scratch[0];
-  sum = scratch[kWarps];
-}
-
-// Pass 1: r = A x - b into shared memory.  x is already in shared memory.
-// Each warp takes rows with a stride; lanes stride along the row, so the
-// reads of the row-major slab are coalesced.  The loads of a row are issued
-// kUnroll at a time before their products are summed: the step is bound by
-// how many reads are in flight, and the compiler does not batch them across
-// the dependent sum on its own.  The order of the sum is unchanged.
-__device__ __forceinline__ void residual(const float* __restrict__ Ai,
-                                         const float* __restrict__ bi,
-                                         const float* xs, float* r, int M,
-                                         int N) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int m = warp; m < M; m += kWarps) {
-    const float* row = Ai + (size_t)m * N;
-    float acc = 0.f;
-    int n = lane;
-    for (; n + 32 * (kUnroll - 1) < N; n += 32 * kUnroll) {
-      float a[kUnroll];
-#pragma unroll
-      for (int j = 0; j < kUnroll; ++j) a[j] = __ldg(row + n + 32 * j);
-#pragma unroll
-      for (int j = 0; j < kUnroll; ++j) acc = fmaf(a[j], xs[n + 32 * j], acc);
-    }
-    for (; n < N; n += 32) acc = fmaf(__ldg(row + n), xs[n], acc);
-    acc = warp_sum(acc);
-    if (lane == 0) r[m] = acc - bi[m];
-  }
-}
+constexpr int kKThreads = 1024;  // fista_k_steps: see the note above
 
 // Pass 2 and the prox for column n: g = (A^T r)_n, then z.  Threads take
 // neighbouring columns, so each step of the m loop is a coalesced row read.
@@ -154,7 +105,7 @@ fista_step_kernel(const float* __restrict__ A, const float* __restrict__ b,
   extern __shared__ float smem[];
   float* xs = smem;      // N: x, then z (each column by its owning thread)
   float* r = smem + N;   // M
-  __shared__ float scratch[2 * kWarps];
+  __shared__ float scratch[2 * (kThreads / 32)];
 
   const int i = blockIdx.x;
   if (done[i] != 0.f) {  // frozen lane: carries untouched, read-outs 0
@@ -172,7 +123,7 @@ fista_step_kernel(const float* __restrict__ A, const float* __restrict__ b,
 
   for (int n = threadIdx.x; n < N; n += kThreads) xs[n] = xi[n];
   __syncthreads();
-  residual(Ai, b + (size_t)i * M, xs, r, M, N);
+  rows_dot<kThreads, true>(Ai, b + (size_t)i * M, xs, r, M, N);
   __syncthreads();
 
   float mx = 0.f, dot = 0.f;
@@ -184,7 +135,7 @@ fista_step_kernel(const float* __restrict__ A, const float* __restrict__ b,
     dot = fmaf(d, z - zpi[n], dot);
     xs[n] = z;  // x[n] is no longer needed: only this thread reads column n
   }
-  block_reduce(mx, dot, scratch);
+  block_reduce<kThreads>(mx, dot, scratch);
 
   const float bi = (RESTART && dot > 0.f) ? 0.f : beta[i];
   for (int n = threadIdx.x; n < N; n += kThreads) {
@@ -208,7 +159,7 @@ fb_step_kernel(const float* __restrict__ A, const float* __restrict__ b,
   extern __shared__ float smem[];
   float* xs = smem;
   float* r = smem + N;
-  __shared__ float scratch[2 * kWarps];
+  __shared__ float scratch[2 * (kThreads / 32)];
 
   const int i = blockIdx.x;
   const float* Ai = A + (size_t)i * M * N;
@@ -219,7 +170,7 @@ fb_step_kernel(const float* __restrict__ A, const float* __restrict__ b,
 
   for (int n = threadIdx.x; n < N; n += kThreads) xs[n] = xi[n];
   __syncthreads();
-  residual(Ai, b + (size_t)i * M, xs, r, M, N);
+  rows_dot<kThreads, true>(Ai, b + (size_t)i * M, xs, r, M, N);
   __syncthreads();
 
   float mx = 0.f, unused = 0.f;
@@ -229,16 +180,85 @@ fb_step_kernel(const float* __restrict__ A, const float* __restrict__ b,
     mx = nanmax(mx, fabsf(xv - z));
     zi[n] = z;
   }
-  block_reduce(mx, unused, scratch);
+  block_reduce<kThreads>(mx, unused, scratch);
   if (threadIdx.x == 0) res[i] = mx;
 }
 
-template <typename Kernel>
-cudaError_t prepare(Kernel kernel, size_t smem) {
-  if (smem > 48 * 1024)
-    return cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  return cudaSuccess;
+template <bool RESTART>
+__global__ void __launch_bounds__(kKThreads)
+fista_k_steps_kernel(const float* __restrict__ A, const float* __restrict__ b,
+                     float* __restrict__ x, float* __restrict__ zp,
+                     float* __restrict__ t, const float* __restrict__ gamma,
+                     const float* __restrict__ thr,
+                     const float* __restrict__ done, float* __restrict__ res,
+                     int M, int N, int K) {
+  extern __shared__ float smem[];
+  float* xs = smem;       // N: x, then z within a step
+  float* zs = smem + N;   // N: z_prev
+  float* r = smem + 2 * N;  // M
+  __shared__ float scratch[2 * (kKThreads / 32)];
+
+  const int i = blockIdx.x;
+  if (done[i] != 0.f) {  // frozen lane: x, z_prev, t untouched, res 0
+    if (threadIdx.x == 0) res[i] = 0.f;
+    return;
+  }
+  const float* Ai = A + (size_t)i * M * N;
+  const float* bi = b + (size_t)i * M;
+  float* xi = x + (size_t)i * N;
+  float* zpi = zp + (size_t)i * N;
+  const float gi = gamma[i], thri = thr[i];
+  float ti = t[i];
+
+  for (int n = threadIdx.x; n < N; n += kKThreads) {
+    xs[n] = xi[n];
+    zs[n] = zpi[n];
+  }
+  __syncthreads();
+
+  float mx = 0.f;
+  for (int step = 0; step < K; ++step) {
+    rows_dot<kKThreads, true>(Ai, bi, xs, r, M, N);
+    __syncthreads();  // r complete; every read of x done
+
+    float dot = 0.f;
+    mx = 0.f;
+    // a thread owns the same columns in every loop below
+    for (int n = threadIdx.x; n < N; n += kKThreads) {
+      const float xv = xs[n];
+      const float z = prox_column<false>(Ai, r, xv, n, M, N, gi, thri, 1.f);
+      const float d = xv - z;
+      mx = nanmax(mx, fabsf(d));
+      if (RESTART) dot = fmaf(d, z - zs[n], dot);
+      xs[n] = z;
+    }
+    block_reduce<kKThreads>(mx, dot, scratch);
+
+    // the t-recursion, each operation rounded as the plain version rounds
+    // it (no contraction into fma)
+    const float tk = (RESTART && dot > 0.f) ? 1.f : ti;
+    const float t_new = __fdiv_rn(
+        __fadd_rn(1.f, __fsqrt_rn(__fadd_rn(
+                           1.f, __fmul_rn(__fmul_rn(4.f, tk), tk)))),
+        2.f);
+    const float beta = __fdiv_rn(__fsub_rn(tk, 1.f), t_new);
+    for (int n = threadIdx.x; n < N; n += kKThreads) {
+      const float z = xs[n];
+      xs[n] = __fadd_rn(z, __fmul_rn(beta, __fsub_rn(z, zs[n])));
+      zs[n] = z;
+    }
+    ti = t_new;
+    __syncthreads();  // x complete before the next step reads it
+  }
+
+  for (int n = threadIdx.x; n < N; n += kKThreads) {
+    xi[n] = xs[n];
+    zpi[n] = zs[n];
+  }
+  if (threadIdx.x == 0) {
+    t[i] = ti;
+    res[i] = mx;
+  }
 }
 
 }  // namespace
@@ -259,6 +279,21 @@ int proxtpu_fista_step(const float* A, const float* b, float* x, float* zp,
   if (err != cudaSuccess) return (int)err;
   kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(
       A, b, x, zp, beta, gamma, thr, done, shrink, res, rs, M, N);
+  return (int)cudaGetLastError();
+}
+
+int proxtpu_fista_k_steps(const float* A, const float* b, float* x,
+                          float* zp, float* t, const float* gamma,
+                          const float* thr, const float* done, float* res,
+                          int B, int M, int N, int K, int restart,
+                          void* stream) {
+  const size_t smem = (size_t)(2 * N + M) * sizeof(float);
+  auto kernel = restart ? fista_k_steps_kernel<true>
+                        : fista_k_steps_kernel<false>;
+  cudaError_t err = prepare(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<B, kKThreads, smem, (cudaStream_t)stream>>>(
+      A, b, x, zp, t, gamma, thr, done, res, M, N, K);
   return (int)cudaGetLastError();
 }
 

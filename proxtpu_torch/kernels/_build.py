@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels (``proxtpu_torch/csrc``).
 
-The sources are compiled with ``nvcc`` for ``sm_90a`` into a shared library
-with a plain C interface, loaded through :mod:`ctypes`.  The build happens at
+The sources are compiled with ``nvcc`` for ``sm_90a``, one process per
+source, all started together, and linked into one shared library with a
+plain C interface, loaded through :mod:`ctypes`.  The build happens at
 first use, never at import, into ``build/proxtpu_torch/<hash>/`` beside the
-package, keyed by a hash of the sources and the flags, so a changed source
-builds anew and an unchanged one is loaded as it is.  A failed build raises
-with the compiler's output.
+package, keyed by a hash of the sources, the headers and the flags, so a
+changed file builds anew and an unchanged build is loaded as it is.  A
+failed build raises with the compiler's output.
 """
 
 from __future__ import annotations
@@ -19,10 +20,11 @@ import tempfile
 from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
-_SOURCES = ("lasso_step.cu",)
+_SOURCES = ("lasso_step.cu", "box_qp_step.cu")
+_HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -33,6 +35,12 @@ _SIGNATURES = {
     "proxtpu_fista_step": [_P] * 11 + [_I] * 4 + [_P],
     # A, b, x, gamma, thr, shrink, z, res, B, M, N, stream
     "proxtpu_fb_step": [_P] * 8 + [_I] * 3 + [_P],
+    # A, b, x, z_prev, t, gamma, thr, done, res, B, M, N, K, restart, stream
+    "proxtpu_fista_k_steps": [_P] * 9 + [_I] * 5 + [_P],
+    # Q, q, x, gamma, lo, hi, done, res, B, n, stream
+    "proxtpu_pg_step": [_P] * 8 + [_I] * 2 + [_P],
+    # Q, q, x, gamma, lo, hi, done, res, B, n, K, stream
+    "proxtpu_pg_k_steps": [_P] * 8 + [_I] * 3 + [_P],
     "proxtpu_max_smem_optin": [_I, ctypes.POINTER(_I)],
 }
 
@@ -49,30 +57,43 @@ def _nvcc():
 def build_dir():
     """``build/proxtpu_torch/<hash of the sources and flags>/``."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in _SOURCES:
+    for name in _SOURCES + _HEADERS:
         h.update(name.encode())
         h.update((_CSRC / name).read_bytes())
     root = _CSRC.parent.parent / "build" / "proxtpu_torch"
     return root / h.hexdigest()[:16]
 
 
+def _run_all(cmds):
+    """Run the commands in parallel; raise with the output of the first
+    that fails.  Returns their joined output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs = [p.communicate()[0] for p in procs]
+    for cmd, p, log in zip(cmds, procs, logs):
+        if p.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({p.returncode}): {' '.join(cmd)}\n{log}")
+    return "".join(logs)
+
+
 def _compile(out):
-    """Compile the sources into ``out``; returns nvcc's output (it carries
-    ``-Xptxas -v``'s registers and shared memory per kernel)."""
+    """Compile each source to an object in parallel, then link them into
+    ``out``; returns nvcc's output (it carries ``-Xptxas -v``'s registers
+    and shared memory per kernel)."""
     out.parent.mkdir(parents=True, exist_ok=True)
-    # build under a temporary name, then rename: a concurrent loader never
-    # sees a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *(str(_CSRC / name) for name in _SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
-    os.replace(tmp, out)
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmpdir:
+        objs = [os.path.join(tmpdir, name + ".o") for name in _SOURCES]
+        log = _run_all([[_nvcc(), *NVCC_FLAGS, "-c", "-o", obj,
+                         str(_CSRC / name)]
+                        for name, obj in zip(_SOURCES, objs)])
+        # link under a temporary name, then rename: a concurrent loader
+        # never sees a half-written library
+        tmp = os.path.join(tmpdir, "lib.so")
+        log += _run_all([[_nvcc(), *NVCC_FLAGS[:2], "-shared", "-o", tmp,
+                          *objs]])
+        os.replace(tmp, out)
     (out.parent / "nvcc.log").write_text(log)
     return log
 
@@ -98,6 +119,15 @@ def check(err, what):
     if err != 0:
         msg = library().proxtpu_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err}: {msg}")
+
+
+def check_shared_bytes(nbytes, device):
+    """Raise if one block needs more dynamic shared memory than the
+    device allows."""
+    limit = max_shared_bytes(device.index)
+    if nbytes > limit:
+        raise ValueError(f"{nbytes} bytes of shared memory per block "
+                         f"exceed the device's limit of {limit}")
 
 
 @functools.lru_cache(maxsize=None)

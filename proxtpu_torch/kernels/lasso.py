@@ -13,6 +13,10 @@ wrapper runs the plain version for tensors on the CPU; for CUDA tensors it
 launches its kernel or raises on operands the kernel does not take.  Each
 wrapper counts its launches in its ``launches`` attribute.
 
+``fused_fista_k_steps`` runs K full iterations per launch;
+``solve_lasso_batch_blocked`` drives it, testing for convergence once per
+block of K.
+
 The TPU's lane-packed layout (``pack_lasso_batch``) is not ported: it only
 strips the 128-lane padding of the TPU's tiles, and a row on the card has
 none.  ``solve_lasso_batch_packed`` keeps its signature and results and runs
@@ -26,13 +30,12 @@ import math
 
 import torch
 
+from ..utils.host_loop import run_host_loop
 from ..utils.precision import require_full_f32_matmul
 from . import _build
 
 # t after a restart: the simple t-sequence one step from t = 1
 _PHI = (1 + math.sqrt(5.0)) / 2
-# iterations between the host's all-done checks (see _run_loop)
-_CHECK_EVERY = 16
 
 
 def _soft_threshold(y, thr):
@@ -78,10 +81,11 @@ def reference_fista_full_step(A, b, x, z_prev, beta, gamma, thr, done_mask,
             torch.where(frozen, zero, rs))
 
 
-def _check_operands(A, b, vectors, scalars):
+def _check_operands(A, b, vectors, scalars, smem_vectors=1):
     """Raise unless the kernels take these operands: float32, contiguous,
     on A's CUDA device, A (B, M, N), b (B, M), ``vectors`` (B, N),
-    ``scalars`` (B,), and x plus r fit in a block's shared memory."""
+    ``scalars`` (B,), and ``smem_vectors`` rows of N plus r fit in a
+    block's shared memory."""
     if A.dim() != 3:
         raise ValueError(f"A must be (B, M, N), got shape {tuple(A.shape)}")
     B, M, N = A.shape
@@ -99,11 +103,7 @@ def _check_operands(A, b, vectors, scalars):
                              f"expected {shape}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    smem = (N + M) * 4
-    limit = _build.max_shared_bytes(A.device.index)
-    if smem > limit:
-        raise ValueError(f"(N + M) * 4 = {smem} bytes of shared memory for "
-                         f"x and r exceed the block limit of {limit}")
+    _build.check_shared_bytes((smem_vectors * N + M) * 4, A.device)
 
 
 def _ptr(t):
@@ -179,21 +179,114 @@ def fused_fista_full_step(A, b, x, z_prev, beta, gamma, thr, done_mask,
 fused_fista_full_step.launches = 0
 
 
+def reference_fista_k_steps(A, b, x, z_prev, t, gamma, thr, done_mask, K=8,
+                            restart=False):
+    """Plain version of K FISTA iterations per lane.
+
+    Each step: the FB step at ``x``; with ``restart``, ``t = 1`` where
+    ``<x - z, z - z_prev> > 0`` (reset BEFORE the coefficient is drawn);
+    ``t' = (1 + sqrt(1 + 4 t^2)) / 2``, ``beta = (t - 1) / t'``; ``x = z +
+    beta (z - z_prev)``, ``z_prev = z``, ``t = t'``.  Lanes with
+    ``done_mask != 0`` keep ``(x, z_prev, t)`` and report ``res = 0``.
+    Returns new tensors ``(x, z_prev, t, res_inf)``, ``res_inf`` being
+    ``||x - z||_inf`` of the last step."""
+    x_in, zp_in, t_in = x, z_prev, t
+    res = torch.zeros_like(t)
+    for _ in range(K):
+        z, res = reference_fb_prox_grad(A, b, x, gamma, thr)
+        if restart:
+            rs = torch.sum((x - z) * (z - z_prev), dim=1)
+            t = torch.where(rs > 0, torch.ones_like(t), t)
+        t_new = (1 + torch.sqrt(1 + 4 * t * t)) / 2
+        beta = (t - 1) / t_new
+        x, z_prev, t = z + beta[:, None] * (z - z_prev), z, t_new
+    frozen = done_mask != 0
+    return (torch.where(frozen[:, None], x_in, x),
+            torch.where(frozen[:, None], zp_in, z_prev),
+            torch.where(frozen, t_in, t),
+            torch.where(frozen, torch.zeros_like(res), res))
+
+
+def fused_fista_k_steps(A, b, x, z_prev, t, gamma, thr, done_mask, K=8,
+                        restart=False):
+    """K FISTA iterations for the batch in one launch of the
+    ``fista_k_steps`` kernel (see :func:`reference_fista_k_steps`).
+
+    ``x``, ``z_prev`` and ``t`` are updated IN PLACE and returned (the JAX
+    kernel aliases them to its outputs); x and z_prev must be separate
+    buffers.  ``done_mask`` (B,) is float, nonzero for frozen lanes.
+    Returns ``(x, z_prev, t, res_inf)``."""
+    if x.data_ptr() == z_prev.data_ptr():
+        raise ValueError("x and z_prev must be separate buffers: both are "
+                         "updated in place")
+    if K < 1:
+        raise ValueError(f"K must be >= 1, got {K}")
+    if A.device.type == "cpu":
+        xn, zn, tn, res = reference_fista_k_steps(
+            A, b, x, z_prev, t, gamma, thr, done_mask, K, restart)
+        x.copy_(xn)
+        z_prev.copy_(zn)
+        t.copy_(tn)
+        return x, z_prev, t, res
+    _check_operands(A, b, [("x", x), ("z_prev", z_prev)],
+                    [("t", t), ("gamma", gamma), ("thr", thr),
+                     ("done_mask", done_mask)], smem_vectors=2)
+    B, M, N = A.shape
+    res = torch.empty(B, dtype=x.dtype, device=x.device)
+    with torch.cuda.device(A.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _build.library().proxtpu_fista_k_steps(
+            A.data_ptr(), b.data_ptr(), x.data_ptr(), z_prev.data_ptr(),
+            t.data_ptr(), gamma.data_ptr(), thr.data_ptr(),
+            done_mask.data_ptr(), res.data_ptr(), B, M, N, int(K),
+            int(restart), ctypes.c_void_p(stream))
+    _build.check(err, "fista_k_steps")
+    fused_fista_k_steps.launches += 1
+    return x, z_prev, t, res
+
+
+fused_fista_k_steps.launches = 0
+
+
 def _per_lane(v, B, like):
     """Scalar or (B,) value -> contiguous (B,) tensor like ``like``."""
     t = torch.as_tensor(v, dtype=like.dtype, device=like.device)
     return t.expand(B).contiguous()
 
 
-def _check_not_ported(mf, step_mult):
-    if mf is not None:
-        raise NotImplementedError(
-            "mf (strongly-convex FISTA) is not ported yet: ROADMAP.md "
-            "queue 1, item 2(a), 'mf and step_mult'")
+def _check_not_ported(step_mult):
     if step_mult != 1.0:
         raise NotImplementedError(
             "step_mult != 1 (over-relaxed FISTA) is not ported yet: "
-            "ROADMAP.md queue 1, item 2(a), 'mf and step_mult'")
+            "ROADMAP.md queue 1, item 2(a), 'step_mult'")
+
+
+def _check_mf(mf, restart, lam2):
+    if mf is not None and restart:
+        raise ValueError(
+            "restart needs the t-recursion; mf>0 uses a constant "
+            "extrapolation coefficient (restart would be a no-op)")
+    if mf is not None and lam2 is not None:
+        raise ValueError(
+            "lam2 (elastic net) composes with restart only; the mf "
+            "analysis was validated for the pure-l1 prox")
+
+
+def _mf_beta_pair(gamma, mf, dtype):
+    """Per-lane ``(beta1, beta_const)`` of the strongly-convex (mf > 0)
+    FISTA variant, drawn with the same sequence operations as the generic
+    driver's ``AdaptiveNesterovSequence(m=mf)`` under the fixed stepsize
+    ``gamma`` (B,): f32 rounds the first coefficient differently from the
+    later ones, hence the pair.  The operations are elementwise, so one
+    batched call gives every lane's pair."""
+    from ..accel.nesterov import AdaptiveNesterovSequence
+
+    seq = AdaptiveNesterovSequence(m=float(mf))
+    gamma = gamma.to(dtype)
+    st = tuple(torch.full_like(gamma, -1.0) for _ in range(2))
+    beta1, st = seq.next_coeff(st, gamma)
+    beta2, _ = seq.next_coeff(st, gamma)
+    return beta1, beta2
 
 
 def solve_lasso_batch(A, b, lam, Lf, tol, maxit=1000, use_kernel=True,
@@ -207,11 +300,16 @@ def solve_lasso_batch(A, b, lam, Lf, tol, maxit=1000, use_kernel=True,
     gradient-scheme adaptive restart; ``lam2`` (scalar or (B,)) adds the
     ridge term ``lam2/2 ||x||^2`` through the prox; ``x0`` warm-starts.
     ``use_kernel=False`` runs the plain PyTorch route.  ``lam`` and ``Lf``
-    are scalars or (B,).  ``mf`` and ``step_mult != 1`` are not ported yet
-    and raise :class:`NotImplementedError`.
+    are scalars or (B,).  ``mf`` (a float > 0, the strong-convexity
+    modulus) replaces the t-recursion by the constant coefficient of the
+    generic driver's ``AdaptiveNesterovSequence(m=mf)``: its first
+    coefficient beta1 applies to the first extrapolation, a constant one
+    after that; it excludes ``restart`` and ``lam2``.  ``step_mult != 1``
+    is not ported yet and raises :class:`NotImplementedError`.
 
     Returns ``(xs (B, N), iters (B,) int32, done (B,) bool)``."""
-    _check_not_ported(mf, step_mult)
+    _check_not_ported(step_mult)
+    _check_mf(mf, restart, lam2)
     B, M, N = A.shape
     dtype = A.dtype
     lam = _per_lane(lam, B, A)
@@ -228,24 +326,38 @@ def solve_lasso_batch(A, b, lam, Lf, tol, maxit=1000, use_kernel=True,
     t1 = (1 + torch.sqrt(1 + 4 * t0 * t0)) / 2
     done0 = res0 / gamma <= tol
     iters0 = torch.ones((B,), dtype=torch.int32, device=A.device)
+    beta_const = None
+    if mf is not None:
+        beta1, beta_const = _mf_beta_pair(gamma, mf, dtype)
+        # the mf > 0 sequence has no zero first coefficient: the generic
+        # driver extrapolates step 1 as z0 + beta1 (z0 - x0)
+        x_init = z0 + beta1[:, None] * (z0 - x0)
+    else:
+        # x and z_prev start equal but are separate buffers: the kernel
+        # updates both in place
+        x_init = z0.clone()
     body = _make_fista_body(A, b, gamma, thr, tol, use_kernel=use_kernel,
-                            restart=restart, shrink=shrink)
-    # x and z_prev start equal but are separate buffers: the kernel updates
-    # both in place
-    return _run_loop(body, (z0, z0.clone(), t1, done0, iters0), maxit)
+                            restart=restart, shrink=shrink,
+                            beta_const=beta_const)
+    return _run_loop(body, (x_init, z0, t1, done0, iters0), maxit)
 
 
 def _make_fista_body(A, b, gamma, thr, tol, *, use_kernel, restart,
-                     shrink=None):
+                     shrink=None, beta_const=None):
     """One iteration ``body(k, (x, z_prev, t, done, iters))`` -> the next
-    state, where ``k`` is the new iteration number."""
+    state, where ``k`` is the new iteration number.  ``beta_const`` (B,)
+    replaces the t-recursion by a constant per-lane coefficient (the
+    mf > 0 variant)."""
     dtype = A.dtype
 
     if use_kernel:
         def body(k, state):
             x, z_prev, t, done, iters = state
-            t_new = (1 + torch.sqrt(1 + 4 * t * t)) / 2
-            beta = (t - 1) / t_new
+            if beta_const is not None:
+                beta, t_new = beta_const, t
+            else:
+                t_new = (1 + torch.sqrt(1 + 4 * t * t)) / 2
+                beta = (t - 1) / t_new
             x, z, res, rs = fused_fista_full_step(
                 A, b, x, z_prev, beta, gamma, thr, done.to(dtype), shrink,
                 restart=restart)
@@ -266,8 +378,11 @@ def _make_fista_body(A, b, gamma, thr, tol, *, use_kernel, restart,
                 # immediate restart: reset t BEFORE drawing the coefficient
                 rs = torch.sum((x - z) * (z - z_prev), dim=1)
                 t = torch.where(rs > 0, torch.ones_like(t), t)
-            t_new = (1 + torch.sqrt(1 + 4 * t * t)) / 2
-            beta = ((t - 1) / t_new)[:, None]
+            if beta_const is not None:
+                beta, t_new = beta_const[:, None], t
+            else:
+                t_new = (1 + torch.sqrt(1 + 4 * t * t)) / 2
+                beta = ((t - 1) / t_new)[:, None]
             x_new = z + beta * (z - z_prev)
             newly_done = res / gamma <= tol
             keep = done[:, None]
@@ -281,22 +396,9 @@ def _make_fista_body(A, b, gamma, thr, tol, *, use_kernel, restart,
 
 
 def _run_loop(body, state, maxit):
-    """Run ``body`` from iteration 1 until every lane is done or ``maxit``.
-    Returns ``(z, iters, done)``.
-
-    The JAX loop tests ``all(done)`` on the device before every iteration.
-    Here the host tests it once every ``_CHECK_EVERY`` iterations, the last
-    block cut so the loop stops at exactly ``maxit``; the state stays on the
-    device.  The results are the same as testing every iteration: once a
-    lane is done its x, z_prev, t and iters never change (frozen lanes are
-    selected out, and ``iters`` moves only for live lanes), so iterations
-    run after every lane is done change nothing, and the final
-    ``iters = where(done, iters, k)`` touches only unconverged lanes."""
-    k = 1
-    while k < maxit and not bool(state[3].all()):
-        for _ in range(min(_CHECK_EVERY, maxit - k)):
-            k += 1
-            state = body(k, state)
+    """Run ``body`` from iteration 1 until every lane is done or ``maxit``
+    (see :func:`run_host_loop`).  Returns ``(z, iters, done)``."""
+    state, k = run_host_loop(body, state, lambda s: s[3], maxit)
     _, z, _, done, iters = state
     return z, torch.where(done, iters, k), done
 
@@ -311,8 +413,10 @@ def solve_lasso_batch_packed(A, b, lam, Lf, tol, maxit=1000, restart=False,
     (it must divide B) but selects no layout: the packing exists only to
     strip the TPU's lane padding, so the natural layout runs through the
     full-step kernel.  ``use_kernel=False`` runs the plain route (it takes
-    the place of the JAX ``interpret`` flag)."""
-    _check_not_ported(mf, step_mult)
+    the place of the JAX ``interpret`` flag).  ``mf`` as in
+    :func:`solve_lasso_batch`."""
+    _check_mf(mf, restart, lam2)
+    _check_not_ported(step_mult)
     B, M, N = A.shape
     if pack is not None and not (pack >= 1 and B % pack == 0):
         raise ValueError(f"pack must be a positive divisor of B={B}, "
@@ -325,11 +429,11 @@ def solve_lasso_batch_packed(A, b, lam, Lf, tol, maxit=1000, restart=False,
           else torch.as_tensor(x0, dtype=A.dtype, device=A.device)
           .reshape(B, N))
     return _solve_packed_core(A, b, lam, Lf, tol, x0, maxit=maxit,
-                              restart=restart, use_kernel=use_kernel)
+                              restart=restart, use_kernel=use_kernel, mf=mf)
 
 
 def _solve_packed_core(A, b, lam, Lf, tol, x0, *, maxit, restart,
-                       use_kernel):
+                       use_kernel, mf=None):
     """FISTA from ``x0`` whose init is the full step with beta = 0,
     z_prev = x0 and no lane frozen (the restart signal there is
     ``-||x - z||^2 <= 0``, so no spurious reset).  Returns
@@ -348,8 +452,13 @@ def _solve_packed_core(A, b, lam, Lf, tol, x0, *, maxit, restart,
             A, b, x0, x0, zeros, gamma, thr, zeros, restart=restart)
     t1 = torch.full((B,), _PHI, dtype=dtype, device=A.device)
     iters0 = torch.ones((B,), dtype=torch.int32, device=A.device)
+    beta_const = None
+    if mf is not None:
+        beta1, beta_const = _mf_beta_pair(gamma, mf, dtype)
+        # the first extrapolation takes beta1 (see solve_lasso_batch)
+        x = z_prev + beta1[:, None] * (z_prev - x0)
     body = _make_fista_body(A, b, gamma, thr, tol, use_kernel=use_kernel,
-                            restart=restart)
+                            restart=restart, beta_const=beta_const)
     return _run_loop(body, (x, z_prev, t1, res0 / gamma <= tol, iters0),
                      maxit)
 
@@ -403,3 +512,51 @@ def solve_lasso_batch_packed_tail(A, b, lam, Lf, tol, maxit=2000, k1=192,
     iters = it1.index_add(0, idx, torch.where(was_done, 0, it2))
     done = dn1.index_copy(0, idx, was_done | dn2)
     return xs, iters, done
+
+
+def solve_lasso_batch_blocked(A, b, lam, Lf, tol, maxit=2000, iter_block=8,
+                              restart=False, x0=None, use_kernel=True):
+    """Batched FISTA with K-step iteration blocking, K = ``iter_block``.
+
+    Same contract as ``proxtpu.kernels.lasso.solve_lasso_batch_blocked``:
+    one FB step, then :func:`fused_fista_k_steps` runs K iterations per
+    launch, restart (if on) inside the inner loop.  The trajectory is
+    :func:`solve_lasso_batch`'s; the stopping criterion is only sampled
+    every K iterations, so counts are upper bounds (a lane whose residual
+    dips below tol between samples runs on) and are clamped to ``maxit``.
+    ``use_kernel=False`` runs the plain route.  Returns
+    ``(xs (B, N), iters (B,) int32, done (B,) bool)``."""
+    B, M, N = A.shape
+    dtype = A.dtype
+    gamma = 1.0 / _per_lane(Lf, B, A)
+    thr = gamma * _per_lane(lam, B, A)
+    K = int(iter_block)
+    x0 = (torch.zeros((B, N), dtype=dtype, device=A.device) if x0 is None
+          else torch.as_tensor(x0, dtype=dtype, device=A.device)
+          .reshape(B, N))
+    fb = fused_fb_prox_grad if use_kernel else reference_fb_prox_grad
+    z0, res0 = fb(A, b, x0, gamma, thr)
+    t1 = torch.full((B,), _PHI, dtype=dtype, device=A.device)
+    iters0 = torch.ones((B,), dtype=torch.int32, device=A.device)
+
+    def body(k, state):
+        x, z_prev, t, done, iters = state
+        dm = done.to(dtype)
+        if use_kernel:
+            x, z_prev, t, res = fused_fista_k_steps(
+                A, b, x, z_prev, t, gamma, thr, dm, K=K, restart=restart)
+        else:
+            x, z_prev, t, res = reference_fista_k_steps(
+                A, b, x, z_prev, t, gamma, thr, dm, K=K, restart=restart)
+        iters = torch.where(done, iters, k)
+        return x, z_prev, t, done | (res / gamma <= tol), iters
+
+    # x and z_prev start equal but are separate buffers: the kernel updates
+    # both in place
+    state, k = run_host_loop(
+        body, (z0.clone(), z0, t1, res0 / gamma <= tol, iters0),
+        lambda s: s[3], maxit, k_step=K)
+    _, z, _, done, iters = state
+    # the loop moves K iterations at a time from k = 1, so an unconverged
+    # lane may run up to maxit + K - 1 steps; its report is clamped
+    return z, torch.clamp(torch.where(done, iters, k), max=maxit), done

@@ -1,5 +1,7 @@
-"""Utilities of the port."""
+"""Utilities of the port: precision policy, tree operations, shared-lane
+markers and the forward-backward toolkit."""
 
-from .precision import require_full_f32_matmul
+from .precision import pdot, pmatvec, require_full_f32_matmul
+from .shared import Shared
 
-__all__ = ["require_full_f32_matmul"]
+__all__ = ["pdot", "pmatvec", "require_full_f32_matmul", "Shared"]

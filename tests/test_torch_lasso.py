@@ -5,7 +5,8 @@ kernels in interpret mode, as ``tests/test_kernels.py`` runs them) and
 through ``proxtpu_torch``, whose wrappers run their plain versions for CPU
 tensors.  Tolerances are the reference's own: 5e-6 on one step
 (``test_kernels.py:45-46``); counts within +-1 and solutions within 1e-4
-across solver paths (``test_kernels.py:58-61``).
+across solver paths (``test_kernels.py:58-61``).  K fused steps are held to
+1e-5: each of up to eight steps adds its own 5e-6-sized rounding difference.
 """
 
 import os
@@ -310,10 +311,128 @@ def test_packed_tail_plain_route_matches_kernel_route(packed_problems,
 
 @pytest.mark.parametrize("solver", [tl.solve_lasso_batch,
                                     tl.solve_lasso_batch_packed])
-@pytest.mark.parametrize("kw", [{"mf": 0.5}, {"step_mult": 1.5}])
+@pytest.mark.parametrize("kw", [{"step_mult": 1.5}])
 def test_unported_options_raise(small, solver, kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         solver(*map(_t, small), TOL, **kw)
+
+
+@pytest.mark.parametrize("K", [1, 3, 8])
+@pytest.mark.parametrize("restart", [False, True])
+def test_fista_k_steps_matches_jax(step_data, K, restart):
+    """The plain K-step version (and its wrapper on CPU tensors) against
+    the JAX kernel in interpret mode; frozen lanes come back bit-equal."""
+    d = step_data
+    t = np.random.default_rng(3).uniform(1, 5, 8).astype(np.float32)
+    names = ("A", "b", "x", "z_prev")
+    rest = ("gamma", "thr")
+    ref = jl.fused_fista_k_steps(
+        *(jnp.asarray(d[k]) for k in names), jnp.asarray(t),
+        *(jnp.asarray(d[k]) for k in rest), jnp.asarray(d["done"]), K=K,
+        interpret=True, restart=restart)
+    plain = tl.reference_fista_k_steps(
+        *(_t(d[k]) for k in names), _t(t), *(_t(d[k]) for k in rest),
+        _t(d["done"]), K=K, restart=restart)
+    x, zp, tt = _t(d["x"]), _t(d["z_prev"]), _t(t)
+    before = tl.fused_fista_k_steps.launches
+    out = tl.fused_fista_k_steps(_t(d["A"]), _t(d["b"]), x, zp, tt,
+                                 *(_t(d[k]) for k in rest), _t(d["done"]),
+                                 K=K, restart=restart)
+    assert tl.fused_fista_k_steps.launches == before
+    assert out[0] is x and out[1] is zp and out[2] is tt  # in place
+    for port in (plain, out):
+        for p, r in zip(port, ref):
+            np.testing.assert_allclose(p.numpy(), np.asarray(r), atol=1e-5)
+    frozen = d["done"] != 0
+    for p, inp in zip(out[:3], (d["x"], d["z_prev"], t)):
+        np.testing.assert_array_equal(p.numpy()[frozen], inp[frozen])
+    assert (out[3].numpy()[frozen] == 0).all()
+
+
+def test_fista_k_steps_rejects_aliased_carries(step_data):
+    d = step_data
+    x = _t(d["x"])
+    with pytest.raises(ValueError, match="separate buffers"):
+        tl.fused_fista_k_steps(_t(d["A"]), _t(d["b"]), x, x,
+                               torch.ones(8), _t(d["gamma"]), _t(d["thr"]),
+                               _t(d["done"]))
+
+
+@pytest.mark.parametrize("restart", [False, True])
+def test_solve_lasso_batch_blocked_matches_jax(small, restart):
+    """Against the JAX blocked solver: solutions within 1e-4, counts equal
+    or one block apart on at most one lane; and the reference's own
+    blocked-versus-one-step contract (tests/test_kernels.py:218-236)."""
+    K = 8
+    ref = jl.solve_lasso_batch_blocked(*map(jnp.asarray, small), TOL,
+                                       maxit=3000, iter_block=K,
+                                       interpret=True, restart=restart)
+    port = tl.solve_lasso_batch_blocked(*map(_t, small), TOL, maxit=3000,
+                                        iter_block=K, restart=restart)
+    z_p, it_p, d_p = (np.asarray(v) for v in port)
+    z_r, it_r, d_r = (np.asarray(v) for v in ref)
+    assert d_p.all() and d_r.all()
+    np.testing.assert_allclose(z_p, z_r, atol=1e-4)
+    diff = np.abs(it_p.astype(np.int64) - it_r)
+    assert set(diff.tolist()) <= {0, K} and int((diff == K).sum()) <= 1
+    one = tl.solve_lasso_batch(*map(_t, small), TOL, maxit=3000,
+                               restart=restart)
+    assert bool(one[2].all())
+    np.testing.assert_allclose(z_p, one[0].numpy(), atol=5e-4)
+    assert (it_p >= one[1].numpy() - 1).all()
+    plain = tl.solve_lasso_batch_blocked(*map(_t, small), TOL, maxit=3000,
+                                         iter_block=K, restart=restart,
+                                         use_kernel=False)
+    for a, b in zip(plain, port):
+        assert torch.equal(a, b)
+
+
+def test_solve_lasso_batch_blocked_clamps_to_maxit(small):
+    z, it, done = tl.solve_lasso_batch_blocked(*map(_t, small), 1e-12,
+                                               maxit=13, iter_block=8)
+    assert not done.any() and (it.numpy() == 13).all()
+
+
+@pytest.fixture(scope="module")
+def tall():
+    """Strongly convex lasso problems (tall A) and the smallest sigma_min^2
+    over the lanes as mf, as tests/test_dispatch.py:356-366 makes them."""
+    A, b, lam, Lf = _problems(4, 32, 16, 13)
+    mf = min(float(np.linalg.svd(a, compute_uv=False)[-1] ** 2) for a in A)
+    return (A, b, lam, Lf), mf
+
+
+def test_mf_beta_pair_bit_equal(tall):
+    (A, b, lam, Lf), mf = tall
+    gamma = (1.0 / Lf).astype(np.float32)
+    ref = jl._mf_beta_pair(jnp.asarray(gamma), mf, jnp.float32)
+    port = tl._mf_beta_pair(_t(gamma), mf, torch.float32)
+    for p, r in zip(port, ref):
+        assert p.dtype == torch.float32
+        np.testing.assert_array_equal(p.numpy(), np.asarray(r))
+
+
+@pytest.mark.parametrize("name", ["solve_lasso_batch",
+                                  "solve_lasso_batch_packed"])
+def test_mf_solvers_match_jax(tall, name):
+    (A, b, lam, Lf), mf = tall
+    args = (A, b, lam, Lf)
+    ref = getattr(jl, name)(*map(jnp.asarray, args), TOL, maxit=3000,
+                            interpret=True, mf=mf)
+    port = getattr(tl, name)(*map(_t, args), TOL, maxit=3000, mf=mf)
+    _assert_solver_parity(port, ref)
+    plain = getattr(tl, name)(*map(_t, args), TOL, maxit=3000, mf=mf,
+                              use_kernel=False)
+    _assert_solver_parity(plain, ref)
+    # the modulus pays: fewer iterations than the t-recursion
+    no_mf = getattr(tl, name)(*map(_t, args), TOL, maxit=3000)
+    assert port[1].float().mean() < no_mf[1].float().mean()
+
+
+@pytest.mark.parametrize("kw", [{"restart": True}, {"lam2": 0.3}])
+def test_mf_rejects_restart_and_lam2(small, kw):
+    with pytest.raises(ValueError):
+        tl.solve_lasso_batch(*map(_t, small), TOL, mf=0.1, **kw)
 
 
 def test_problems_from_numpy_round_trip(small):
@@ -338,9 +457,15 @@ def test_problems_from_numpy_rejects_bad_shapes(small, bad):
 def test_port_imports_without_jax_nvcc_or_triton():
     """Importing the port loads no JAX and needs neither nvcc nor triton."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    code = ("import sys; import proxtpu_torch, proxtpu_torch.kernels.lasso;"
-            " bad = [m for m in ('jax', 'triton') if m in sys.modules];"
-            " assert not bad, bad")
+    modules = ["proxtpu_torch", "proxtpu_torch.kernels.lasso",
+               "proxtpu_torch.kernels.box_qp", "proxtpu_torch.kernels.dispatch",
+               "proxtpu_torch.parallel.batch", "proxtpu_torch.algorithms",
+               "proxtpu_torch.prox", "proxtpu_torch.accel",
+               "proxtpu_torch.ops", "proxtpu_torch.utils.fb_tools",
+               "proxtpu_torch.utils.shared", "proxtpu_torch.convert"]
+    code = (f"import sys, importlib; [importlib.import_module(m) for m in "
+            f"{modules!r}]; bad = [m for m in ('jax', 'triton') "
+            f"if m in sys.modules]; assert not bad, bad")
     env = dict(os.environ, PATH="/usr/bin:/bin", CUDA_HOME="/nonexistent",
                PYTHONPATH=root)
     subprocess.run([sys.executable, "-c", code], check=True, env=env,
