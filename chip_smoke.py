@@ -7,7 +7,8 @@ Phases, in order; any failure raises and exits non-zero:
 1. identify the card (there is no CPU path: no CUDA device is an error);
 2. build the CUDA kernels from ``proxtpu_torch/csrc`` (first use);
 3. hold each kernel against its plain PyTorch version on the card at the
-   main path's shapes and a ragged one, then time both;
+   shapes the driven paths give it and a ragged one, then time both; time
+   the read-floor probe ``read_reduce`` at every step kernel's shape;
 4. run the main path at full size: 256 distinct-A lasso problems of
    200 x 400 (``bench.gen_problems``, seed 0) through
    ``solve_lasso_batch_packed_tail(restart=True, k1=192, tail=64)``, drained
@@ -25,7 +26,16 @@ Phases, in order; any failure raises and exits non-zero:
    (c) the flagship 256 x 200 x 400: the packed solver, ``fista_step``;
    (d) 256 tall 400 x 200 lasso problems with the strong-convexity modulus
        ``mf``: ``fb_step`` then ``fista_step`` with a constant beta;
-6. print the kernels' JSON line, then the result line.
+6. drive the TV route, ``BatchedAlgorithm(make_chambolle_pock_iteration)``
+   -> ``match_tv_solver`` -> ``solve_tv_batch`` -> ``cp_k_steps``, on the
+   kernel route and on the generic driver, with a float64 fixed-point
+   recheck of every returned (x, y) on the host:
+   (e) 64 images of 64 x 64 (``benchmarks/tv_bench.py``, seed 0, noise
+       0.15, lam 0.12, tol 1e-4): one thread block per image;
+   (f) 64 images of 256 x 256, the same generator: tiles with a halo;
+7. print the kernels' JSON line (time, plain version's time, bound and,
+   where one PyTorch call computes the same function, that call's time),
+   then the result line.
 
 Imports no JAX.  Needs one card, ``nvcc`` (CUDA_HOME) and a few minutes.
 """
@@ -65,6 +75,54 @@ BLOCKED_SHAPES = [(64, 512, 1024), (7, 33, 161)]  # route (a), ragged
 BOX_SHAPES = [(64, 512), (7, 161)]                # route (b), ragged
 SMALL_LASSO = (1024, 64, 128)  # kernel_sweep.py:22, sent to XLA on a v5e
 SMALL_BOX = (256, 128)         # dispatch.py:767-770, sent to XLA on a v5e
+
+
+# TV denoising (benchmarks/tv_bench.py:28-37, 61-66)
+TV_LAM = 0.12
+TV_TOL = 1e-4
+TV_MAXIT = 5000
+TV_SHAPES = [(64, 64, 64), (64, 256, 256)]  # routes (e) and (f)
+TV_RAGGED = (7, 33, 21)
+# cp_k_steps against its plain version.  The kernel rounds every operation
+# on its own, in the plain version's order, so the two should agree to the
+# last bit or nearly; they are held to the JAX package's own one-step
+# tolerance for its kernel (5e-6), and after K = 8 steps to eight times
+# that: one Chambolle-Pock step is nonexpansive in the stepsize-weighted
+# norm, so one-step differences at most add up.
+ATOL_CP = 5e-6
+ATOL_CP_K = 4e-5
+# read_reduce against A.sum: both sum M * N f32 terms of size O(1/sqrt(M))
+# in different orders; each carries a few ulps of its largest partial sum
+# (at most about |A|_1 of a lane, ~2e4 at 512 x 1024), so the sums are held
+# relative to the lane's sum of absolute values.
+READ_RTOL = 1e-5
+# every step kernel's operator shape, for the measured read floor
+FLOOR_SHAPES = [(256, 200, 400), (64, 200, 400), (64, 512, 1024),
+                (1024, 64, 128), (64, 512, 512), (256, 128, 128)]
+# datasheet rates of one H100 SXM: device memory, f32 outside tensor cores
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_S = 67e12
+
+
+def bound(nbytes, ops):
+    """``(ms, by)``: the least time the card could take to move ``nbytes``
+    (each input read once, each output written once) or do ``ops`` float32
+    operations, whichever is larger, and which of the two it is."""
+    tb, to = nbytes / PEAK_BYTES_S, ops / PEAK_F32_S
+    return 1e3 * max(tb, to), "bytes" if tb >= to else "operations"
+
+
+def cp_bound(B, H, W):
+    """cp_k_steps at K steps: b, x, yx, yy, g1, g2, lam -> x, yx, yy, res;
+    25 operations per pixel and step, counted from the plain version (3 for
+    the divergence, 5 for xbar, 2 for mid, 2 differences, 4 for v, 4 for
+    its norm, 3 for the scale, 2 products)."""
+    return bound(4 * (7 * B * H * W + 4 * B), 25 * K * B * H * W)
+
+
+def read_bound(B, M, N):
+    """read_reduce: A -> out, one addition per entry."""
+    return bound(4 * (B * M * N + B), B * M * N)
 
 
 def run(cmd):
@@ -185,6 +243,35 @@ def time_ms(fn, reps=20, inner=10):
         end.synchronize()
         ts.append(start.elapsed_time(end) / inner)
     return ts
+
+
+def graph_ms(fn, reps=20, inner=10):
+    """The median time in ms of one call at the device's own pace:
+    ``inner`` calls are captured into a CUDA graph, whose replay costs the
+    host one launch, and ``reps`` replays are timed with CUDA events.
+    Where :func:`time_ms` reads more, the host sets the pace of the eager
+    loop."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(inner):
+            fn()
+    graph.replay()
+    ts = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        ts.append(start.elapsed_time(end) / inner)
+    return statistics.median(ts)
 
 
 def time_kernels(card):
@@ -389,6 +476,239 @@ def time_new_kernels(card):
     return out
 
 
+def tv_images(B, H, W, seed=0, noise=0.15):
+    """The reference's TV test images (benchmarks/tv_bench.py:61-66): a
+    centred square of ones plus Gaussian noise, float32."""
+    rng = np.random.default_rng(seed)
+    clean = np.zeros((B, H, W), np.float32)
+    clean[:, H // 4: 3 * H // 4, W // 4: 3 * W // 4] = 1.0
+    return clean + noise * rng.standard_normal((B, H, W)).astype(np.float32)
+
+
+def tv_inputs(B, H, W, seed):
+    """Operands of one cp_k_steps call: noisy images, a warm state, the
+    default stepsizes, a per-image lam and a done mask with about half the
+    images frozen."""
+    from proxtpu_torch.kernels.tv import default_tv_stepsizes
+
+    rng = np.random.default_rng(seed)
+    g1, g2 = default_tv_stepsizes()
+    arrays = dict(
+        b=tv_images(B, H, W, seed),
+        x=rng.standard_normal((B, H, W)).astype(np.float32),
+        yx=(0.05 * rng.standard_normal((B, H, W))).astype(np.float32),
+        yy=(0.05 * rng.standard_normal((B, H, W))).astype(np.float32),
+        g1=np.full(B, g1, np.float32),
+        g2=np.full(B, g2, np.float32),
+        lam=np.full(B, TV_LAM, np.float32),
+        lams=rng.uniform(0.05, 0.3, B).astype(np.float32),
+        done=(rng.random(B) < 0.5).astype(np.float32),
+    )
+    return {k: torch.tensor(v, device=DEVICE) for k, v in arrays.items()}
+
+
+def check_tv_kernel():
+    """cp_k_steps against its plain version at the routes' shapes and a
+    ragged one, K = 1 and K = 8, uniform and per-image lam, from zero and
+    from a warm state, with and without frozen images (which come back
+    bit-equal, copied at done = 1 and left in place at done = 2).  Returns
+    the largest absolute error."""
+    from proxtpu_torch.kernels import tv
+
+    worst = 0.0
+    for B, H, W in TV_SHAPES + [TV_RAGGED]:
+        d = tv_inputs(B, H, W, seed=B + H + W)
+        zero = torch.zeros_like(d["b"])
+        for k, atol in ((1, ATOL_CP), (K, ATOL_CP_K)):
+            for lam in (d["lam"], d["lams"]):
+                for state in ((zero, zero, zero), (d["x"], d["yx"], d["yy"])):
+                    for done in (None, d["done"]):
+                        args = (d["b"], *state, d["g1"], d["g2"], lam)
+                        want = tv.reference_cp_k_steps(*args, k, done)
+                        got = tv.fused_cp_k_steps(*args, k, done)
+                        torch.cuda.synchronize()
+                        err = max(max_err(g, w) for g, w in zip(got, want))
+                        assert err <= atol, (B, H, W, k, err)
+                        worst = max(worst, err)
+                        if done is not None:
+                            frozen = done != 0
+                            for g, w in zip(got[:3], state):
+                                assert torch.equal(g[frozen], w[frozen])
+                            assert bool((got[3][frozen] == 0).all())
+                            # done = 2: the outputs hold the frozen state
+                            out = tuple(w.clone() for w in want[:3])
+                            again = tv.fused_cp_k_steps(*args, k, 2 * done,
+                                                        out=out)
+                            torch.cuda.synchronize()
+                            assert all(torch.equal(g, w) for g, w in
+                                       zip(again, got)), (B, H, W, k)
+                        print(f"  cp_k_steps {(B, H, W)} K={k} per-image "
+                              f"lam={lam is d['lams']} warm="
+                              f"{state[0] is not zero} frozen="
+                              f"{0 if done is None else int(done.sum())}: "
+                              f"max|err| {err:.3e}")
+    return worst
+
+
+def time_tv_kernel(card):
+    """cp_k_steps (K = 8, writing into given buffers, as the solver calls
+    it) beside its plain version at the two routes' shapes, in an eager
+    loop, and the kernel at the device's own pace.  Returns ``{shape:
+    (kernel ms, plain ms)}``."""
+    from proxtpu_torch.kernels import tv
+
+    out = {}
+    for B, H, W in TV_SHAPES:
+        d = tv_inputs(B, H, W, seed=1)
+        args = (d["b"], d["x"], d["yx"], d["yy"], d["g1"], d["g2"], d["lam"])
+        bufs = tuple(torch.empty_like(d["b"]) for _ in range(3))
+        kernel = lambda: tv.fused_cp_k_steps(  # noqa: E731
+            *args, K, None, out=bufs)
+        nbytes = 4 * (7 * B * H * W + 4 * B)
+        out[(B, H, W)] = time_pair(
+            "cp_k_steps", kernel, lambda: tv.reference_cp_k_steps(*args, K),
+            f"{(B, H, W)} K={K}", card, nbytes)
+        print(f"    at the device's pace (CUDA graph): kernel "
+              f"{1e3 * graph_ms(kernel):.1f} us; bound "
+              f"{1e3 * cp_bound(B, H, W)[0]:.1f} us ({nbytes / 1e6:.1f} MB "
+              f"over {PEAK_BYTES_S / 1e12} TB/s)  [{card}]")
+    return out
+
+
+def floor_operand(B, M, N, seed):
+    rng = np.random.default_rng(seed)
+    return torch.tensor((rng.standard_normal((B, M, N)) / np.sqrt(M))
+                        .astype(np.float32), device=DEVICE)
+
+
+def check_read_reduce():
+    """read_reduce against A.sum(dim=(1, 2)) at every floor shape and a
+    ragged one whose lanes do not start on 16 bytes; two calls give the
+    same bits.  Returns the largest absolute error."""
+    from proxtpu_torch.kernels import probe
+
+    worst = 0.0
+    for B, M, N in FLOOR_SHAPES + [(7, 33, 161)]:
+        A = floor_operand(B, M, N, seed=B + M + N)
+        got, again = probe.read_reduce(A), probe.read_reduce(A)
+        want = probe.reference_read_reduce(A)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again), (B, M, N)
+        err = max_err(got, want)
+        rel = float(((got - want).abs() / A.abs().sum(dim=(1, 2))).max())
+        assert rel <= READ_RTOL, (B, M, N, err, rel)
+        worst = max(worst, err)
+        print(f"  read_reduce {(B, M, N)}: max|err| {err:.3e}, relative to "
+              f"the lane's sum of |A| {rel:.3e}")
+    return worst
+
+
+def phase_read_floor(card):
+    """The probe's own path: the measured read floor at every step kernel's
+    operator shape, beside the library call ``A.sum(dim=(1, 2))`` and the
+    datasheet bound.  An operand under the 50 MB of L2 stays there between
+    calls, as a solver's operator does between iterations.  Both are timed
+    in an eager loop and at the device's own pace (the floor proper).
+    Returns ``({shape: (kernel ms, library ms)}, launches)``."""
+    from proxtpu_torch.kernels import probe
+
+    probe.read_reduce.launches = 0
+    out = {}
+    for B, M, N in FLOOR_SHAPES:
+        A = floor_operand(B, M, N, seed=1)
+        nbytes = A.numel() * 4 + B * 4
+        kernel = lambda: probe.read_reduce(A)  # noqa: E731
+        library = lambda: A.sum(dim=(1, 2))  # noqa: E731
+        out[(B, M, N)] = time_pair("read_reduce", kernel, library,
+                                   f"{(B, M, N)}", card, nbytes)
+        print(f"    at the device's pace (CUDA graph): kernel "
+              f"{1e3 * graph_ms(kernel):.1f} us, library "
+              f"{1e3 * graph_ms(library):.1f} us; bound "
+              f"{1e3 * read_bound(B, M, N)[0]:.1f} us ({nbytes / 1e6:.1f} MB "
+              f"over {PEAK_BYTES_S / 1e12} TB/s)  [{card}]")
+    return out, probe.read_reduce.launches
+
+
+def tv_recheck(b, lam, x, y):
+    """One Chambolle-Pock step from (x, y) in float64 on the host: the
+    largest ||xbar - x||_inf + ||ybar - y||_inf over the images, the
+    solver's own stopping quantity at the returned point."""
+    from proxtpu_torch.kernels.tv import default_tv_stepsizes
+
+    g1, g2 = default_tv_stepsizes()
+    b, x, y = (np.asarray(v, np.float64) for v in (b, x, y))
+    yx, yy = y[:, 0].copy(), y[:, 1].copy()
+    yx[:, -1, :] = 0.0
+    yy[:, :, -1] = 0.0
+    div = yx + yy
+    div[:, 1:, :] -= yx[:, :-1, :]
+    div[:, :, 1:] -= yy[:, :, :-1]
+    xbar = (x + g1 * div + g1 * b) / (1 + g1)
+    mid = 2 * xbar - x
+    v = y.copy()
+    v[:, 0, :-1, :] += g2 * (mid[:, 1:, :] - mid[:, :-1, :])
+    v[:, 1, :, :-1] += g2 * (mid[:, :, 1:] - mid[:, :, :-1])
+    nrm = np.sqrt(v[:, 0] ** 2 + v[:, 1] ** 2)
+    scale = np.where(nrm > lam, lam / np.maximum(nrm, 1e-30), 1.0)
+    ybar = v * scale[:, None]
+    return float(np.max(np.abs(xbar - x).max(axis=(1, 2))
+                        + np.abs(ybar - y).max(axis=(1, 2, 3))))
+
+
+def tv_route(noisy):
+    """``solve(use_kernels)`` and ``check(x, y)`` for the TV problem on
+    ``noisy`` (B, H, W) through ``BatchedAlgorithm``."""
+    from proxtpu_torch import (
+        BatchedAlgorithm,
+        make_chambolle_pock_iteration,
+        tv_from_numpy,
+    )
+    from proxtpu_torch.ops import Grad2DOperator
+    from proxtpu_torch.prox import NormL21, SqrDistance
+
+    B, H, W = noisy.shape
+    b, lam = tv_from_numpy(noisy, TV_LAM, device=DEVICE)
+    kw = dict(x0=torch.zeros_like(b),
+              y0=torch.zeros((B, 2, H, W), device=DEVICE), g=SqrDistance(b),
+              h=NormL21(lam, axis=0), L=Grad2DOperator((H, W)))
+    solve = lambda use: BatchedAlgorithm(  # noqa: E731
+        make_chambolle_pock_iteration, maxit=TV_MAXIT, tol=TV_TOL,
+        use_kernels="auto" if use else False)(**kw)
+    check = lambda x, y: tv_recheck(noisy, TV_LAM, x, y)  # noqa: E731
+    return solve, check
+
+
+def check_tv_contract_small():
+    """The reference's cross-path contract for TV at its test shape
+    (tests/test_tv_kernel.py:27-29, 177-192): the kernel route against the
+    generic driver, every image done, x within 1e-3, counts an upper bound
+    within one block: in [iters - 1, iters + 8]."""
+    solve, _ = tv_route(tv_images(4, 16, 24))
+    (x, y), it, done = solve(True)
+    (x_g, y_g), it_g, done_g = solve(False)
+    assert bool(done.all()) and bool(done_g.all())
+    dx = max_err(x, x_g)
+    assert dx <= 1e-3, dx
+    assert bool((it >= it_g - 1).all()) and bool((it <= it_g + 8).all()), (
+        it, it_g)
+    print(f"  TV (4, 16, 24): kernel route iterations {it.tolist()}, generic "
+          f"driver {it_g.tolist()}, max|d x| {dx:.2e}")
+
+
+def phase_tv_routes(card):
+    """Routes (e) and (f): the TV configuration of benchmarks/tv_bench.py at
+    64 x 64 and at 256 x 256, 64 images each.  Returns the launches per
+    kernel summed over the two."""
+    total = {}
+    for tag, (B, H, W) in zip("ef", TV_SHAPES):
+        solve, check = tv_route(tv_images(B, H, W))
+        launches = drive(f"route ({tag}) TV {(B, H, W)}", solve, check,
+                         TV_TOL, card, ("cp_k_steps",), dx_tol=1e-3)
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+    return total
+
+
 def recheck(As, bs, lams, Lfs, xs):
     """bench.py's residual recheck: the f32 FB residual of every lane."""
     gam = (1.0 / Lfs)[:, None]
@@ -564,21 +884,30 @@ def launch_counters():
     """The kernel wrappers, whose ``launches`` attributes count launches."""
     from proxtpu_torch.kernels import box_qp as tb
     from proxtpu_torch.kernels import lasso as tl
+    from proxtpu_torch.kernels import probe, tv
 
-    return {"fb_step": tl.fused_fb_prox_grad,
+    return {"cp_k_steps": tv.fused_cp_k_steps,
+            "read_reduce": probe.read_reduce,
+            "fb_step": tl.fused_fb_prox_grad,
             "fista_step": tl.fused_fista_full_step,
             "fista_k_steps": tl.fused_fista_k_steps,
             "pg_step": tb.fused_pg_box_step,
             "pg_k_steps": tb.fused_pg_box_k_steps}
 
 
-def drive(name, solve, check, tol, card, expect):
+def drive(name, solve, check, tol, card, expect, dx_tol=None):
     """Drive one route through BatchedAlgorithm: once on the kernel route
     with every launch counter set to 0 just before and read just after
     (the counts this route adds to the kernels' JSON line), once on the
-    plain route.  Every lane done on both; ``check`` rechecks a solution on
-    the host, held to 2 tol on both; ``expect`` lists the kernels the route
-    must launch, and no other kernel may launch."""
+    plain route, which must launch no kernel.  Every lane done on both;
+    ``check`` rechecks a solution (the arrays of its structure) on the
+    host, held to 2 tol on both; ``expect`` lists the kernels the route
+    must launch, and no other kernel may launch.  ``dx_tol``, where given,
+    bounds the distance of the two routes' primal solutions."""
+    def arrays(sol):
+        sol = sol if isinstance(sol, tuple) else (sol,)
+        return [t.cpu().numpy() for t in sol]
+
     wrappers = launch_counters()
     solve(True)  # warm-up (the kernel route's first call)
     torch.cuda.synchronize()
@@ -593,13 +922,20 @@ def drive(name, solve, check, tol, card, expect):
     xs_p, it_p, done_p = solve(False)
     torch.cuda.synchronize()
     dt_p = time.perf_counter() - t0
+    assert all(w.launches == launches[k] for k, w in wrappers.items()), (
+        f"{name}: the plain route launched a kernel")
     assert bool(done.all()), f"{name}: {int((~done).sum())} lanes left"
     assert bool(done_p.all()), f"{name}: {int((~done_p).sum())} plain left"
-    assert bool(torch.isfinite(xs).all()) and xs.shape == xs_p.shape
     moved = {k for k, n in launches.items() if n > 0}
     assert moved == set(expect), (name, launches, expect)
-    r, r_p = check(xs.cpu().numpy()), check(xs_p.cpu().numpy())
+    sol, sol_p = arrays(xs), arrays(xs_p)
+    assert all(np.isfinite(a).all() and a.shape == a_p.shape
+               for a, a_p in zip(sol, sol_p))
+    r, r_p = check(*sol), check(*sol_p)
     assert r <= 2 * tol and r_p <= 2 * tol, (name, r, r_p)
+    xs, xs_p = (v[0] if isinstance(v, tuple) else v for v in (xs, xs_p))
+    if dx_tol is not None:
+        assert max_err(xs, xs_p) <= dx_tol, (name, max_err(xs, xs_p))
     dit = (iters - it_p).abs()
     print(f"{name}: launches {launches}; kernel route {dt:.4f} s, "
           f"recheck {r:.3e}, iterations mean {iters.float().mean():.2f} "
@@ -682,33 +1018,87 @@ def phase_routes(card):
     return total
 
 
+def kernel_bounds():
+    """``{kernel: (shape, ms, by)}``: the bound of each kernel at the shape
+    its times in the JSON line are taken at.  Bytes: every operand read
+    once, every result written once, float32.  Operations: two products
+    with the operator per step (2 M N each) plus about ten per entry of the
+    iterate; for the last two see :func:`cp_bound`, :func:`read_bound`."""
+    B, M, N = MAIN_SHAPES[0]
+    Bk, Mk, Nk = BLOCKED_SHAPES[0]
+    Bq, n = BOX_SHAPES[0]
+    Bt, H, W = TV_SHAPES[1]
+
+    def lasso(B, M, N, vecs, scalars, steps):
+        return bound(4 * (B * M * N + B * M + vecs * B * N + scalars * B),
+                     steps * B * (4 * M * N + 10 * N))
+
+    def box(B, n, steps):
+        return bound(4 * (B * n * n + 3 * B * n + 5 * B),
+                     steps * B * (2 * n * n + 6 * n))
+
+    return {
+        # A, b, x, gamma, thr -> z, res
+        "fb_step": ((B, M, N), *lasso(B, M, N, 2, 3, 1)),
+        # A, b, x, z_prev, beta, gamma, thr, done -> x, z_prev, res, rs
+        "fista_step": ((B, M, N), *lasso(B, M, N, 4, 6, 1)),
+        # A, b, x, z_prev, t, gamma, thr, done -> x, z_prev, t, res
+        "fista_k_steps": ((Bk, Mk, Nk), *lasso(Bk, Mk, Nk, 4, 6, K)),
+        # Q, q, x, gamma, lo, hi, done -> x, res
+        "pg_step": ((Bq, n), *box(Bq, n, 1)),
+        "pg_k_steps": ((Bq, n), *box(Bq, n, K)),
+        "cp_k_steps": ((Bt, H, W), *cp_bound(Bt, H, W)),
+        "read_reduce": ((B, M, N), *read_bound(B, M, N)),
+    }
+
+
 def main():
     card = phase_identify()
     phase_build()
     print("kernel vs plain on the card:")
     worst = check_kernels()
     worst.update(check_new_kernels())
-    flagship = time_kernels(card)
-    flagship.update(time_new_kernels(card))
+    worst["cp_k_steps"] = check_tv_kernel()
+    worst["read_reduce"] = check_read_reduce()
+    times = time_kernels(card)
+    times.update(time_new_kernels(card))
+    tv_times = time_tv_kernel(card)
+    times["cp_k_steps"] = tv_times[TV_SHAPES[1]]
+    print("read floor, read_reduce vs A.sum(dim=(1, 2)):")
+    floors, floor_launches = phase_read_floor(card)
+    times["read_reduce"] = floors[MAIN_SHAPES[0]]
     print("cross-path contract at the reference test shapes:")
     check_contract_small()
+    check_tv_contract_small()
     launches = phase_main_path(card)
     print("library route, BatchedAlgorithm -> match_kernel_solver:")
     for k, n in phase_routes(card).items():
         launches[k] = launches.get(k, 0) + n
+    print("TV route, BatchedAlgorithm -> match_tv_solver:")
+    for k, n in phase_tv_routes(card).items():
+        launches[k] = launches.get(k, 0) + n
+    launches["read_reduce"] = floor_launches
     kernels = {
         "fista_step": ("lasso_step.cu", "proxtpu/kernels/lasso.py:156"),
         "fb_step": ("lasso_step.cu", "proxtpu/kernels/lasso.py:37"),
         "fista_k_steps": ("lasso_step.cu", "proxtpu/kernels/lasso.py:768"),
         "pg_step": ("box_qp_step.cu", "proxtpu/kernels/box_qp.py:31"),
         "pg_k_steps": ("box_qp_step.cu", "proxtpu/kernels/box_qp.py:174"),
+        "cp_k_steps": ("tv_step.cu", "proxtpu/kernels/tv.py:76"),
+        "read_reduce": ("probe.cu", "benchmarks/trip_overhead_bench.py:83"),
     }
     assert all(launches[k] > 0 for k in kernels), launches
+    bounds = kernel_bounds()
+    # the one PyTorch call that computes a kernel's function, where there
+    # is one: read_reduce's plain version is that call
+    library = {"read_reduce": times["read_reduce"][1]}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"proxtpu_torch/csrc/{source}", "replaces": replaces,
-         "launches": launches[name], "max_abs_err": worst[name],
-         "ms": flagship[name][0], "plain_ms": flagship[name][1]}
+         "shape": list(bounds[name][0]), "launches": launches[name],
+         "max_abs_err": worst[name], "ms": times[name][0],
+         "plain_ms": times[name][1], "bound_ms": bounds[name][1],
+         "bound_by": bounds[name][2], "library_ms": library.get(name)}
         for name, (source, replaces) in kernels.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,12 +6,14 @@ name.  It imports ``torch`` and never ``jax``.  Its hot steps are CUDA
 kernels written by hand for ``sm_90a`` (``proxtpu_torch/csrc``), built with
 ``nvcc`` at first use; importing the package builds and loads nothing.
 
-* :mod:`proxtpu_torch.algorithms` — FB and FISTA with the generic driver
+* :mod:`proxtpu_torch.algorithms` — FB, FISTA and the primal-dual family
+  (AFBA, Vu-Condat, Chambolle-Pock) with the generic driver
 * :mod:`proxtpu_torch.prox`       — the oracle protocol and prox functions
 * :mod:`proxtpu_torch.accel`      — Nesterov coefficient sequences
-* :mod:`proxtpu_torch.ops`        — identity and dense operators
-* :mod:`proxtpu_torch.kernels`    — batched lasso and box-QP solvers, their
-  kernels, and the kernel-route dispatch
+* :mod:`proxtpu_torch.ops`        — identity, zero, dense and 2-D gradient
+  operators
+* :mod:`proxtpu_torch.kernels`    — batched lasso, box-QP and TV-denoising
+  solvers, their kernels, the read-floor probe and the kernel-route dispatch
 * :mod:`proxtpu_torch.parallel`   — ``BatchedAlgorithm``, the batched
   driver, pipelined dispatch of batched solves
 * :mod:`proxtpu_torch.convert`    — problems from numpy and from the JAX
@@ -30,13 +32,28 @@ from .accel import (
     SimpleNesterovSequence,
 )
 from .algorithms import (
+    AFBA,
+    AFBAIteration,
+    ChambollePock,
     FastForwardBackward,
     ForwardBackward,
     IterativeAlgorithm,
+    VuCondat,
+    afba_default_stepsizes,
+    make_afba_iteration,
+    make_chambolle_pock_iteration,
     make_fast_forward_backward_iteration,
     make_forward_backward_iteration,
+    make_vu_condat_iteration,
 )
-from .convert import box_qp_from_numpy, problems_from_numpy, prox_from_jax
+from .convert import (
+    box_qp_from_numpy,
+    linop_from_jax,
+    problems_from_numpy,
+    prox_from_jax,
+    tv_from_numpy,
+)
+from .prox.base import convex_conjugate
 from .parallel import BatchedAlgorithm
 from .utils.shared import Shared
 
@@ -47,6 +64,10 @@ __all__ = [
     "NesterovExtrapolation", "SimpleNesterovSequence", "FastForwardBackward",
     "ForwardBackward", "IterativeAlgorithm",
     "make_fast_forward_backward_iteration",
-    "make_forward_backward_iteration", "box_qp_from_numpy",
-    "problems_from_numpy", "prox_from_jax", "BatchedAlgorithm", "Shared",
+    "make_forward_backward_iteration", "AFBA", "AFBAIteration",
+    "ChambollePock", "VuCondat", "afba_default_stepsizes",
+    "make_afba_iteration", "make_chambolle_pock_iteration",
+    "make_vu_condat_iteration", "convex_conjugate", "box_qp_from_numpy",
+    "linop_from_jax", "problems_from_numpy", "prox_from_jax",
+    "tv_from_numpy", "BatchedAlgorithm", "Shared",
 ]

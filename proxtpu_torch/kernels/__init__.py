@@ -1,6 +1,6 @@
-"""Batched lasso and box-QP solvers with hand-written Hopper kernels
-(counterpart of ``proxtpu.kernels``).  Kernels are built at first launch,
-not at import."""
+"""Batched lasso, box-QP and TV-denoising solvers with hand-written Hopper
+kernels, and the read-floor probe (counterpart of ``proxtpu.kernels``).
+Kernels are built at first launch, not at import."""
 
 from .box_qp import (
     fused_pg_box_k_steps,
@@ -9,6 +9,15 @@ from .box_qp import (
     reference_pg_box_step,
     solve_box_qp_batch,
     solve_box_qp_batch_blocked,
+)
+from .probe import read_reduce, reference_read_reduce
+from .tv import (
+    default_tv_stepsizes,
+    fused_cp_k_steps,
+    mxu_cp_step,
+    reference_cp_k_steps,
+    reference_cp_step,
+    solve_tv_batch,
 )
 from .lasso import (
     fused_fb_prox_grad,
@@ -31,4 +40,7 @@ __all__ = [
     "reference_fista_full_step", "reference_fista_k_steps",
     "solve_lasso_batch", "solve_lasso_batch_blocked",
     "solve_lasso_batch_packed", "solve_lasso_batch_packed_tail",
+    "read_reduce", "reference_read_reduce", "default_tv_stepsizes",
+    "fused_cp_k_steps", "mxu_cp_step", "reference_cp_k_steps",
+    "reference_cp_step", "solve_tv_batch",
 ]

@@ -20,7 +20,7 @@ import tempfile
 from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
-_SOURCES = ("lasso_step.cu", "box_qp_step.cu")
+_SOURCES = ("lasso_step.cu", "box_qp_step.cu", "tv_step.cu", "probe.cu")
 _HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -29,6 +29,7 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _SIGNATURES = {
     # A, b, x, z_prev, beta, gamma, thr, done, shrink, res, rs, B, M, N,
     # restart, stream
@@ -41,6 +42,11 @@ _SIGNATURES = {
     "proxtpu_pg_step": [_P] * 8 + [_I] * 2 + [_P],
     # Q, q, x, gamma, lo, hi, done, res, B, n, K, stream
     "proxtpu_pg_k_steps": [_P] * 8 + [_I] * 3 + [_P],
+    # b, x, yx, yy, g1, g2, lam, done, xo, yxo, yyo, res, scratch, B, H, W,
+    # K, TH, TW, stream
+    "proxtpu_cp_k_steps": [_P] * 13 + [_I] * 6 + [_P],
+    # A, partial, out, B, n, S, chunk, stream
+    "proxtpu_read_reduce": [_P] * 3 + [_I, _L, _I, _L, _P],
     "proxtpu_max_smem_optin": [_I, ctypes.POINTER(_I)],
 }
 

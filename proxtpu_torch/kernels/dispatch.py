@@ -1,10 +1,12 @@
 """Kernel-route dispatch for batched solves (counterpart of
-``match_kernel_solver`` in ``proxtpu/kernels/dispatch.py``).
+``match_kernel_solver`` and ``match_tv_solver`` in
+``proxtpu/kernels/dispatch.py``).
 
 The generic driver runs any algorithm on any problem; the batched lasso
-FISTA and box-QP projected-gradient problems have kernel solvers.
-:func:`match_kernel_solver` recognises those problems structurally (factory,
-function classes, options at their defaults) and returns a runner, or
+FISTA, box-QP projected-gradient and TV-denoising Chambolle-Pock problems
+have kernel solvers.  :func:`match_kernel_solver` and
+:func:`match_tv_solver` recognise those problems structurally (factory,
+function classes, options at their defaults) and return a runner, or
 ``None`` when the problem does not match exactly: the caller then takes the
 generic driver.  Dispatch changes how a solve runs, never what it returns:
 the same fixed points and stopping rule; per-lane counts within +-1 (the
@@ -76,6 +78,106 @@ def _restart_of(seq):
                 and float(inner.m) == 0.0)):
         return True
     return None
+
+
+def _all_zero(v):
+    return not bool(torch.as_tensor(v).any())
+
+
+def match_tv_solver(factory, kwargs, *, tol, maxit, stop=None, solution=None,
+                    iter_block=8):
+    """``run() -> ((xbar, ybar), iters, done)`` for batched TV denoising by
+    Chambolle-Pock (:func:`proxtpu_torch.kernels.tv.solve_tv_batch`), or
+    ``None``.
+
+    Recognised: ``make_chambolle_pock_iteration`` (or AFBA / Vu-Condat with
+    ``theta = 2`` and ``f``, ``l`` at their Chambolle-Pock defaults) with
+    ``g = SqrDistance(b)`` over stacked (B, H, W) images, ``h = NormL21(lam,
+    axis=0)`` with a scalar or (B,) ``lam``, ``L = Grad2DOperator((H, W))``,
+    zero ``x0`` (B, H, W) and ``y0`` (B, 2, H, W), relaxation ``lam = 1`` and
+    default, scalar or (B,) stepsizes.  Anything else returns ``None``.
+
+    The runner returns the generic driver's solution structure and stopping
+    rule; per-image counts are upper bounds with up to ``iter_block - 1``
+    of sampling slack.  float32 takes the kernel route, float64 the plain
+    step."""
+    if stop is not None or solution is not None:
+        return None
+    name = getattr(factory, "__name__", "")
+    if name != "make_chambolle_pock_iteration":
+        if name not in ("make_afba_iteration", "make_vu_condat_iteration"):
+            return None
+        # plain AFBA must reduce to the Chambolle-Pock configuration
+        from ..prox.base import IndZero, Zero
+
+        if name == "make_afba_iteration":
+            try:
+                if float(kwargs.get("theta", 1.0)) != 2.0:
+                    return None
+            except (TypeError, ValueError):
+                return None
+        f, l = kwargs.get("f"), kwargs.get("l")
+        if f is not None and not isinstance(f, Zero):
+            return None
+        if l is not None and not isinstance(l, IndZero):
+            return None
+    for k in ("beta_f", "beta_l"):
+        v = kwargs.get(k)
+        if v is not None and float(v) != 0.0:
+            return None
+    try:
+        if float(kwargs.get("lam", 1.0)) != 1.0:
+            return None
+    except (TypeError, ValueError):
+        return None
+
+    from ..ops.linops import Grad2DOperator
+    from ..prox.functions import NormL21, SqrDistance
+
+    g, h, L = kwargs.get("g"), kwargs.get("h"), kwargs.get("L")
+    if not isinstance(g, SqrDistance) or not isinstance(h, NormL21):
+        return None
+    if not isinstance(L, Grad2DOperator):
+        return None
+    if int(h.axis) != 0:
+        return None
+    b = torch.as_tensor(g.b)
+    if b.dim() != 3:
+        return None
+    B, H, W = b.shape
+    if tuple(L.shape) != (H, W):
+        return None
+    x0, y0 = kwargs.get("x0"), kwargs.get("y0")
+    if x0 is None or y0 is None:
+        return None
+    if (tuple(torch.as_tensor(x0).shape) != (B, H, W)
+            or tuple(torch.as_tensor(y0).shape) != (B, 2, H, W)):
+        return None
+    if not (_all_zero(x0) and _all_zero(y0)):
+        return None
+
+    lam = h.lam
+    if tuple(torch.as_tensor(lam).shape) not in ((), (B,)):
+        return None
+    gamma1, gamma2 = kwargs.get("gamma1"), kwargs.get("gamma2")
+    if kwargs.get("gamma") is not None:
+        try:
+            gamma1, gamma2 = kwargs["gamma"]
+        except (TypeError, ValueError):
+            return None
+    for gv in (gamma1, gamma2):
+        if gv is not None and tuple(torch.as_tensor(gv).shape) not in (
+                (), (B,)):
+            return None
+
+    from .tv import solve_tv_batch
+
+    # the kernel takes float32; float64 takes the plain step
+    use_kernel = b.dtype == torch.float32
+
+    return lambda: solve_tv_batch(
+        b, lam, tol, maxit=maxit, iter_block=iter_block, gamma1=gamma1,
+        gamma2=gamma2, use_kernel=use_kernel, return_dual=True)
 
 
 def match_kernel_solver(factory, kwargs, *, tol, maxit, stop=None,

@@ -1,5 +1,12 @@
 """Linear operators of the port (counterpart of ``proxtpu.ops``)."""
 
-from .linops import IdentityOperator, MatrixOperator
+from .linops import (
+    Grad2DOperator,
+    IdentityOperator,
+    MatrixOperator,
+    ZeroOperator,
+    as_linop,
+)
 
-__all__ = ["IdentityOperator", "MatrixOperator"]
+__all__ = ["Grad2DOperator", "IdentityOperator", "MatrixOperator",
+           "ZeroOperator", "as_linop"]

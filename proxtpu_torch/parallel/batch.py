@@ -147,9 +147,11 @@ class BatchedAlgorithm:
                                  g=NormL1(lam), Lf=Lfs)
 
     ``use_kernels="auto"`` (default) routes the shapes that
-    :func:`~proxtpu_torch.kernels.dispatch.match_kernel_solver` recognises
-    (batched lasso FISTA, batched box-QP projected gradient, options at
-    their defaults) to the kernel solvers; anything else runs the generic
+    :func:`~proxtpu_torch.kernels.dispatch.match_kernel_solver` and
+    :func:`~proxtpu_torch.kernels.dispatch.match_tv_solver` recognise
+    (batched lasso FISTA, batched box-QP projected gradient, batched TV
+    denoising by Chambolle-Pock, options at their defaults) to the kernel
+    solvers; anything else runs the generic
     driver, :func:`batched_run_loop`.  ``use_kernels=False`` forces the
     generic driver.  ``verbose`` and ``halt_nonfinite`` also force it (the
     kernel routes have neither)."""
@@ -192,13 +194,17 @@ class BatchedAlgorithm:
         unknown = not has_var_kw and any(k not in params for k in merged)
         if (self.use_kernels and not unknown and not self.verbose
                 and not self.halt_nonfinite):
-            from ..kernels.dispatch import match_kernel_solver
+            from ..kernels.dispatch import (
+                match_kernel_solver,
+                match_tv_solver,
+            )
 
-            run = match_kernel_solver(
-                self.iteration_factory, merged, tol=self.tol,
-                maxit=self.maxit, stop=self.stop, solution=self.solution)
-            if run is not None:
-                return run()
+            for match in (match_kernel_solver, match_tv_solver):
+                run = match(
+                    self.iteration_factory, merged, tol=self.tol,
+                    maxit=self.maxit, stop=self.stop, solution=self.solution)
+                if run is not None:
+                    return run()
         # injected after the match, so that a matcher sees backtrack_limit
         # only when the caller set it
         self._inject_backtrack_limit(merged)

@@ -88,3 +88,25 @@ class IndZero:
 
     def prox(self, x, gamma):
         return tree_zeros_like(x), _rzero(x)
+
+
+def convex_conjugate(f):
+    """Convex conjugate f*(y) = sup_x <y, x> - f(x).
+
+    ``Zero`` and ``IndZero`` are conjugate to each other; a ``Conjugate``
+    unwraps; ``SqrNormL2(lam)`` maps to ``SqrNormL2(1 / lam)``, which keeps
+    the conjugate smooth, as AFBA requires of l*.  Anything else is wrapped
+    in :class:`~proxtpu_torch.prox.combinators.Conjugate`, whose prox goes
+    through the Moreau decomposition."""
+    if isinstance(f, Zero):
+        return IndZero()
+    if isinstance(f, IndZero):
+        return Zero()
+    from .combinators import Conjugate
+    from .functions import SqrNormL2
+
+    if isinstance(f, Conjugate):
+        return f.f
+    if isinstance(f, SqrNormL2):
+        return SqrNormL2(1 / f.lam)
+    return Conjugate(f)

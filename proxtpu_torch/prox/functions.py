@@ -1,9 +1,9 @@
 """Proximable and smooth functions (counterpart of a subset of
-``proxtpu/prox/functions.py``): the terms the lasso, elastic-net and box-QP
-routes take.  Each is a frozen dataclass whose tensor fields are the problem
-data; a batch of functions is one object whose tensors carry a leading
-batch axis, mapped lane by lane by the batched driver.  Every formula is
-the JAX package's, so that float64 trajectories agree.
+``proxtpu/prox/functions.py``): the terms the lasso, elastic-net, box-QP and
+TV-denoising routes take.  Each is a frozen dataclass whose tensor fields
+are the problem data; a batch of functions is one object whose tensors
+carry a leading batch axis, mapped lane by lane by the batched driver.
+Every formula is the JAX package's, so that float64 trajectories agree.
 """
 
 from __future__ import annotations
@@ -13,9 +13,9 @@ from dataclasses import dataclass
 import torch
 
 from ..utils.precision import pdot, pmatvec
-from ..utils.tree import real_dtype_of, tree_leaves, tree_map, \
+from ..utils.tree import real_dtype_of, tree_leaves, tree_map, tree_sub, \
     tree_vdot_real
-from .base import _rzero
+from .base import _rzero, value_and_gradient
 
 
 def _rparam(p, x):
@@ -60,6 +60,35 @@ class NormL1:
         lam = _rparam(self.lam, x)
         z = tree_map(lambda l: _soft_threshold(l, gamma * lam), x)
         return z, self(z)
+
+
+@dataclass(frozen=True)
+class NormL21:
+    """f(Y) = lam * sum_j ||Y[:, j]||_2, the isotropic group l2,1 norm over
+    ``axis`` (group soft-thresholding prox).  With Y the (2, H, W)
+    forward-difference field of
+    :class:`~proxtpu_torch.ops.linops.Grad2DOperator`, ``NormL21(lam,
+    axis=0)`` is isotropic total variation.  ``axis`` is fixed, not data."""
+
+    lam: object = 1.0
+    axis: int = 0
+
+    is_convex = True
+    is_generalized_quadratic = False
+
+    def __call__(self, Y):
+        nrm = torch.sqrt(torch.sum(torch.abs(Y) ** 2, dim=self.axis))
+        return _rparam(self.lam, Y) * torch.sum(nrm)
+
+    def prox(self, Y, gamma):
+        lam = _rparam(self.lam, Y)
+        nrm = torch.sqrt(torch.sum(torch.abs(Y) ** 2, dim=self.axis,
+                                   keepdim=True))
+        scale = torch.clamp(
+            1 - gamma * lam / torch.where(nrm == 0, torch.ones_like(nrm),
+                                          nrm), min=0)
+        Z = Y * scale.to(Y.dtype)
+        return Z, self(Z)
 
 
 @dataclass(frozen=True)
@@ -206,6 +235,32 @@ class LeastSquaresLoss:
 
 
 @dataclass(frozen=True)
+class Translate:
+    """g(x) = f(x + t)."""
+
+    f: object
+    t: object
+
+    @property
+    def is_convex(self):
+        return getattr(self.f, "is_convex", False)
+
+    @property
+    def is_generalized_quadratic(self):
+        return getattr(self.f, "is_generalized_quadratic", False)
+
+    def __call__(self, x):
+        return self.f(tree_map(torch.add, x, self.t))
+
+    def value_and_gradient(self, x):
+        return value_and_gradient(self.f, tree_map(torch.add, x, self.t))
+
+    def prox(self, x, gamma):
+        z_shift, f_z = self.f.prox(tree_map(torch.add, x, self.t), gamma)
+        return tree_map(torch.sub, z_shift, self.t), f_z
+
+
+@dataclass(frozen=True)
 class Quadratic:
     """f(x) = x'Qx/2 + q'x with a hand-written gradient; Q may be
     indefinite (the nonconvex box-QP family)."""
@@ -224,3 +279,26 @@ class Quadratic:
         Qx = pmatvec(self.Q, x)
         val = _vdot_real(x, Qx) / 2 + tree_vdot_real(self.q, x)
         return val, Qx + self.q
+
+
+@dataclass(frozen=True)
+class SqrDistance:
+    """f(x) = ||x - b||^2 / 2, smooth and proximable."""
+
+    b: object
+
+    is_convex = True
+    is_generalized_quadratic = True
+
+    def __call__(self, x):
+        d = tree_sub(x, self.b)
+        return tree_vdot_real(d, d) / 2
+
+    def value_and_gradient(self, x):
+        d = tree_sub(x, self.b)
+        return tree_vdot_real(d, d) / 2, d
+
+    def prox(self, x, gamma):
+        z = tree_map(lambda xl, bl: (xl + gamma * bl) / (1 + gamma), x,
+                     self.b)
+        return z, self(z)

@@ -64,6 +64,11 @@ def tree_sub(a, b):
     return tree_map(torch.sub, a, b)
 
 
+def tree_scale(alpha, a):
+    """alpha * a for a scalar ``alpha`` (a number or a rank-0 tensor)."""
+    return tree_map(lambda l: alpha * l, a)
+
+
 def tree_zeros_like(a):
     return tree_map(torch.zeros_like, a)
 
