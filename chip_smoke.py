@@ -7,8 +7,11 @@ Phases, in order; any failure raises and exits non-zero:
 1. identify the card (there is no CPU path: no CUDA device is an error);
 2. build the CUDA kernels from ``proxtpu_torch/csrc`` (first use);
 3. hold each kernel against its plain PyTorch version on the card at the
-   shapes the driven paths give it and a ragged one, then time both; time
-   the read-floor probe ``read_reduce`` at every step kernel's shape;
+   shapes the driven paths give it and a ragged one (``fista_k_steps`` at
+   every branch of its launch plan: 1, 2, 4 and 8 thread blocks per lane,
+   stages filled by the bulk copy or by ordinary loads, tiles read in
+   place), then time both; time the read-floor probe ``read_reduce`` at
+   every step kernel's shape, and its wrapper's host time by part;
 4. run the main path at full size: 256 distinct-A lasso problems of
    200 x 400 (``bench.gen_problems``, seed 0) through
    ``solve_lasso_batch_packed_tail(restart=True, k1=192, tail=64)``, drained
@@ -72,6 +75,16 @@ RS_RTOL = 1e-4
 K = 8
 ATOL_K = 5e-5
 BLOCKED_SHAPES = [(64, 512, 1024), (7, 33, 161)]  # route (a), ragged
+# fista_k_steps at every branch of its launch plan on 132 SMs: clusters of
+# 4 and 8 thread blocks per lane (route (a) has 2, the ragged shape 1), M
+# that does not divide over the cluster with a short last tile, rows of no
+# multiple of 16 bytes under a cluster (stages filled by ordinary loads),
+# and rows too wide for a ring of stages (tiles read in place by one block
+# per lane, also where the rows alone would have made a cluster)
+CLUSTER_SHAPES = [(32, 256, 512), (16, 512, 256), (16, 515, 256),
+                  (16, 515, 250), (3, 40, 8400), (2, 130, 8404)]
+# B above the SM count: one block per lane, two waves
+WIDE_BATCH_SHAPE = (256, 512, 512)
 BOX_SHAPES = [(64, 512), (7, 161)]                # route (b), ragged
 SMALL_LASSO = (1024, 64, 128)  # kernel_sweep.py:22, sent to XLA on a v5e
 SMALL_BOX = (256, 128)         # dispatch.py:767-770, sent to XLA on a v5e
@@ -335,15 +348,33 @@ def box_inputs(B, n, seed):
 
 def check_new_kernels():
     """fista_k_steps, pg_step and pg_k_steps against their plain versions
-    at the library route's shapes and a ragged one, restart on and off,
-    with and without frozen lanes; frozen lanes come back bit-equal.
-    Returns the largest absolute error per kernel."""
+    at the library route's shapes and a ragged one (fista_k_steps also at
+    every branch of its launch plan, see CLUSTER_SHAPES), restart on and
+    off, with and without frozen lanes; frozen lanes come back bit-equal,
+    and two calls of fista_k_steps give the same bits.  Returns the largest
+    absolute error per kernel."""
     from proxtpu_torch.kernels import box_qp as tb
     from proxtpu_torch.kernels import lasso as tl
 
+    from proxtpu_torch.kernels import _build
+
     worst = {"fista_k_steps": 0.0, "pg_step": 0.0, "pg_k_steps": 0.0}
-    for B, M, N in BLOCKED_SHAPES:
+    sms, limit = _build.sm_count(0), _build.max_shared_bytes(0)
+    plans = set()
+    cases = [(shape, False) for shape in BLOCKED_SHAPES + CLUSTER_SHAPES]
+    # and route (a)'s shape in a buffer whose lanes do not start on 16
+    # bytes (stages filled by ordinary loads)
+    for (B, M, N), shifted in cases + [(BLOCKED_SHAPES[0], True)]:
         d = step_inputs(B, M, N, seed=B + M + N)
+        if shifted:
+            flat = torch.empty(B * M * N + 1, device=DEVICE)
+            flat[1:] = d["A"].reshape(-1)
+            d["A"] = flat[1:].view(B, M, N)
+            assert d["A"].data_ptr() % 16 == 4 and d["A"].is_contiguous()
+        C, R, S = tl.k_steps_plan(B, M, N, sms, limit)
+        fill = ("in place" if S == 0 else "bulk copy"
+                if N % 4 == 0 and not shifted else "ordinary loads")
+        plans.add((C, fill))
         t0 = torch.tensor(np.random.default_rng(B).uniform(1, 5, B)
                           .astype(np.float32), device=DEVICE)
         for restart in (False, True):
@@ -352,20 +383,29 @@ def check_new_kernels():
                         d["thr"], done)
                 want = tl.reference_fista_k_steps(*args, K=K,
                                                   restart=restart)
-                got = tl.fused_fista_k_steps(
+                got, again = (tl.fused_fista_k_steps(
                     d["A"], d["b"], d["x"].clone(), d["z_prev"].clone(),
                     t0.clone(), d["gamma"], d["thr"], done, K=K,
-                    restart=restart)
+                    restart=restart) for _ in range(2))
                 torch.cuda.synchronize()
                 err = max(max_err(g, w) for g, w in zip(got, want))
                 assert err <= ATOL_K, (B, M, N, restart, err)
+                assert all(torch.equal(g, a) for g, a in zip(got, again)), (
+                    "two calls differ", B, M, N, restart)
                 frozen = done != 0
                 for g, w in zip(got[:3], (d["x"], d["z_prev"], t0)):
                     assert torch.equal(g[frozen], w[frozen])
                 assert bool((got[3][frozen] == 0).all())
                 worst["fista_k_steps"] = max(worst["fista_k_steps"], err)
-                print(f"  fista_k_steps {(B, M, N)} K={K} restart={restart}"
-                      f" frozen={int(frozen.sum())}: max|err| {err:.3e}")
+                print(f"  fista_k_steps {(B, M, N)} K={K} C={C} R={R} S={S} "
+                      f"({fill}) restart={restart} "
+                      f"frozen={int(frozen.sum())}: max|err| {err:.3e}, two "
+                      f"calls bit-equal")
+    # every branch of the plan was reached
+    assert {c for c, _ in plans} == {1, 2, 4, 8}, plans
+    assert {f for _, f in plans} == {"bulk copy", "ordinary loads",
+                                     "in place"}, plans
+    assert (8, "ordinary loads") in plans, plans
     for B, n in BOX_SHAPES:
         d = box_inputs(B, n, seed=B + n)
         for done in (torch.zeros_like(d["done"]), d["done"]):
@@ -418,23 +458,33 @@ def time_new_kernels(card):
     shapes, and the one-step kernels at the small shapes the reference sent
     to XLA on a v5e (dispatch.py:668-676, :767-771), all lanes live.
     Returns the route-shape medians per kernel."""
+    from proxtpu_torch.kernels import _build
     from proxtpu_torch.kernels import box_qp as tb
     from proxtpu_torch.kernels import lasso as tl
 
     out = {}
-    B, M, N = BLOCKED_SHAPES[0]
-    d = step_inputs(B, M, N, seed=1)
-    live = torch.zeros_like(d["done"])
-    t0 = torch.ones_like(d["beta"])
-    x, zp, t = d["x"].clone(), d["z_prev"].clone(), t0.clone()
-    out["fista_k_steps"] = time_pair(
-        "fista_k_steps",
-        lambda: tl.fused_fista_k_steps(d["A"], d["b"], x, zp, t, d["gamma"],
-                                       d["thr"], live, K=K, restart=True),
-        lambda: tl.reference_fista_k_steps(
-            d["A"], d["b"], d["x"], d["z_prev"], t0, d["gamma"], d["thr"],
-            live, K=K, restart=True),
-        f"{(B, M, N)} K={K}", card, K * B * M * N * 4)
+    for B, M, N in (BLOCKED_SHAPES[0], WIDE_BATCH_SHAPE):
+        d = step_inputs(B, M, N, seed=1)
+        live = torch.zeros_like(d["done"])
+        t0 = torch.ones_like(d["beta"])
+        x, zp, t = d["x"].clone(), d["z_prev"].clone(), t0.clone()
+        kernel = lambda: tl.fused_fista_k_steps(  # noqa: E731
+            d["A"], d["b"], x, zp, t, d["gamma"], d["thr"], live, K=K,
+            restart=True)
+        pair = time_pair(
+            "fista_k_steps", kernel,
+            lambda: tl.reference_fista_k_steps(
+                d["A"], d["b"], d["x"], d["z_prev"], t0, d["gamma"],
+                d["thr"], live, K=K, restart=True),
+            f"{(B, M, N)} K={K}", card, K * B * M * N * 4)
+        out.setdefault("fista_k_steps", pair)
+        C, R, S = tl.k_steps_plan(B, M, N, _build.sm_count(0),
+                                  _build.max_shared_bytes(0))
+        print(f"    at the device's pace (CUDA graph): kernel "
+              f"{1e3 * graph_ms(kernel):.1f} us; {B} x {C} thread blocks, "
+              f"{S} stages of {R} rows; A streamed once per inner step "
+              f"{1e3 * K * bound(4 * B * M * N, 0)[0]:.1f} us at "
+              f"{PEAK_BYTES_S / 1e12} TB/s  [{card}]")
     B, n = BOX_SHAPES[0]
     d = box_inputs(B, n, seed=1)
     live = torch.zeros_like(d["done"])
@@ -584,16 +634,23 @@ def floor_operand(B, M, N, seed):
 def check_read_reduce():
     """read_reduce against A.sum(dim=(1, 2)) at every floor shape and a
     ragged one whose lanes do not start on 16 bytes; two calls give the
-    same bits.  Returns the largest absolute error."""
+    same bits, with the wrapper's own scratch or a given one.  Returns the
+    largest absolute error."""
     from proxtpu_torch.kernels import probe
 
     worst = 0.0
     for B, M, N in FLOOR_SHAPES + [(7, 33, 161)]:
         A = floor_operand(B, M, N, seed=B + M + N)
         got, again = probe.read_reduce(A), probe.read_reduce(A)
+        # with the output and the scratch given, twice on one scratch
+        res, scratch = torch.empty(B, device=DEVICE), \
+            probe.read_reduce_scratch(A)
+        for _ in range(2):
+            given = probe.read_reduce(A, out=res, scratch=scratch)
         want = probe.reference_read_reduce(A)
         torch.cuda.synchronize()
-        assert torch.equal(got, again), (B, M, N)
+        assert given is res
+        assert torch.equal(got, again) and torch.equal(got, res), (B, M, N)
         err = max_err(got, want)
         rel = float(((got - want).abs() / A.abs().sum(dim=(1, 2))).max())
         assert rel <= READ_RTOL, (B, M, N, err, rel)
@@ -603,13 +660,100 @@ def check_read_reduce():
     return worst
 
 
+def host_us(fn, batches=10, batch=200):
+    """Microseconds of host time per call of ``fn``: the median over
+    ``batches`` of the mean of ``batch`` calls by ``time.perf_counter``,
+    synchronising between batches, outside the clock, so that a part that
+    launches never waits for a full queue."""
+    fn()
+    ts = []
+    for _ in range(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(batch):
+            fn()
+        ts.append(1e6 * (time.perf_counter() - t0) / batch)
+    torch.cuda.synchronize()
+    return statistics.median(ts)
+
+
+def read_reduce_host_parts(A, card):
+    """Where the host time of one read_reduce call goes: each part of the
+    wrapper, as it is and as it was with a plan, two allocations, a device
+    context and a boxed stream per call, timed on its own."""
+    import ctypes
+
+    from proxtpu_torch.kernels import _build, probe
+
+    B, n = A.shape[0], A.shape[1] * A.shape[2]
+    dev = A.device
+    sms = _build.sm_count(dev.index)
+    S, chunk = probe.chunk_plan(B, n, sms)
+    out = torch.empty(B, device=dev)
+    scratch = probe.read_reduce_scratch(A)
+    entry = _build.library().proxtpu_read_reduce
+    raw = torch._C._cuda_getCurrentRawStream(dev.index)
+    ptrs = (A.data_ptr(), scratch.data_ptr() + 4 * B, scratch.data_ptr(),
+            out.data_ptr())
+
+    def device_context():
+        with torch.cuda.device(dev):
+            pass
+
+    parts = {
+        "get_device_properties(...).multi_processor_count":
+            lambda: torch.cuda.get_device_properties(dev)
+            .multi_processor_count,
+        "sm_count, cached": lambda: _build.sm_count(dev.index),
+        "chunk_plan": lambda: probe.chunk_plan(B, n, sms),
+        "chunk plan, cached": lambda: probe.cached_chunk_plan(B, n, sms),
+        "torch.empty((B, S))": lambda: torch.empty((B, S), device=dev),
+        "torch.empty(B)": lambda: torch.empty(B, device=dev),
+        "A.new_empty(B)": lambda: A.new_empty(B),
+        "stream scratch, cached":
+            lambda: probe._stream_scratch(dev.index, raw, B, S),
+        "with torch.cuda.device(A.device)": device_context,
+        "torch.cuda.current_device()": torch.cuda.current_device,
+        "torch.cuda.current_stream().cuda_stream":
+            lambda: torch.cuda.current_stream().cuda_stream,
+        "raw current stream":
+            lambda: torch._C._cuda_getCurrentRawStream(dev.index),
+        "is_current_stream_capturing":
+            torch.cuda.is_current_stream_capturing,
+        "the checks of A": lambda: (
+            A.dim() != 3, A.is_cuda, A.dtype != torch.float32,
+            A.is_contiguous(), A.shape, A.get_device()),
+        "three data_ptr()": lambda: (A.data_ptr(), scratch.data_ptr(),
+                                     out.data_ptr()),
+        "_build.library() and the entry's lookup":
+            lambda: _build.library().proxtpu_read_reduce,
+        "ctypes call (one launch), stream boxed in c_void_p":
+            lambda: entry(*ptrs, B, n, S, chunk, ctypes.c_void_p(raw)),
+        "ctypes call (one launch), stream as int":
+            lambda: entry(*ptrs, B, n, S, chunk, raw),
+        "_build.check(0, ...)": lambda: _build.check(0, "read_reduce"),
+        "read_reduce(A), whole":
+            lambda: probe.read_reduce(A),
+        "read_reduce(A, out=, scratch=), whole":
+            lambda: probe.read_reduce(A, out=out, scratch=scratch),
+        "A.sum(dim=(1, 2)), whole": lambda: A.sum(dim=(1, 2)),
+    }
+    print(f"    host time per call by part at {tuple(A.shape)} "
+          f"(time.perf_counter, median of 10 batches of 200 calls)  [{card}]:")
+    for name, fn in parts.items():
+        print(f"      {name}: {host_us(fn):.2f} us")
+
+
 def phase_read_floor(card):
     """The probe's own path: the measured read floor at every step kernel's
     operator shape, beside the library call ``A.sum(dim=(1, 2))`` and the
     datasheet bound.  An operand under the 50 MB of L2 stays there between
     calls, as a solver's operator does between iterations.  Both are timed
-    in an eager loop and at the device's own pace (the floor proper).
-    Returns ``({shape: (kernel ms, library ms)}, launches)``."""
+    in an eager loop (the probe also with its output and scratch passed
+    back in, so that a call allocates nothing) and at the device's own pace
+    (the floor proper); at the two main-path shapes the wrapper's host time
+    is printed by part.  Returns ``({shape: (kernel ms, library ms)},
+    launches)``."""
     from proxtpu_torch.kernels import probe
 
     probe.read_reduce.launches = 0
@@ -621,11 +765,21 @@ def phase_read_floor(card):
         library = lambda: A.sum(dim=(1, 2))  # noqa: E731
         out[(B, M, N)] = time_pair("read_reduce", kernel, library,
                                    f"{(B, M, N)}", card, nbytes)
+        res, scratch = torch.empty(B, device=DEVICE), \
+            probe.read_reduce_scratch(A)
+        reuse = lambda: probe.read_reduce(  # noqa: E731
+            A, out=res, scratch=scratch)
+        lean = statistics.median(time_ms(reuse, reps=10)
+                                 + time_ms(reuse, reps=10))
+        print(f"    eager with out= and scratch= passed back in: kernel "
+              f"{1e3 * lean:.1f} us")
         print(f"    at the device's pace (CUDA graph): kernel "
-              f"{1e3 * graph_ms(kernel):.1f} us, library "
+              f"{1e3 * graph_ms(reuse):.1f} us, library "
               f"{1e3 * graph_ms(library):.1f} us; bound "
               f"{1e3 * read_bound(B, M, N)[0]:.1f} us ({nbytes / 1e6:.1f} MB "
               f"over {PEAK_BYTES_S / 1e12} TB/s)  [{card}]")
+        if (B, M, N) in MAIN_SHAPES:
+            read_reduce_host_parts(A, card)
     return out, probe.read_reduce.launches
 
 

@@ -1,9 +1,14 @@
 // Device helpers shared by the port's kernels: warp and block reductions
 // that keep a NaN in max (like jnp.max / torch.amax), the launch-attribute
-// step for large dynamic shared memory, and a NaN-keeping clip.
+// step for large dynamic shared memory, a NaN-keeping clip, and the tile
+// pass: a ring of row tiles of an operator in shared memory, filled by the
+// bulk copy and used for both products A x and A^T r, so that the operator
+// is read from device memory once.
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace proxtpu {
 
@@ -103,6 +108,143 @@ cudaError_t prepare(Kernel kernel, size_t smem) {
     return cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   return cudaSuccess;
+}
+
+// ---- The tile pass -------------------------------------------------------
+//
+// A tile is `rows` full rows of a row-major operator (rows, N): one
+// contiguous run of rows * N * 4 bytes.  Where the run starts on 16 bytes
+// and N * 4 is a multiple of 16, one thread fills a stage of the ring with
+// one bulk copy (cp.async.bulk, no tensor map) that reports its bytes to the
+// stage's mbarrier; else every thread fills it with ordinary loads and
+// stores.  Both passes then read the tile from shared memory:
+//   tile_rows_dot  out[m] = a_m . x - c[m]   a warp per row, as rows_dot
+//   tile_cols_fma  g[n] += sum_m r[m] A[m, n]  a thread per column, rows in
+//                  ascending order in one fmaf chain
+// The order of every sum is rows_dot's and a column loop's over the whole
+// operator, whatever the tile height: cutting into tiles changes no bit.
+
+__device__ __forceinline__ uint32_t shared_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbarrier_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   shared_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// makes the initialised barriers visible to the async proxy (and to the
+// cluster); the caller follows it with a block barrier
+__device__ __forceinline__ void mbarrier_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// spin until the barrier's phase differs from `parity`
+__device__ __forceinline__ void mbarrier_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = shared_addr(bar);
+  uint32_t ready = 0;
+  while (!ready) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(ready)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  }
+}
+
+// One thread: arm the stage's barrier with `bytes` and start the bulk copy
+// of `bytes` (a multiple of 16, source and destination on 16 bytes) into
+// the stage.
+__device__ __forceinline__ void fill_stage_bulk(float* stage,
+                                                const float* src,
+                                                uint32_t bytes,
+                                                uint64_t* bar) {
+  const uint32_t bar_addr = shared_addr(bar);
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar_addr),
+               "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(shared_addr(stage)),
+      "l"(src), "r"(bytes), "r"(bar_addr)
+      : "memory");
+}
+
+// Every thread: copy `count` floats into the stage with ordinary loads, four
+// in flight per thread; readable after the next block barrier.
+template <int THREADS>
+__device__ __forceinline__ void fill_stage_loads(float* stage,
+                                                 const float* __restrict__ src,
+                                                 int count) {
+  int k = threadIdx.x;
+  for (; k + 3 * THREADS < count; k += 4 * THREADS) {
+    float v[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) v[j] = __ldg(src + k + j * THREADS);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) stage[k + j * THREADS] = v[j];
+  }
+  for (; k < count; k += THREADS) stage[k] = __ldg(src + k);
+}
+
+// Pass 1 on a tile: out[m] = a_m . x - c[m] for its `rows` rows.  A warp
+// takes rows with a stride; a lane strides the row by 32 in one fmaf chain,
+// then the warp's tree: rows_dot's order.  `tile` is in shared memory (or,
+// read in place, in device memory); x in shared memory.
+template <int THREADS>
+__device__ __forceinline__ void tile_rows_dot(const float* tile,
+                                              const float* __restrict__ c,
+                                              const float* x, float* out,
+                                              int rows, int N) {
+  constexpr int kWarps = THREADS / 32;
+  constexpr int kUnroll = 8;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int m = warp; m < rows; m += kWarps) {
+    const float* row = tile + (size_t)m * N;
+    float acc = 0.f;
+    int n = lane;
+    for (; n + 32 * (kUnroll - 1) < N; n += 32 * kUnroll) {
+      float a[kUnroll];
+#pragma unroll
+      for (int j = 0; j < kUnroll; ++j) a[j] = row[n + 32 * j];
+#pragma unroll
+      for (int j = 0; j < kUnroll; ++j) acc = fmaf(a[j], x[n + 32 * j], acc);
+    }
+    for (; n < N; n += 32) acc = fmaf(row[n], x[n], acc);
+    acc = warp_sum(acc);
+    if (lane == 0) out[m] = acc - c[m];
+  }
+}
+
+// Pass 2 on a tile: g[n] (+)= sum over the tile's rows, ascending, of
+// r[m] * A[m, n], a thread per column; `first` starts the chain from 0.
+// Only the thread that owns column n touches g[n].
+template <int THREADS>
+__device__ __forceinline__ void tile_cols_fma(const float* tile,
+                                              const float* r, float* g,
+                                              int rows, int N, bool first) {
+  constexpr int kUnroll = 8;
+  for (int n = threadIdx.x; n < N; n += THREADS) {
+    const float* col = tile + n;
+    float acc = first ? 0.f : g[n];
+    int m = 0;
+    for (; m + kUnroll <= rows; m += kUnroll) {
+      float a[kUnroll];
+#pragma unroll
+      for (int j = 0; j < kUnroll; ++j) a[j] = col[(size_t)(m + j) * N];
+#pragma unroll
+      for (int j = 0; j < kUnroll; ++j) acc = fmaf(a[j], r[m + j], acc);
+    }
+    for (; m < rows; ++m) acc = fmaf(col[(size_t)m * N], r[m], acc);
+    g[n] = acc;
+  }
 }
 
 }  // namespace proxtpu

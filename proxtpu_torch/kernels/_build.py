@@ -36,8 +36,10 @@ _SIGNATURES = {
     "proxtpu_fista_step": [_P] * 11 + [_I] * 4 + [_P],
     # A, b, x, gamma, thr, shrink, z, res, B, M, N, stream
     "proxtpu_fb_step": [_P] * 8 + [_I] * 3 + [_P],
-    # A, b, x, z_prev, t, gamma, thr, done, res, B, M, N, K, restart, stream
-    "proxtpu_fista_k_steps": [_P] * 9 + [_I] * 5 + [_P],
+    # A, b, x, z_prev, t, gamma, thr, done, res, B, M, N, K, restart,
+    # C (blocks per lane), R (rows per tile), S (stages), shared bytes,
+    # stream
+    "proxtpu_fista_k_steps": [_P] * 9 + [_I] * 9 + [_P],
     # Q, q, x, gamma, lo, hi, done, res, B, n, stream
     "proxtpu_pg_step": [_P] * 8 + [_I] * 2 + [_P],
     # Q, q, x, gamma, lo, hi, done, res, B, n, K, stream
@@ -45,8 +47,8 @@ _SIGNATURES = {
     # b, x, yx, yy, g1, g2, lam, done, xo, yxo, yyo, res, scratch, B, H, W,
     # K, TH, TW, stream
     "proxtpu_cp_k_steps": [_P] * 13 + [_I] * 6 + [_P],
-    # A, partial, out, B, n, S, chunk, stream
-    "proxtpu_read_reduce": [_P] * 3 + [_I, _L, _I, _L, _P],
+    # A, partial, counter, out, B, n, S, chunk, stream
+    "proxtpu_read_reduce": [_P] * 4 + [_I, _L, _I, _L, _P],
     "proxtpu_max_smem_optin": [_I, ctypes.POINTER(_I)],
 }
 
@@ -143,3 +145,11 @@ def max_shared_bytes(device_index):
     check(library().proxtpu_max_smem_optin(device_index, ctypes.byref(out)),
           "cudaDeviceGetAttribute")
     return out.value
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device_index):
+    """Streaming multiprocessors of this device."""
+    import torch
+
+    return torch.cuda.get_device_properties(device_index).multi_processor_count

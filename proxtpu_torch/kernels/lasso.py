@@ -15,7 +15,10 @@ wrapper counts its launches in its ``launches`` attribute.
 
 ``fused_fista_k_steps`` runs K full iterations per launch;
 ``solve_lasso_batch_blocked`` drives it, testing for convergence once per
-block of K.
+block of K.  Its kernel streams a lane's A once per inner step through a
+ring of row tiles in shared memory and, where the batch leaves SMs idle,
+serves a lane by a cluster of thread blocks; the launch plan is chosen here
+on the host (:func:`k_steps_plan`).
 
 The TPU's lane-packed layout (``pack_lasso_batch``) is not ported: it only
 strips the 128-lane padding of the TPU's tiles, and a row on the card has
@@ -81,11 +84,11 @@ def reference_fista_full_step(A, b, x, z_prev, beta, gamma, thr, done_mask,
             torch.where(frozen, zero, rs))
 
 
-def _check_operands(A, b, vectors, scalars, smem_vectors=1):
+def _check_operands(A, b, vectors, scalars, smem_bytes=None):
     """Raise unless the kernels take these operands: float32, contiguous,
     on A's CUDA device, A (B, M, N), b (B, M), ``vectors`` (B, N),
-    ``scalars`` (B,), and ``smem_vectors`` rows of N plus r fit in a
-    block's shared memory."""
+    ``scalars`` (B,), and a block's shared memory holds ``smem_bytes``
+    (default: one row of N plus r, the one-step kernels' need)."""
     if A.dim() != 3:
         raise ValueError(f"A must be (B, M, N), got shape {tuple(A.shape)}")
     B, M, N = A.shape
@@ -103,7 +106,9 @@ def _check_operands(A, b, vectors, scalars, smem_vectors=1):
                              f"expected {shape}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    _build.check_shared_bytes((smem_vectors * N + M) * 4, A.device)
+    if smem_bytes is None:
+        smem_bytes = (N + M) * 4
+    _build.check_shared_bytes(smem_bytes, A.device)
 
 
 def _ptr(t):
@@ -207,10 +212,91 @@ def reference_fista_k_steps(A, b, x, z_prev, t, gamma, thr, done_mask, K=8,
             torch.where(frozen, torch.zeros_like(res), res))
 
 
+# The launch plan of the ``fista_k_steps`` kernel (csrc/lasso_step.cu).
+CLUSTER_SIZES = (8, 4, 2, 1)
+# least rows of a lane one thread block of a cluster takes: below it the
+# N-wide epilogue every block repeats and the cluster barrier outweigh the
+# rows it saves, and small problems keep one block per lane, which sums in
+# the order of a plain loop over the rows
+MIN_SLAB_ROWS = 64
+# a stage of the ring holds full rows, about this many bytes of them: each
+# tile costs a block barrier and the latency of one row's dot product, so
+# few tall tiles beat many short ones, and three stages of 64 KB (one in
+# use, two in flight) fill a block's 227 KB.  Below three stages a refill
+# by ordinary stores could meet its own reader.
+_STAGE_BYTES = 64 * 1024
+_STAGES = 3
+# rows of a tile where no ring fits and the tiles are read in place
+_DIRECT_ROWS = 8
+
+
+def _round_up(v, to):
+    return -(-v // to) * to
+
+
+def cluster_plan(B, M, sms):
+    """Thread blocks per lane, C: the largest of 8, 4, 2, 1 such that the
+    B * C blocks fit the ``sms`` SMs in one wave and every block gets at
+    least ``MIN_SLAB_ROWS`` of the lane's M rows."""
+    for C in CLUSTER_SIZES:
+        if C == 1 or (B * C <= sms and M // C >= MIN_SLAB_ROWS):
+            return C
+
+
+def slab_bounds(M, C):
+    """The rows ``[lo, hi)`` of each of the C blocks of a lane: block c takes
+    ``[c M // C, (c + 1) M // C)``, so the slabs differ by at most a row."""
+    return [(c * M // C, (c + 1) * M // C) for c in range(C)]
+
+
+def k_steps_shared_bytes(M, N, C, R, S):
+    """Dynamic shared memory of one block of ``fista_k_steps``.  With a ring
+    (S > 0): x, z_prev and two partial gradients of N (rounded up to 4)
+    floats, the residual of the longest slab, then on 128 bytes S stages of
+    R rows (each rounded up to 128 bytes) and S 8-byte barriers.  With the
+    tiles read in place (S = 0): x, one gradient and the residual (z_prev
+    stays in device memory).  The same sum as ``KStepsLayout`` in
+    csrc/lasso_step.cu, which refuses a launch whose total differs."""
+    fixed = ((4 if S else 2) * _round_up(N, 4)
+             + _round_up(-(-M // C), 4)) * 4
+    if S == 0:
+        return fixed
+    return _round_up(fixed, 128) + S * (_round_up(R * N * 4, 128) + 8)
+
+
+def ring_plan(M, N, C, limit):
+    """``(R, S)``: rows per tile and stages of the ring of a block that owns
+    ``ceil(M / C)`` rows of N floats, within ``limit`` bytes of shared
+    memory.  Three stages of about ``_STAGE_BYTES``, or of fewer rows where
+    those do not fit; ``S == 0`` where not even three one-row stages fit."""
+    R = max(1, min(-(-M // C), _STAGE_BYTES // (N * 4)))
+    while k_steps_shared_bytes(M, N, C, R, _STAGES) > limit:
+        if R == 1:
+            return _DIRECT_ROWS, 0
+        R //= 2
+    return R, _STAGES
+
+
+def k_steps_plan(B, M, N, sms, limit):
+    """``(C, R, S)``, the launch plan of ``fista_k_steps`` for a batch of B
+    lanes of (M, N) on a device of ``sms`` SMs and ``limit`` bytes of shared
+    memory per block: :func:`cluster_plan`'s blocks per lane and
+    :func:`ring_plan`'s ring; where no ring fits (``S == 0``), one block per
+    lane reads tiles of ``_DIRECT_ROWS`` rows in place from device memory,
+    which takes rows as wide as ``(2 N + M) * 4 <= limit`` allows."""
+    C = cluster_plan(B, M, sms)
+    R, S = ring_plan(M, N, C, limit)
+    return (C, R, S) if S else (1, R, S)
+
+
 def fused_fista_k_steps(A, b, x, z_prev, t, gamma, thr, done_mask, K=8,
                         restart=False):
     """K FISTA iterations for the batch in one launch of the
     ``fista_k_steps`` kernel (see :func:`reference_fista_k_steps`).
+
+    The kernel runs :func:`k_steps_plan`'s thread blocks per lane as one
+    cluster and reads A once per inner step; a plan the device refuses
+    raises, no other is tried.
 
     ``x``, ``z_prev`` and ``t`` are updated IN PLACE and returned (the JAX
     kernel aliases them to its outputs); x and z_prev must be separate
@@ -228,10 +314,15 @@ def fused_fista_k_steps(A, b, x, z_prev, t, gamma, thr, done_mask, K=8,
         z_prev.copy_(zn)
         t.copy_(tn)
         return x, z_prev, t, res
+    # the plan decides the shared memory, so that is checked after it
     _check_operands(A, b, [("x", x), ("z_prev", z_prev)],
                     [("t", t), ("gamma", gamma), ("thr", thr),
-                     ("done_mask", done_mask)], smem_vectors=2)
+                     ("done_mask", done_mask)], smem_bytes=0)
     B, M, N = A.shape
+    C, R, S = k_steps_plan(B, M, N, _build.sm_count(A.device.index),
+                           _build.max_shared_bytes(A.device.index))
+    smem = k_steps_shared_bytes(M, N, C, R, S)
+    _build.check_shared_bytes(smem, A.device)
     res = torch.empty(B, dtype=x.dtype, device=x.device)
     with torch.cuda.device(A.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -239,7 +330,7 @@ def fused_fista_k_steps(A, b, x, z_prev, t, gamma, thr, done_mask, K=8,
             A.data_ptr(), b.data_ptr(), x.data_ptr(), z_prev.data_ptr(),
             t.data_ptr(), gamma.data_ptr(), thr.data_ptr(),
             done_mask.data_ptr(), res.data_ptr(), B, M, N, int(K),
-            int(restart), ctypes.c_void_p(stream))
+            int(restart), C, R, S, smem, ctypes.c_void_p(stream))
     _build.check(err, "fista_k_steps")
     fused_fista_k_steps.launches += 1
     return x, z_prev, t, res

@@ -387,6 +387,157 @@ def test_solve_lasso_batch_blocked_matches_jax(small, restart):
         assert torch.equal(a, b)
 
 
+# The launch plan of the fista_k_steps kernel: pure functions of the shape.
+SHARED_LIMIT = 232448  # bytes of shared memory a block may use on an H100
+_PLAN_B = (1, 2, 5, 16, 17, 32, 33, 64, 66, 67, 100, 132, 133, 256, 1024)
+_PLAN_M = (1, 16, 63, 64, 127, 128, 255, 256, 257, 511, 512, 515, 2048)
+
+
+@pytest.mark.parametrize("sms", [108, 132, 144])
+def test_cluster_plan(sms):
+    """Blocks per lane: one of 1, 2, 4, 8, one wave, at least MIN_SLAB_ROWS
+    rows each, and no larger size would do; the slabs cover [0, M) once and
+    differ by at most a row."""
+    for B in _PLAN_B:
+        for M in _PLAN_M:
+            C = tl.cluster_plan(B, M, sms)
+            ok = lambda c: (B * c <= sms  # noqa: E731
+                            and M // c >= tl.MIN_SLAB_ROWS)
+            assert C in (1, 2, 4, 8)
+            assert C == 1 or ok(C), (B, M, C)
+            assert not any(ok(c) for c in (2, 4, 8) if c > C), (B, M, C)
+            slabs = tl.slab_bounds(M, C)
+            assert slabs[0][0] == 0 and slabs[-1][1] == M
+            assert all(a[1] == b[0] for a, b in zip(slabs, slabs[1:]))
+            rows = [hi - lo for lo, hi in slabs]
+            assert min(rows) == M // C and max(rows) - min(rows) <= 1
+
+
+@pytest.mark.parametrize("shape, C", [
+    ((64, 512, 1024), 2),   # route (a): 128 blocks on 132 SMs
+    ((256, 512, 512), 1),   # more lanes than SMs
+    ((16, 512, 256), 8), ((32, 256, 512), 4),
+    ((5, 16, 24), 1), ((8, 16, 160), 1), ((7, 33, 161), 1),  # small: as before
+])
+def test_cluster_plan_of_known_shapes(shape, C):
+    B, M, N = shape
+    assert tl.cluster_plan(B, M, 132) == C
+    assert tl.k_steps_plan(B, M, N, 132, SHARED_LIMIT)[0] == C
+
+
+@pytest.mark.parametrize("shape, plan, nbytes", [
+    ((64, 512, 1024), (2, 16, 3), 214040),
+    ((256, 512, 512), (1, 32, 3), 206872),
+    ((5, 16, 24), (1, 16, 3), 5144),
+    # no three one-row stages: tiles read in place by one block per lane,
+    # in the shared memory the kernel took before it had a ring
+    ((3, 40, 8400), (1, 8, 0), (2 * 8400 + 40) * 4),
+    ((2, 130, 8404), (1, 8, 0), (2 * 8404 + 132) * 4),
+])
+def test_k_steps_plan_and_shared_bytes(shape, plan, nbytes):
+    B, M, N = shape
+    assert tl.k_steps_plan(B, M, N, 132, SHARED_LIMIT) == plan
+    assert tl.k_steps_shared_bytes(M, N, *plan) == nbytes <= SHARED_LIMIT
+
+
+def test_k_steps_shared_bytes_over_the_blocked_route():
+    """Every shape the dispatch sends to the blocked route (a lane of at
+    least 1 MB) whose rows the kernel took before (2 N + M floats of shared
+    memory) still gets a plan that fits; the ring is used wherever three
+    one-row stages fit, and its stages stay under the bulk copy's 1 MB."""
+    from proxtpu_torch.kernels.dispatch import BLOCKED_LANE_BYTES
+
+    for N in (128, 1000, 1024, 4096, 8000, 8188, 8192, 8400, 14520, 29040):
+        for M in {-(-BLOCKED_LANE_BYTES // (4 * N)), 512, 4096}:
+            if (M * N * 4 < BLOCKED_LANE_BYTES
+                    or (2 * N + M) * 4 > SHARED_LIMIT):
+                continue
+            for B in (1, 16, 64, 256):
+                C, R, S = tl.k_steps_plan(B, M, N, 132, SHARED_LIMIT)
+                used = tl.k_steps_shared_bytes(M, N, C, R, S)
+                assert used <= SHARED_LIMIT, (B, M, N, C, R, S)
+                one_row_ring = tl.k_steps_shared_bytes(M, N, C, 1, 3)
+                assert (S == 3) == (one_row_ring <= SHARED_LIMIT)
+                assert 1 <= R and R * N * 4 < 1 << 20
+                assert S == 3 or (C, S) == (1, 0)
+    # the widest row: what the kernel took before, to the rounding of N
+    # and M up to 4
+    assert tl.k_steps_shared_bytes(19, 29040, 1, 8, 0) <= SHARED_LIMIT
+    assert tl.k_steps_shared_bytes(19, 29048, 1, 8, 0) > SHARED_LIMIT
+
+
+def _replay_k_steps(d, t, K, restart, C):
+    """The kernel's arithmetic order in numpy float32: a lane's rows cut
+    into C slabs, each slab's g summed over its rows in ascending order,
+    the partial sums added in the order c = 0 .. C - 1; then the prox, the
+    restart signal, the t-recursion and the extrapolation as the plain
+    version does them.  Frozen lanes are left as they are."""
+    f = np.float32
+    A, b = d["A"], d["b"]
+    x, zp, t = d["x"].copy(), d["z_prev"].copy(), t.copy()
+    res = np.zeros(len(A), f)
+    for i in np.flatnonzero(d["done"] == 0):
+        g_, thr = d["gamma"][i], d["thr"][i]
+        for _ in range(K):
+            r = (A[i] @ x[i] - b[i]).astype(f)
+            partial = []
+            for lo, hi in tl.slab_bounds(A.shape[1], C):
+                acc = np.zeros(A.shape[2], f)
+                for m in range(lo, hi):
+                    acc = (acc + r[m] * A[i, m]).astype(f)
+                partial.append(acc)
+            g = partial[0]
+            for part in partial[1:]:
+                g = (g + part).astype(f)
+            y = (x[i] - g_ * g).astype(f)
+            z = (np.sign(y) * np.maximum(np.abs(y) - thr, 0)).astype(f)
+            res[i] = np.max(np.abs(x[i] - z))
+            tk = t[i]
+            if restart and np.sum((x[i] - z) * (z - zp[i]), dtype=f) > 0:
+                tk = f(1)
+            t_new = f((1 + np.sqrt(f(1 + 4 * tk * tk))) / 2)
+            beta = f((tk - 1) / t_new)
+            x[i], zp[i], t[i] = (z + beta * (z - zp[i])).astype(f), z, t_new
+    return x, zp, t, res
+
+
+@pytest.mark.parametrize("C", [1, 2, 4, 8])
+@pytest.mark.parametrize("restart", [False, True])
+def test_k_steps_slab_order_matches_plain_version(step_data, C, restart):
+    """The kernel's order of the sums, replayed in numpy for C blocks per
+    lane, against the plain version after K = 8 steps.  The two sum the
+    16-term column products in different orders (slab by slab here, a
+    batched matrix product there); each step carries a few ulps of O(1)
+    iterates into the next, so 5e-5 absolute, the tolerance the kernel is
+    held to on the card, is ample.  Frozen lanes are bit-equal."""
+    d = step_data
+    t = np.random.default_rng(3).uniform(1, 5, 8).astype(np.float32)
+    got = _replay_k_steps(d, t, 8, restart, C)
+    want = tl.reference_fista_k_steps(
+        *(_t(d[k]) for k in ("A", "b", "x", "z_prev")), _t(t),
+        _t(d["gamma"]), _t(d["thr"]), _t(d["done"]), K=8, restart=restart)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w.numpy(), atol=5e-5)
+    frozen = d["done"] != 0
+    for g, inp in zip(got[:3], (d["x"], d["z_prev"], t)):
+        np.testing.assert_array_equal(g[frozen], inp[frozen])
+
+
+def test_one_slab_is_the_straight_sum(step_data):
+    """With one block per lane the slab order is a plain loop over the
+    lane's rows: the bits of the kernel this one replaced."""
+    d = step_data
+    A, r = d["A"][0], d["b"][0]
+    (lo, hi), = tl.slab_bounds(A.shape[0], 1)
+    straight = np.zeros(A.shape[1], np.float32)
+    for m in range(A.shape[0]):
+        straight = (straight + r[m] * A[m]).astype(np.float32)
+    slab = np.zeros(A.shape[1], np.float32)
+    for m in range(lo, hi):
+        slab = (slab + r[m] * A[m]).astype(np.float32)
+    np.testing.assert_array_equal(slab, straight)
+
+
 def test_solve_lasso_batch_blocked_clamps_to_maxit(small):
     z, it, done = tl.solve_lasso_batch_blocked(*map(_t, small), 1e-12,
                                                maxit=13, iter_block=8)

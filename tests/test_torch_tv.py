@@ -348,6 +348,33 @@ def test_read_reduce_chunk_plan(shape):
         assert shape[0] * S >= 132 * 8
 
 
+@pytest.mark.parametrize("shape", [(256, 200, 400), (64, 512, 1024),
+                                   (1024, 64, 128), (256, 128, 128),
+                                   (7, 33, 161), (3, 1, 5)])
+@pytest.mark.parametrize("sms", [132, 108])
+def test_read_reduce_cached_plan_is_the_plan(shape, sms):
+    """The plan the wrapper looks up per call is chunk_plan's, the first
+    time and from the cache."""
+    n = shape[1] * shape[2]
+    want = probe.chunk_plan(shape[0], n, sms)
+    assert probe.cached_chunk_plan(shape[0], n, sms) == want
+    assert probe.cached_chunk_plan(shape[0], n, sms) == want
+    assert probe.cached_chunk_plan.cache_info().hits >= 1
+
+
+def test_read_reduce_out_and_scratch_on_cpu():
+    """On the CPU the plain version fills a given ``out`` in place;
+    ``scratch`` belongs to the kernel and is not looked at."""
+    rng = np.random.default_rng(1)
+    A = torch.tensor(rng.standard_normal((5, 7, 9)).astype(np.float32))
+    out = torch.empty(5)
+    before = probe.read_reduce.launches
+    got = probe.read_reduce(A, out=out, scratch=torch.zeros(3))
+    assert got is out
+    assert torch.equal(out, A.sum(dim=(1, 2)))
+    assert probe.read_reduce.launches == before  # the plain version ran
+
+
 def test_read_reduce_on_cpu():
     rng = np.random.default_rng(0)
     A = torch.tensor(rng.standard_normal((5, 7, 9)).astype(np.float32))
