@@ -7,16 +7,23 @@ Phases, in order; any failure raises and exits non-zero:
 1. identify the card (there is no CPU path: no CUDA device is an error);
 2. build the CUDA kernels from ``proxtpu_torch/csrc`` (first use);
 3. hold each kernel against its plain PyTorch version on the card at the
-   shapes the driven paths give it and a ragged one (``fista_k_steps`` at
-   every branch of its launch plan: 1, 2, 4 and 8 thread blocks per lane,
-   stages filled by the bulk copy or by ordinary loads, tiles read in
-   place), then time both; time the read-floor probe ``read_reduce`` at
-   every step kernel's shape, and its wrapper's host time by part;
+   shapes the driven paths give it and a ragged one (``fb_step`` and
+   ``fista_step`` at every branch of their launch plan: a ring filled by the
+   bulk copy or by ordinary loads, one stage that holds the lane, the lane
+   read in place; ``fista_k_steps`` at every branch of its own: 1, 2, 4 and
+   8 thread blocks per lane, stages filled by the bulk copy or by ordinary
+   loads, tiles read in place), then time both, the one-step kernels in an
+   eager loop and at the device's pace with their plan and the blocks an SM
+   holds, and their wrappers' host time by part; time the read-floor probe
+   ``read_reduce`` at every step kernel's shape, and its wrapper's host time
+   by part;
 4. run the main path at full size: 256 distinct-A lasso problems of
    200 x 400 (``bench.gen_problems``, seed 0) through
    ``solve_lasso_batch_packed_tail(restart=True, k1=192, tail=64)``, drained
    by ``stream_solve`` at depth 2, with a host residual recheck, the kernels'
-   launch counts, and a cross-check against the plain route;
+   launch counts, the device time per solve (launches x the kernels' time at
+   the device's pace) beside the wall, and a cross-check against the plain
+   route;
 5. drive the library route, ``BatchedAlgorithm`` -> ``match_kernel_solver``,
    at full width, on the kernel route and on the plain route
    (``use_kernels=False``), with every lane done on both, a host recheck
@@ -43,6 +50,7 @@ Phases, in order; any failure raises and exits non-zero:
 Imports no JAX.  Needs one card, ``nvcc`` (CUDA_HOME) and a few minutes.
 """
 
+import functools
 import json
 import statistics
 import subprocess
@@ -58,8 +66,15 @@ N_STREAM = 6
 MAIN_SHAPES = [(256, 200, 400), (64, 200, 400)]  # bulk phase, narrow tail
 # fb_step and fista_step at every shape a path gives them: the main path's,
 # route (a)'s first step (64 x 512 x 1024), route (d)'s tall 400 x 200
-# (route (c) is MAIN_SHAPES[0]), and a ragged M and N
-CHECK_SHAPES = MAIN_SHAPES + [(64, 512, 1024), (256, 400, 200), (7, 33, 161)]
+# (route (c) is MAIN_SHAPES[0]), and the small shape of kernel_sweep.py:22,
+# which the reference sent to XLA on a v5e
+STEP_SHAPES = MAIN_SHAPES + [(256, 400, 200), (64, 512, 1024),
+                             (1024, 64, 128)]
+# and at every other branch of their launch plan: a ragged M and N (one
+# stage, ordinary loads), rows of no multiple of 16 bytes in a lane larger
+# than a block's shared memory (a ring filled by ordinary loads), and rows
+# too wide for three one-row stages beside x, g and r (the lane in place)
+CHECK_SHAPES = STEP_SHAPES + [(7, 33, 161), (5, 300, 250), (2, 24, 12000)]
 # One step against its plain version.  Both sum 200- to 1024-term f32
 # products in different orders (warp shuffles vs cuBLAS), so each output
 # carries a few ulps of its largest partial sums: iterates and residuals
@@ -86,7 +101,6 @@ CLUSTER_SHAPES = [(32, 256, 512), (16, 512, 256), (16, 515, 256),
 # B above the SM count: one block per lane, two waves
 WIDE_BATCH_SHAPE = (256, 512, 512)
 BOX_SHAPES = [(64, 512), (7, 161)]                # route (b), ragged
-SMALL_LASSO = (1024, 64, 128)  # kernel_sweep.py:22, sent to XLA on a v5e
 SMALL_BOX = (256, 128)         # dispatch.py:767-770, sent to XLA on a v5e
 
 
@@ -133,6 +147,20 @@ def cp_bound(B, H, W):
     return bound(4 * (7 * B * H * W + 4 * B), 25 * K * B * H * W)
 
 
+def lasso_bound(B, M, N, vecs, scalars, steps):
+    """A lasso step kernel: A, b, ``vecs`` (B, N) and ``scalars`` (B,)
+    operands and results moved once; two products with A per step (2 M N
+    operations each) plus about ten per entry of the iterate."""
+    return bound(4 * (B * M * N + B * M + vecs * B * N + scalars * B),
+                 steps * B * (4 * M * N + 10 * N))
+
+
+# operands and results of the one-step kernels: fb_step A, b, x, gamma, thr
+# -> z, res; fista_step A, b, x, z_prev, beta, gamma, thr, done -> x, z_prev,
+# res, rs
+STEP_OPERANDS = {"fb_step": (2, 3), "fista_step": (4, 6)}
+
+
 def read_bound(B, M, N):
     """read_reduce: A -> out, one addition per entry."""
     return bound(4 * (B * M * N + B), B * M * N)
@@ -170,7 +198,11 @@ def phase_build():
         print(log.read_text().strip())
 
 
+@functools.lru_cache(maxsize=None)
 def step_inputs(B, M, N, seed):
+    """Operands of one lasso step on the card, made once per shape and seed
+    (a lane's Lipschitz constant is a singular value decomposition); callers
+    clone what a kernel updates in place."""
     rng = np.random.default_rng(seed)
     A = (rng.standard_normal((B, M, N)) / np.sqrt(M)).astype(np.float32)
     Lf = np.array([np.linalg.norm(a, 2) ** 2 for a in A], np.float32)
@@ -196,11 +228,21 @@ def max_err(got, want):
 def check_kernels():
     """Every variant against the plain version at every check shape;
     returns the largest absolute error of z, x+ and res per kernel."""
+    from proxtpu_torch.kernels import _build
     from proxtpu_torch.kernels import lasso as tl
 
     worst = {"fb_step": 0.0, "fista_step": 0.0}
+    branches = set()
     for B, M, N in CHECK_SHAPES:
         d = step_inputs(B, M, N, seed=B + M + N)
+        threads, R, S, smem = tl.step_plan(B, M, N, _build.sm_count(0),
+                                           _build.max_shared_bytes(0))
+        branch = ("in place" if S == 0 else
+                  ("one stage, " if S == 1 else "ring, ")
+                  + ("bulk copy" if N % 4 == 0 else "ordinary loads"))
+        branches.add(branch)
+        print(f"  {(B, M, N)}: {threads} threads, {S} stages of {R} rows, "
+              f"{smem} bytes ({branch})")
         for shrink in (None, d["shrink"]):
             args = (d["A"], d["b"], d["x"], d["gamma"], d["thr"])
             z_k, r_k = tl.fused_fb_prox_grad(*args, shrink=shrink)
@@ -234,6 +276,10 @@ def check_kernels():
                           f"{shrink is not None} restart={restart} "
                           f"frozen={int(frozen.sum())}: max|err| {err:.3e}, "
                           f"rs rel {rs_err:.3e}")
+    # every branch of the plan was reached
+    assert branches == {"ring, bulk copy", "ring, ordinary loads",
+                        "one stage, bulk copy", "one stage, ordinary loads",
+                        "in place"}, branches
     return worst
 
 
@@ -288,13 +334,19 @@ def graph_ms(fn, reps=20, inner=10):
 
 
 def time_kernels(card):
-    """Kernel vs plain version at the main path's shapes; returns the
-    flagship-shape medians per kernel."""
+    """fb_step and fista_step against their plain versions at every shape a
+    path gives them, in an eager loop and at the device's own pace, with the
+    launch plan and the blocks one SM holds.  Returns the flagship-shape
+    eager medians per kernel and ``{(kernel, shape): ms at the device's
+    pace}``."""
+    import ctypes
+
+    from proxtpu_torch.kernels import _build
     from proxtpu_torch.kernels import lasso as tl
 
-    flagship = {}
-    for B, M, N in MAIN_SHAPES:
-        d = step_inputs(B, M, N, seed=1)
+    flagship, pace = {}, {}
+    for B, M, N in STEP_SHAPES:
+        d = step_inputs(B, M, N, seed=B + M + N)
         live = torch.zeros_like(d["done"])
         fb = (d["A"], d["b"], d["x"], d["gamma"], d["thr"])
         full = (d["A"], d["b"], d["x"], d["z_prev"], d["beta"], d["gamma"],
@@ -308,23 +360,125 @@ def time_kernels(card):
                     d["A"], d["b"], x, zp, *full[4:], restart=True),
                 lambda: tl.reference_fista_full_step(*full, restart=True)),
         }
+        plan = tl.step_plan(B, M, N, _build.sm_count(0),
+                            _build.max_shared_bytes(0))
         gb = B * M * N * 4 / 1e9
         for name, (kernel, plain) in pairs.items():
             # plain, kernel, kernel, plain: a drift in clocks shows as a
             # difference between the two runs of one side
-            p1, k1, k2, p2 = (time_ms(plain), time_ms(kernel),
-                              time_ms(kernel), time_ms(plain))
+            p1, k1, k2, p2 = (time_ms(plain, reps=10), time_ms(kernel),
+                              time_ms(kernel), time_ms(plain, reps=10))
             k, p = statistics.median(k1 + k2), statistics.median(p1 + p2)
-            print(f"  {name:10s} {(B, M, N)}: kernel {1e3 * k:.1f} us "
+            g = pace[(name, (B, M, N))] = graph_ms(kernel)
+            held = ctypes.c_int()
+            _build.check(_build.library().proxtpu_step_blocks_per_sm(
+                int(name == "fista_step"), M, N, *plan, ctypes.byref(held)),
+                "step_blocks_per_sm")
+            print(f"  {name:10s} {(B, M, N)}: kernel {1e3 * k:.1f} us eager "
                   f"(runs {1e3 * statistics.median(k1):.1f} / "
-                  f"{1e3 * statistics.median(k2):.1f}), plain "
-                  f"{1e3 * p:.1f} us (runs {1e3 * statistics.median(p1):.1f}"
-                  f" / {1e3 * statistics.median(p2):.1f}) per step; A read "
-                  f"once = {gb / (k * 1e-3):.0f} GB/s kernel, "
-                  f"{gb / (p * 1e-3):.0f} GB/s plain  [{card}]")
+                  f"{1e3 * statistics.median(k2):.1f}), {1e3 * g:.1f} us at "
+                  f"the device's pace (CUDA graph; A read once = "
+                  f"{gb / (g * 1e-3):.0f} GB/s); plain {1e3 * p:.1f} us "
+                  f"(runs {1e3 * statistics.median(p1):.1f} / "
+                  f"{1e3 * statistics.median(p2):.1f}); bound "
+                  f"{1e3 * lasso_bound(B, M, N, *STEP_OPERANDS[name], 1)[0]:.1f}"
+                  f" us; plan {plan[0]} "
+                  f"threads, {plan[2]} stages of {plan[1]} rows, {plan[3]} "
+                  f"bytes, {held.value} blocks per SM  [{card}]")
             if (B, M, N) == MAIN_SHAPES[0]:
                 flagship[name] = (k, p)
-    return flagship
+        if (B, M, N) in MAIN_SHAPES:
+            step_host_parts(d, card)
+    return flagship, pace
+
+
+def step_host_parts(d, card):
+    """Where the host time of one fista_step call goes: each part of the
+    wrapper as it is, and as it was with a device context, a boxed stream, a
+    library lookup, named operand lists and an uncached plan per call."""
+    import ctypes
+
+    from proxtpu_torch.kernels import _build
+    from proxtpu_torch.kernels import lasso as tl
+
+    A, b = d["A"], d["b"]
+    B, M, N = A.shape
+    dev = A.device
+    live = torch.zeros_like(d["done"])
+    x, zp = d["x"].clone(), d["z_prev"].clone()
+    scalars = (d["beta"], d["gamma"], d["thr"], live)
+    names = ("beta", "gamma", "thr", "done_mask")
+    sms, limit = _build.sm_count(0), _build.max_shared_bytes(0)
+    plan = tl.step_plan(B, M, N, sms, limit)
+    entry = _build.library().proxtpu_fista_step
+    raw = torch._C._cuda_getCurrentRawStream(dev.index)
+    res, rs = torch.empty(B, device=dev), torch.empty(B, device=dev)
+    tensors = (A, b, x, zp, *scalars, None, res, rs)
+
+    def pointers():
+        return [None if t is None else t.data_ptr() for t in tensors]
+
+    def device_context():
+        with torch.cuda.device(dev):
+            pass
+
+    def named_check():
+        tl._check_operands(A, b, [("x", x), ("z_prev", zp)],
+                           list(zip(names, scalars)), 0)
+
+    def as_it_was():
+        named_check()
+        out = torch.empty(B, dtype=x.dtype, device=x.device)
+        out2 = torch.empty_like(out)
+        with torch.cuda.device(A.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = _build.library().proxtpu_fista_step(
+                A.data_ptr(), b.data_ptr(), x.data_ptr(), zp.data_ptr(),
+                *(t.data_ptr() for t in scalars), None, out.data_ptr(),
+                out2.data_ptr(), B, M, N, 1,
+                *tl.step_plan(B, M, N, _build.sm_count(A.device.index),
+                              _build.max_shared_bytes(A.device.index)),
+                ctypes.c_void_p(stream))
+        _build.check(err, "fista_step")
+
+    fb = (A, b, d["x"], d["gamma"], d["thr"])
+    parts = {
+        "_check_operands (named lists, ten tensors)": named_check,
+        "_operands_ok": lambda: tl._operands_ok(A, b, (x, zp), scalars),
+        "step_plan": lambda: tl.step_plan(B, M, N, sms, limit),
+        "sm_count, max_shared_bytes and the plan, cached": lambda: (
+            tl.cached_step_plan(B, M, N, _build.sm_count(0),
+                                _build.max_shared_bytes(0))),
+        "torch.empty(B) and empty_like": lambda: (
+            torch.empty(B, dtype=x.dtype, device=x.device),
+            torch.empty_like(res)),
+        "x.new_empty(B) and empty_like": lambda: (x.new_empty(B),
+                                                  torch.empty_like(res)),
+        "with torch.cuda.device(A.device)": device_context,
+        "A.get_device() == torch.cuda.current_device()":
+            lambda: A.get_device() == torch.cuda.current_device(),
+        "torch.cuda.current_stream().cuda_stream":
+            lambda: torch.cuda.current_stream().cuda_stream,
+        "raw current stream":
+            lambda: torch._C._cuda_getCurrentRawStream(dev.index),
+        "_build.library() and the entry's lookup":
+            lambda: _build.library().proxtpu_fista_step,
+        "the entry, cached": lambda: tl._entries.get("fista_step"),
+        "ten data_ptr()": pointers,
+        "ctypes call (one launch), stream boxed in c_void_p":
+            lambda: entry(*pointers(), B, M, N, 1, *plan,
+                          ctypes.c_void_p(raw)),
+        "ctypes call (one launch), stream as int":
+            lambda: entry(*pointers(), B, M, N, 1, *plan, raw),
+        "fused_fista_full_step, whole, its parts as they were": as_it_was,
+        "fused_fista_full_step, whole": lambda: tl.fused_fista_full_step(
+            A, b, x, zp, *scalars, restart=True),
+        "fused_fb_prox_grad, whole": lambda: tl.fused_fb_prox_grad(*fb),
+    }
+    print(f"    host time per call by part at {tuple(A.shape)} "
+          f"(time.perf_counter, median of 10 batches of 200 calls)  [{card}]:")
+    for name, fn in parts.items():
+        print(f"      {name}: {host_us(fn):.2f} us")
 
 
 def box_inputs(B, n, seed):
@@ -365,7 +519,7 @@ def check_new_kernels():
     # and route (a)'s shape in a buffer whose lanes do not start on 16
     # bytes (stages filled by ordinary loads)
     for (B, M, N), shifted in cases + [(BLOCKED_SHAPES[0], True)]:
-        d = step_inputs(B, M, N, seed=B + M + N)
+        d = dict(step_inputs(B, M, N, seed=B + M + N))
         if shifted:
             flat = torch.empty(B * M * N + 1, device=DEVICE)
             flat[1:] = d["A"].reshape(-1)
@@ -454,17 +608,18 @@ def time_pair(name, kernel, plain, label, card, nbytes):
 
 
 def time_new_kernels(card):
-    """The new kernels against their plain versions at the library route's
-    shapes, and the one-step kernels at the small shapes the reference sent
-    to XLA on a v5e (dispatch.py:668-676, :767-771), all lanes live.
-    Returns the route-shape medians per kernel."""
+    """fista_k_steps, pg_step and pg_k_steps against their plain versions at
+    the library route's shapes, and pg_step at the small shape the reference
+    sent to XLA on a v5e (dispatch.py:767-771; the small lasso shape of
+    dispatch.py:668-676 is among time_kernels'), all lanes live.  Returns
+    the route-shape medians per kernel."""
     from proxtpu_torch.kernels import _build
     from proxtpu_torch.kernels import box_qp as tb
     from proxtpu_torch.kernels import lasso as tl
 
     out = {}
     for B, M, N in (BLOCKED_SHAPES[0], WIDE_BATCH_SHAPE):
-        d = step_inputs(B, M, N, seed=1)
+        d = step_inputs(B, M, N, seed=B + M + N)
         live = torch.zeros_like(d["done"])
         t0 = torch.ones_like(d["beta"])
         x, zp, t = d["x"].clone(), d["z_prev"].clone(), t0.clone()
@@ -501,18 +656,7 @@ def time_new_kernels(card):
         lambda: tb.reference_pg_box_k_steps(d["Q"], d["q"], d["x"], *rest,
                                             live, K),
         f"{(B, n)} K={K}", card, K * B * n * n * 4)
-    print("  small shapes (the reference's XLA routes on a v5e):")
-    B, M, N = SMALL_LASSO
-    d = step_inputs(B, M, N, seed=2)
-    live = torch.zeros_like(d["done"])
-    x, zp = d["x"].clone(), d["z_prev"].clone()
-    full = (d["beta"], d["gamma"], d["thr"], live)
-    time_pair("fista_step",
-              lambda: tl.fused_fista_full_step(d["A"], d["b"], x, zp, *full,
-                                               restart=True),
-              lambda: tl.reference_fista_full_step(
-                  d["A"], d["b"], d["x"], d["z_prev"], *full, restart=True),
-              f"{(B, M, N)}", card, B * M * N * 4)
+    print("  small shape (the reference's XLA route on a v5e):")
     B, n = SMALL_BOX
     d = box_inputs(B, n, seed=3)
     live = torch.zeros_like(d["done"])
@@ -974,7 +1118,19 @@ def box_recheck(Qs, qs, gammas, xs):
                                axis=1) / g[:, 0]))
 
 
-def phase_main_path(card):
+def device_time(parts, pace, wall, card):
+    """Print the device time of one solve, launches x the kernel's time at
+    the device's pace (``pace`` of time_kernels) summed over ``parts`` =
+    ``[(kernel, shape, launches)]``, beside the solve's wall seconds."""
+    total = sum(n * pace[(k, shape)] for k, shape, n in parts)
+    terms = " + ".join(f"{n:g} {k} {shape} x {1e3 * pace[(k, shape)]:.1f} us"
+                       for k, shape, n in parts)
+    print(f"  device time per solve: {terms} = {total:.3f} ms, "
+          f"{100 * total / (1e3 * wall):.1f}% of {wall:.4f} s of wall  "
+          f"[{card}]")
+
+
+def phase_main_path(card, pace):
     import bench
     from proxtpu_torch import problems_from_numpy
     from proxtpu_torch.kernels import lasso as tl
@@ -1015,6 +1171,14 @@ def phase_main_path(card):
     print(f"main path: {dt:.4f} s per solve, {bench.BATCH / dt:.1f} "
           f"problems/s (stream_solve depth 2, {N_STREAM} solves after one "
           f"warm-up)  [{card}]")
+    # the bulk phase runs k1 = 192 steps at full width, the narrow phase the
+    # rest at tail = 64 after its one fb_step
+    per_solve = {k: n / N_STREAM for k, n in launches.items()}
+    assert per_solve["fista_step"] >= 192 and per_solve["fb_step"] == 1
+    device_time([("fista_step", MAIN_SHAPES[0], 192),
+                 ("fista_step", MAIN_SHAPES[1],
+                  per_solve["fista_step"] - 192),
+                 ("fb_step", MAIN_SHAPES[1], 1)], pace, dt, card)
 
     # The plain route on the card.  At this width the two routes sum in
     # different orders and their trajectories part: the JAX package's own
@@ -1049,7 +1213,8 @@ def launch_counters():
             "pg_k_steps": tb.fused_pg_box_k_steps}
 
 
-def drive(name, solve, check, tol, card, expect, dx_tol=None):
+def drive(name, solve, check, tol, card, expect, dx_tol=None, pace=None,
+          shape=None):
     """Drive one route through BatchedAlgorithm: once on the kernel route
     with every launch counter set to 0 just before and read just after
     (the counts this route adds to the kernels' JSON line), once on the
@@ -1057,7 +1222,9 @@ def drive(name, solve, check, tol, card, expect, dx_tol=None):
     ``check`` rechecks a solution (the arrays of its structure) on the
     host, held to 2 tol on both; ``expect`` lists the kernels the route
     must launch, and no other kernel may launch.  ``dx_tol``, where given,
-    bounds the distance of the two routes' primal solutions."""
+    bounds the distance of the two routes' primal solutions.  With ``pace``
+    (time_kernels') and the route's ``shape``, the device time per solve is
+    printed beside the wall."""
     def arrays(sol):
         sol = sol if isinstance(sol, tuple) else (sol,)
         return [t.cpu().numpy() for t in sol]
@@ -1097,10 +1264,12 @@ def drive(name, solve, check, tol, card, expect, dx_tol=None):
           f"{r_p:.3e}, iterations mean {it_p.float().mean():.2f} max "
           f"{int(it_p.max())}; max|d iters| {int(dit.max())}, max|d x| "
           f"{max_err(xs, xs_p):.3e}  [{card}]")
+    if pace is not None:
+        device_time([(k, shape, launches[k]) for k in expect], pace, dt, card)
     return launches
 
 
-def phase_routes(card):
+def phase_routes(card, pace):
     """Routes (a) to (d) of the library entry point at full width.
     Returns the launches per kernel summed over the routes."""
     import bench
@@ -1155,7 +1324,7 @@ def phase_routes(card):
     # (c) the flagship through the library entry point: the packed solver
     solve, check = lasso_route(*bench.gen_problems(bench.BATCH), 3000)
     add(drive(f"route (c) flagship {MAIN_SHAPES[0]}", solve, check, TOL,
-              card, ("fista_step",)))
+              card, ("fista_step",), pace=pace, shape=MAIN_SHAPES[0]))
     # (d) tall strongly convex problems, mf = the smallest sigma_min^2
     rng = np.random.default_rng(0)
     B, M, N = bench.BATCH, bench.N, bench.M
@@ -1168,36 +1337,32 @@ def phase_routes(card):
     mf = float(np.min(sv[:, -1] ** 2))
     solve, check = lasso_route(As, bs, lams, Lfs, 3000, mf=mf)
     add(drive(f"route (d) tall {(B, M, N)} mf={mf:.4f}", solve, check, TOL,
-              card, ("fb_step", "fista_step")))
+              card, ("fb_step", "fista_step"), pace=pace, shape=(B, M, N)))
     return total
 
 
 def kernel_bounds():
     """``{kernel: (shape, ms, by)}``: the bound of each kernel at the shape
     its times in the JSON line are taken at.  Bytes: every operand read
-    once, every result written once, float32.  Operations: two products
-    with the operator per step (2 M N each) plus about ten per entry of the
-    iterate; for the last two see :func:`cp_bound`, :func:`read_bound`."""
+    once, every result written once, float32.  Operations: see
+    :func:`lasso_bound` (the box-QP kernels likewise, one product per
+    step), :func:`cp_bound`, :func:`read_bound`."""
     B, M, N = MAIN_SHAPES[0]
     Bk, Mk, Nk = BLOCKED_SHAPES[0]
     Bq, n = BOX_SHAPES[0]
     Bt, H, W = TV_SHAPES[1]
-
-    def lasso(B, M, N, vecs, scalars, steps):
-        return bound(4 * (B * M * N + B * M + vecs * B * N + scalars * B),
-                     steps * B * (4 * M * N + 10 * N))
 
     def box(B, n, steps):
         return bound(4 * (B * n * n + 3 * B * n + 5 * B),
                      steps * B * (2 * n * n + 6 * n))
 
     return {
-        # A, b, x, gamma, thr -> z, res
-        "fb_step": ((B, M, N), *lasso(B, M, N, 2, 3, 1)),
-        # A, b, x, z_prev, beta, gamma, thr, done -> x, z_prev, res, rs
-        "fista_step": ((B, M, N), *lasso(B, M, N, 4, 6, 1)),
+        "fb_step": ((B, M, N),
+                    *lasso_bound(B, M, N, *STEP_OPERANDS["fb_step"], 1)),
+        "fista_step": ((B, M, N),
+                       *lasso_bound(B, M, N, *STEP_OPERANDS["fista_step"], 1)),
         # A, b, x, z_prev, t, gamma, thr, done -> x, z_prev, t, res
-        "fista_k_steps": ((Bk, Mk, Nk), *lasso(Bk, Mk, Nk, 4, 6, K)),
+        "fista_k_steps": ((Bk, Mk, Nk), *lasso_bound(Bk, Mk, Nk, 4, 6, K)),
         # Q, q, x, gamma, lo, hi, done -> x, res
         "pg_step": ((Bq, n), *box(Bq, n, 1)),
         "pg_k_steps": ((Bq, n), *box(Bq, n, K)),
@@ -1214,7 +1379,7 @@ def main():
     worst.update(check_new_kernels())
     worst["cp_k_steps"] = check_tv_kernel()
     worst["read_reduce"] = check_read_reduce()
-    times = time_kernels(card)
+    times, pace = time_kernels(card)
     times.update(time_new_kernels(card))
     tv_times = time_tv_kernel(card)
     times["cp_k_steps"] = tv_times[TV_SHAPES[1]]
@@ -1224,9 +1389,9 @@ def main():
     print("cross-path contract at the reference test shapes:")
     check_contract_small()
     check_tv_contract_small()
-    launches = phase_main_path(card)
+    launches = phase_main_path(card, pace)
     print("library route, BatchedAlgorithm -> match_kernel_solver:")
-    for k, n in phase_routes(card).items():
+    for k, n in phase_routes(card, pace).items():
         launches[k] = launches.get(k, 0) + n
     print("TV route, BatchedAlgorithm -> match_tv_solver:")
     for k, n in phase_tv_routes(card).items():

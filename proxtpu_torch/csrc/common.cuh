@@ -3,12 +3,14 @@
 // step for large dynamic shared memory, a NaN-keeping clip, and the tile
 // pass: a ring of row tiles of an operator in shared memory, filled by the
 // bulk copy and used for both products A x and A^T r, so that the operator
-// is read from device memory once.
+// is read from device memory once (TileRing, which the three lasso kernels
+// share).
 #pragma once
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <mutex>
 
 namespace proxtpu {
 
@@ -30,9 +32,11 @@ __device__ __forceinline__ float warp_nanmax(float v) {
   return v;
 }
 
-// Block-wide max and sum of THREADS threads; every thread gets both.
-// `scratch` holds 2 * (THREADS / 32) floats.  Starts and ends with a
-// barrier's worth of synchronisation, so it may be called in a loop.
+// Block-wide max and sum of the block's first THREADS threads; every thread
+// of the block calls it and gets both (a block may be larger than THREADS:
+// what its other threads pass in is ignored).  `scratch` holds
+// 2 * (THREADS / 32) floats.  Starts and ends with a barrier's worth of
+// synchronisation, so it may be called in a loop.
 template <int THREADS>
 __device__ __forceinline__ void block_reduce(float& mx, float& sum,
                                              float* scratch) {
@@ -41,7 +45,7 @@ __device__ __forceinline__ void block_reduce(float& mx, float& sum,
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   mx = warp_nanmax(mx);
   sum = warp_sum(sum);
-  if (lane == 0) {
+  if (lane == 0 && warp < kWarps) {
     scratch[warp] = mx;
     scratch[kWarps + warp] = sum;
   }
@@ -196,8 +200,10 @@ __device__ __forceinline__ void fill_stage_loads(float* stage,
 
 // Pass 1 on a tile: out[m] = a_m . x - c[m] for its `rows` rows.  A warp
 // takes rows with a stride; a lane strides the row by 32 in one fmaf chain,
-// then the warp's tree: rows_dot's order.  `tile` is in shared memory (or,
-// read in place, in device memory); x in shared memory.
+// then the warp's tree: rows_dot's order.  The row's tail (fewer than
+// kUnroll entries a lane) is one more batch under a predicate, so that its
+// loads too are in flight together.  `tile` is in shared memory (or, read
+// in place, in device memory); x in shared memory.
 template <int THREADS>
 __device__ __forceinline__ void tile_rows_dot(const float* tile,
                                               const float* __restrict__ c,
@@ -217,10 +223,63 @@ __device__ __forceinline__ void tile_rows_dot(const float* tile,
 #pragma unroll
       for (int j = 0; j < kUnroll; ++j) acc = fmaf(a[j], x[n + 32 * j], acc);
     }
-    for (; n < N; n += 32) acc = fmaf(row[n], x[n], acc);
+    if (n < N) {
+      float a[kUnroll - 1], xv[kUnroll - 1];
+#pragma unroll
+      for (int j = 0; j < kUnroll - 1; ++j) {
+        const bool in = n + 32 * j < N;
+        a[j] = in ? row[n + 32 * j] : 0.f;
+        xv[j] = in ? x[n + 32 * j] : 0.f;
+      }
+#pragma unroll
+      for (int j = 0; j < kUnroll - 1; ++j)
+        if (n + 32 * j < N) acc = fmaf(a[j], xv[j], acc);
+    }
     acc = warp_sum(acc);
     if (lane == 0) out[m] = acc - c[m];
   }
+}
+
+// Pass 2 on one column of a tile: acc + sum over the tile's rows, ascending,
+// of r[m] * A[m, n], in one fmaf chain; `col` points at the column's first
+// entry.  r is in shared memory: where it starts on 16 bytes, eight of its
+// entries are two loads.  The tail (fewer than kUnroll rows) is one more
+// batch under a predicate.
+__device__ __forceinline__ float tile_col_fma(const float* col,
+                                              const float* r, int rows, int N,
+                                              float acc) {
+  constexpr int kUnroll = 8;
+  const bool vec = (reinterpret_cast<uintptr_t>(r) & 15) == 0;
+  int m = 0;
+  for (; m + kUnroll <= rows; m += kUnroll) {
+    float a[kUnroll], rv[kUnroll];
+#pragma unroll
+    for (int j = 0; j < kUnroll; ++j) a[j] = col[(size_t)(m + j) * N];
+    if (vec) {
+      const float4 lo = *reinterpret_cast<const float4*>(r + m);
+      const float4 hi = *reinterpret_cast<const float4*>(r + m + 4);
+      rv[0] = lo.x, rv[1] = lo.y, rv[2] = lo.z, rv[3] = lo.w;
+      rv[4] = hi.x, rv[5] = hi.y, rv[6] = hi.z, rv[7] = hi.w;
+    } else {
+#pragma unroll
+      for (int j = 0; j < kUnroll; ++j) rv[j] = r[m + j];
+    }
+#pragma unroll
+    for (int j = 0; j < kUnroll; ++j) acc = fmaf(a[j], rv[j], acc);
+  }
+  if (m < rows) {
+    float a[kUnroll - 1], rv[kUnroll - 1];
+#pragma unroll
+    for (int j = 0; j < kUnroll - 1; ++j) {
+      const bool in = m + j < rows;
+      a[j] = in ? col[(size_t)(m + j) * N] : 0.f;
+      rv[j] = in ? r[m + j] : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < kUnroll - 1; ++j)
+      if (m + j < rows) acc = fmaf(a[j], rv[j], acc);
+  }
+  return acc;
 }
 
 // Pass 2 on a tile: g[n] (+)= sum over the tile's rows, ascending, of
@@ -230,21 +289,150 @@ template <int THREADS>
 __device__ __forceinline__ void tile_cols_fma(const float* tile,
                                               const float* r, float* g,
                                               int rows, int N, bool first) {
-  constexpr int kUnroll = 8;
-  for (int n = threadIdx.x; n < N; n += THREADS) {
-    const float* col = tile + n;
-    float acc = first ? 0.f : g[n];
-    int m = 0;
-    for (; m + kUnroll <= rows; m += kUnroll) {
-      float a[kUnroll];
-#pragma unroll
-      for (int j = 0; j < kUnroll; ++j) a[j] = col[(size_t)(m + j) * N];
-#pragma unroll
-      for (int j = 0; j < kUnroll; ++j) acc = fmaf(a[j], r[m + j], acc);
+  for (int n = threadIdx.x; n < N; n += THREADS)
+    g[n] = tile_col_fma(tile + n, r, rows, N, first ? 0.f : g[n]);
+}
+
+// How the tiles of a slab reach the two passes: through the ring by the bulk
+// copy, through the ring by ordinary loads (a lane that does not start on 16
+// bytes, or N * 4 no multiple of 16), or read in place from device memory,
+// twice, where no ring fits the block's shared memory.
+enum Fill { kFillBulk = 0, kFillLoads = 1, kFillNone = 2 };
+
+__host__ __device__ inline size_t round_up(size_t v, size_t to) {
+  return (v + to - 1) / to * to;
+}
+
+// One block's walk over its slab of `rows` full rows of N floats, in tiles
+// of R rows (the last may be short) through a ring of S stages, `sweeps`
+// times over.  Tile number q of sweeps * ntiles is tile q % ntiles of the
+// slab and goes through stage q % S; its barrier completes phase q / S.  A
+// stage is refilled once every thread has finished both passes on the tile
+// in it, which a block barrier after a later tile's pass 1 shows:
+// `refill(released)` is called right after such a barrier with the number of
+// tiles released so far, and starts every fill the ring has room for.
+//
+//   ring.init_barriers();  __syncthreads();  ring.prime();
+//   per sweep:  ring.sweep(c, x, r, g);  a block (or cluster) barrier;
+//               ring.refill(ring.q);
+//
+// After sweep(), r[m] = a_m . x - c[m] for the slab's rows, and g[n] = sum
+// over the slab's rows, ascending, of r[m] A[m, n], which the thread that
+// owns column n (n = threadIdx.x + k THREADS) may read at once; A crossed
+// the memory system once.  With ordinary loads a refill is read at least one
+// tile's barrier after its stores, which needs S >= 3 or a slab of one tile
+// (no refill at all).  Every thread of the block makes every call.
+template <int THREADS, int FILL>
+struct TileRing {
+  float* stages;        // S stages of stage_floats floats, on 128 bytes
+  size_t stage_floats;
+  uint64_t* bars;       // S mbarriers (bulk copy only)
+  const float* slab;    // the slab's first row, in device memory
+  int rows, N, R, S, ntiles, total;
+  int fq, fj, fs;       // next tile to fill: number, tile of the slab, stage
+  int q, cs;            // tiles consumed; the stage of tile q
+  uint32_t parity;      // the phase tile q's barrier completes, mod 2
+
+  __device__ __forceinline__ TileRing(float* stages, size_t stage_floats,
+                                      uint64_t* bars, const float* slab,
+                                      int rows, int N, int R, int S,
+                                      int sweeps)
+      : stages(stages), stage_floats(stage_floats), bars(bars), slab(slab),
+        rows(rows), N(N), R(R), S(S), ntiles((rows + R - 1) / R),
+        total(sweeps * ((rows + R - 1) / R)), fq(0), fj(0), fs(0), q(0),
+        cs(0), parity(0) {}
+
+  // before the block barrier that precedes prime()
+  __device__ __forceinline__ void init_barriers() {
+    if (FILL == kFillBulk && threadIdx.x == 0) {
+      for (int s = 0; s < S; ++s) mbarrier_init(&bars[s], 1);
+      mbarrier_init_fence();
     }
-    for (; m < rows; ++m) acc = fmaf(col[(size_t)m * N], r[m], acc);
-    g[n] = acc;
   }
+
+  __device__ __forceinline__ void refill(int released) {
+    if (FILL != kFillNone) {
+      while (fq < total && fq < released + S) {
+        const float* src = slab + (size_t)fj * R * N;
+        const int count = min(R, rows - fj * R) * N;
+        float* stage = stages + fs * stage_floats;
+        if (FILL == kFillBulk) {
+          // by the last warp, which has no row of a short tile in pass 1
+          if (threadIdx.x == THREADS - 32)
+            fill_stage_bulk(stage, src, (uint32_t)count * sizeof(float),
+                            &bars[fs]);
+        } else {
+          fill_stage_loads<THREADS>(stage, src, count);
+        }
+        ++fq;
+        if (++fj == ntiles) fj = 0;
+        if (++fs == S) fs = 0;
+      }
+    }
+  }
+
+  // the first fills; ordinary stores into the first stages are read after
+  // this barrier
+  __device__ __forceinline__ void prime() {
+    refill(0);
+    if (FILL == kFillLoads) __syncthreads();
+  }
+
+  __device__ __forceinline__ void sweep(const float* __restrict__ c,
+                                        const float* x, float* r, float* g) {
+    for (int j = 0; j < ntiles; ++j) {
+      const int tile_rows = min(R, rows - j * R);
+      const float* tile;
+      if (FILL == kFillNone) {
+        tile = slab + (size_t)j * R * N;
+      } else {
+        tile = stages + cs * stage_floats;
+        if (FILL == kFillBulk) mbarrier_wait(&bars[cs], parity);
+      }
+      tile_rows_dot<THREADS>(tile, c + j * R, x, r + j * R, tile_rows, N);
+      // r of this tile complete; every thread is past pass 2 of the tile
+      // before, whose stage is free
+      __syncthreads();
+      refill(q);
+      tile_cols_fma<THREADS>(tile, r + j * R, g, tile_rows, N, j == 0);
+      ++q;
+      if (++cs == S) {
+        cs = 0;
+        parity ^= 1;
+      }
+    }
+  }
+};
+
+// Launch attributes of a kernel that may want most of an SM's shared memory
+// for several resident blocks: raises the kernel's dynamic shared memory
+// limit to `smem` and asks for the largest shared-memory carveout.  The
+// attributes are set once per device and size, not once per launch.
+struct Prepared {
+  std::mutex lock;
+  int device = -1;
+  size_t bytes = 0;
+};
+
+template <typename Kernel>
+cudaError_t prepare_once(Prepared& done, Kernel kernel, size_t smem) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> guard(done.lock);
+  if (done.device == device && smem <= done.bytes) return cudaSuccess;
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  done.device = device;
+  done.bytes = smem;
+  return cudaSuccess;
 }
 
 }  // namespace proxtpu

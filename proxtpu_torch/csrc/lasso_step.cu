@@ -19,14 +19,35 @@
 //   untouched (a select, not the TPU kernel's blend: equal for finite values,
 //   and a frozen lane stays finite when x+ is not) and reports res = rs = 0.
 //
-// Bound: reading A from device memory.  fb_step and fista_step read A twice
-// (pass 1 row-wise, pass 2 column-wise); one lane's A at the flagship shape
-// (256, 200, 400) is 312.5 KiB, more than a block's 227 KB of shared memory,
-// so it cannot be staged whole, and the second read is meant to hit the
-// 50 MB L2 while the lane's slab is still resident.  Frozen lanes return
-// before touching A, so a batch whose lanes converge reads less.  The tile
-// pass of common.cuh, which fista_k_steps uses, would give both the single
-// read.
+// Bound: reading A from device memory, once.  All three kernels walk a lane's
+// rows through the tile pass of common.cuh (TileRing): a ring of row tiles in
+// shared memory, filled by bulk copies that report to mbarriers, each tile
+// used for r = A x - b (a warp per row) and, from shared memory again, for
+// g += A^T r (a thread per column), so that A crosses the memory system once
+// per step.  One lane's A at the flagship shape (256, 200, 400) is 312.5 KiB,
+// more than a block's 227 KB of shared memory, so it cannot be staged whole,
+// and 256 such lanes (80 MB) do not stay in the 50 MB L2 between two passes:
+// a kernel that reads A row-wise and then column-wise reads it from device
+// memory twice.  Frozen lanes return before touching A, so a batch whose
+// lanes converge reads less.
+//
+// fb_step and fista_step: one block per lane, one sweep of the ring, then
+// the N-wide epilogue.  The launch plan is chosen on the host
+// (kernels/lasso.py: step_plan): 512 or 1024 threads from N (a thread per
+// column in pass 2, a warp per row in pass 1), three stages whose size lets
+// two blocks share an SM where the batch has more lanes than the card has
+// SMs (each hides the other's barrier and mbarrier waits); one stage, no
+// refill and 256 threads where a lane fits a quarter of an SM's shared
+// memory; the lane read in place by 256 threads in (N + M) floats of shared
+// memory where no ring fits (N above about 11000).  On an NVIDIA H100 80GB
+// HBM3 at 700 W, (256, 200, 400), two blocks of 512 threads per SM, three
+// stages of 16 rows: about 38 us a step, where a block of 256 threads
+// reading A twice took about 100.
+// Every sum keeps the order of a block of 256 threads that reads A twice:
+// r by a lane striding the row by 32 in one fmaf chain and the warp's xor
+// tree, g by one ascending fmaf chain per column, rs by thread t < 256
+// chaining n = t, t + 256, ... and the two xor trees of block_reduce<256>,
+// whatever the block's size; so the plan changes no bit of any result.
 //
 // fista_k_steps runs K full iterations per lane in one launch: the FB step,
 // with RESTART t <- 1 where rs > 0 (before the coefficient is drawn, as
@@ -86,14 +107,24 @@ namespace cg = cooperative_groups;
 namespace {
 
 using proxtpu::block_reduce;
+using proxtpu::kFillBulk;
+using proxtpu::kFillLoads;
+using proxtpu::kFillNone;
 using proxtpu::nanmax;
 using proxtpu::prepare;
-using proxtpu::rows_dot;
+using proxtpu::Prepared;
+using proxtpu::prepare_once;
+using proxtpu::round_up;
+using proxtpu::TileRing;
 
-constexpr int kThreads = 256;
-constexpr int kUnroll = 8;  // loads of A each thread keeps in flight
+// fb_step, fista_step: res and rs are reduced in the order of a block of
+// this many threads, the smallest block the plan chooses
+constexpr int kOrderThreads = 256;
 // fista_k_steps: 32 warps for pass 1, a column a thread at N = 1024
 constexpr int kKThreads = 1024;
+// fb_step, fista_step: blocks of THREADS threads the compiler leaves room for
+// on an SM (64 registers a thread, 32 at 1024 threads)
+constexpr int step_blocks(int threads) { return threads >= 512 ? 2 : 4; }
 
 // The prox at one point: z from x_n and g_n = (A^T r)_n.
 template <bool SHRINK>
@@ -109,42 +140,87 @@ __device__ __forceinline__ float prox_point(float xv, float g, float gamma,
   return z;
 }
 
-// Pass 2 and the prox for column n: g = (A^T r)_n, then z.  Threads take
-// neighbouring columns, so each step of the m loop is a coalesced row read.
-template <bool SHRINK>
-__device__ __forceinline__ float prox_column(const float* __restrict__ Ai,
-                                             const float* r, float xv, int n,
-                                             int M, int N, float gamma,
-                                             float thr, float shrink) {
-  // kUnroll loads in flight, as in pass 1; the sum runs over m in order
-  const float* col = Ai + n;
-  float g = 0.f;
-  int m = 0;
-  for (; m + kUnroll <= M; m += kUnroll) {
-    float a[kUnroll];
-#pragma unroll
-    for (int j = 0; j < kUnroll; ++j) a[j] = __ldg(col + (size_t)(m + j) * N);
-#pragma unroll
-    for (int j = 0; j < kUnroll; ++j) g = fmaf(a[j], r[m + j], g);
+// Dynamic shared memory of fb_step and fista_step, in bytes from its start.
+// With a ring (S > 0): x (then z) and g of Np = N rounded up to 4 floats
+// each, r of M rounded up to 4, then on 128 bytes S stages of R rows (each
+// rounded up to 128 bytes) and S mbarriers.  With the lane read in place
+// (S = 0): x (then z) and r, N + M floats, the shared memory of a kernel
+// that keeps no tile at all.  kernels/lasso.py (step_shared_bytes) computes
+// the same total.
+struct StepLayout {
+  int Np;
+  size_t r, stage0, stage_bytes, bars, total;
+  __host__ __device__ StepLayout(int M, int N, int R, int S) {
+    Np = S ? (int)round_up(N, 4) : N;
+    r = (S ? 2 : 1) * (size_t)Np * sizeof(float);
+    const size_t fixed = r + (S ? round_up(M, 4) : M) * sizeof(float);
+    stage0 = round_up(fixed, 128);
+    stage_bytes = round_up((size_t)R * N * sizeof(float), 128);
+    bars = stage0 + S * stage_bytes;
+    total = S ? bars + S * sizeof(uint64_t) : fixed;
   }
-  for (; m < M; ++m) g = fmaf(__ldg(col + (size_t)m * N), r[m], g);
-  return prox_point<SHRINK>(xv, g, gamma, thr, shrink);
+};
+
+// One lane's FB step up to the prox: x into shared memory, one sweep of the
+// ring over the lane's M rows (or, FILL == kFillNone, both passes on the lane
+// in place), then z at every column n by the thread that owns it, handed to
+// finish(n, x_n, z).  The fills start before x is asked for.
+template <int THREADS, int FILL, typename Finish>
+__device__ __forceinline__ void step_prox(unsigned char* smem_raw,
+                                          const float* __restrict__ Ai,
+                                          const float* __restrict__ bi,
+                                          const float* xi, int M, int N,
+                                          int R, int S, float gamma,
+                                          float thr, const float* shrink,
+                                          int i, Finish finish) {
+  const StepLayout lay(M, N, R, S);
+  float* xs = reinterpret_cast<float*>(smem_raw);
+  float* r = reinterpret_cast<float*>(smem_raw + lay.r);
+  const float si = shrink ? shrink[i] : 1.f;
+  auto prox = [&](float xv, float g) {
+    return shrink ? prox_point<true>(xv, g, gamma, thr, si)
+                  : prox_point<false>(xv, g, gamma, thr, 1.f);
+  };
+  if (FILL == kFillNone) {
+    for (int n = threadIdx.x; n < N; n += THREADS) xs[n] = xi[n];
+    __syncthreads();
+    proxtpu::tile_rows_dot<THREADS>(Ai, bi, xs, r, M, N);
+    __syncthreads();
+    for (int n = threadIdx.x; n < N; n += THREADS) {
+      const float xv = xs[n];
+      finish(n, xv, prox(xv, proxtpu::tile_col_fma(Ai + n, r, M, N, 0.f)));
+    }
+  } else {
+    float* g = xs + lay.Np;
+    TileRing<THREADS, FILL> ring(
+        reinterpret_cast<float*>(smem_raw + lay.stage0),
+        lay.stage_bytes / sizeof(float),
+        reinterpret_cast<uint64_t*>(smem_raw + lay.bars), Ai, M, N, R, S, 1);
+    ring.init_barriers();
+    __syncthreads();
+    ring.prime();
+    for (int n = threadIdx.x; n < N; n += THREADS) xs[n] = xi[n];
+    __syncthreads();
+    ring.sweep(bi, xs, r, g);
+    for (int n = threadIdx.x; n < N; n += THREADS) {
+      const float xv = xs[n];
+      finish(n, xv, prox(xv, g[n]));
+    }
+  }
 }
 
-template <bool RESTART, bool SHRINK>
-__global__ void __launch_bounds__(kThreads)
+template <int THREADS, int FILL>
+__global__ void __launch_bounds__(THREADS, step_blocks(THREADS))
 fista_step_kernel(const float* __restrict__ A, const float* __restrict__ b,
-                  float* __restrict__ x, float* __restrict__ zp,
-                  const float* __restrict__ beta,
+                  float* x, float* zp, const float* __restrict__ beta,
                   const float* __restrict__ gamma,
                   const float* __restrict__ thr,
                   const float* __restrict__ done,
                   const float* __restrict__ shrink, float* __restrict__ res,
-                  float* __restrict__ rs, int M, int N) {
-  extern __shared__ float smem[];
-  float* xs = smem;      // N: x, then z (each column by its owning thread)
-  float* r = smem + N;   // M
-  __shared__ float scratch[2 * (kThreads / 32)];
+                  float* __restrict__ rs, int M, int N, int R, int S,
+                  int restart) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __shared__ float scratch[2 * (kOrderThreads / 32)];
 
   const int i = blockIdx.x;
   if (done[i] != 0.f) {  // frozen lane: carries untouched, read-outs 0
@@ -154,31 +230,31 @@ fista_step_kernel(const float* __restrict__ A, const float* __restrict__ b,
     }
     return;
   }
-  const float* Ai = A + (size_t)i * M * N;
   float* xi = x + (size_t)i * N;
   float* zpi = zp + (size_t)i * N;
-  const float gi = gamma[i], ti = thr[i];
-  const float si = SHRINK ? shrink[i] : 1.f;
+  const float beta_i = beta[i];  // asked for before the sweep, used after
+  float* zs = reinterpret_cast<float*>(smem_raw);  // z takes x's place
+  step_prox<THREADS, FILL>(smem_raw, A + (size_t)i * M * N, b + (size_t)i * M,
+                           xi, M, N, R, S, gamma[i], thr[i], shrink, i,
+                           [&](int n, float, float z) { zs[n] = z; });
+  __syncthreads();  // z complete
 
-  for (int n = threadIdx.x; n < N; n += kThreads) xs[n] = xi[n];
-  __syncthreads();
-  rows_dot<kThreads, true>(Ai, b + (size_t)i * M, xs, r, M, N);
-  __syncthreads();
-
+  // res and rs as a block of kOrderThreads threads sums them: thread t
+  // chains the columns t, t + kOrderThreads, ..., then block_reduce's trees
   float mx = 0.f, dot = 0.f;
-  for (int n = threadIdx.x; n < N; n += kThreads) {
-    const float xv = xs[n];
-    const float z = prox_column<SHRINK>(Ai, r, xv, n, M, N, gi, ti, si);
-    const float d = xv - z;
-    mx = nanmax(mx, fabsf(d));
-    dot = fmaf(d, z - zpi[n], dot);
-    xs[n] = z;  // x[n] is no longer needed: only this thread reads column n
+  if (threadIdx.x < kOrderThreads) {
+    for (int n = threadIdx.x; n < N; n += kOrderThreads) {
+      const float z = zs[n];
+      const float d = xi[n] - z;  // x is still in device memory
+      mx = nanmax(mx, fabsf(d));
+      dot = fmaf(d, z - zpi[n], dot);
+    }
   }
-  block_reduce<kThreads>(mx, dot, scratch);
+  block_reduce<kOrderThreads>(mx, dot, scratch);
 
-  const float bi = (RESTART && dot > 0.f) ? 0.f : beta[i];
-  for (int n = threadIdx.x; n < N; n += kThreads) {
-    const float z = xs[n];
+  const float bi = (restart && dot > 0.f) ? 0.f : beta_i;
+  for (int n = threadIdx.x; n < N; n += THREADS) {
+    const float z = zs[n];
     xi[n] = __fadd_rn(z, __fmul_rn(bi, z - zpi[n]));
     zpi[n] = z;
   }
@@ -188,46 +264,27 @@ fista_step_kernel(const float* __restrict__ A, const float* __restrict__ b,
   }
 }
 
-template <bool SHRINK>
-__global__ void __launch_bounds__(kThreads)
+template <int THREADS, int FILL>
+__global__ void __launch_bounds__(THREADS, step_blocks(THREADS))
 fb_step_kernel(const float* __restrict__ A, const float* __restrict__ b,
                const float* __restrict__ x, const float* __restrict__ gamma,
                const float* __restrict__ thr,
                const float* __restrict__ shrink, float* __restrict__ z_out,
-               float* __restrict__ res, int M, int N) {
-  extern __shared__ float smem[];
-  float* xs = smem;
-  float* r = smem + N;
-  __shared__ float scratch[2 * (kThreads / 32)];
+               float* __restrict__ res, int M, int N, int R, int S) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __shared__ float scratch[2 * (THREADS / 32)];
 
   const int i = blockIdx.x;
-  const float* Ai = A + (size_t)i * M * N;
-  const float* xi = x + (size_t)i * N;
   float* zi = z_out + (size_t)i * N;
-  const float gi = gamma[i], ti = thr[i];
-  const float si = SHRINK ? shrink[i] : 1.f;
-
-  for (int n = threadIdx.x; n < N; n += kThreads) xs[n] = xi[n];
-  __syncthreads();
-  rows_dot<kThreads, true>(Ai, b + (size_t)i * M, xs, r, M, N);
-  __syncthreads();
-
   float mx = 0.f, unused = 0.f;
-  for (int n = threadIdx.x; n < N; n += kThreads) {
-    const float xv = xs[n];
-    const float z = prox_column<SHRINK>(Ai, r, xv, n, M, N, gi, ti, si);
-    mx = nanmax(mx, fabsf(xv - z));
-    zi[n] = z;
-  }
-  block_reduce<kThreads>(mx, unused, scratch);
+  step_prox<THREADS, FILL>(smem_raw, A + (size_t)i * M * N, b + (size_t)i * M,
+                           x + (size_t)i * N, M, N, R, S, gamma[i], thr[i],
+                           shrink, i, [&](int n, float xv, float z) {
+                             mx = nanmax(mx, fabsf(xv - z));
+                             zi[n] = z;
+                           });
+  block_reduce<THREADS>(mx, unused, scratch);
   if (threadIdx.x == 0) res[i] = mx;
-}
-
-// How the tiles of fista_k_steps reach the two passes.
-enum Fill { kFillBulk = 0, kFillLoads = 1, kFillNone = 2 };
-
-__host__ __device__ inline size_t round_up(size_t v, size_t to) {
-  return (v + to - 1) / to * to;
 }
 
 // Dynamic shared memory of fista_k_steps, in bytes from its start.  With a
@@ -284,16 +341,9 @@ fista_k_steps_kernel(const float* __restrict__ A, const float* __restrict__ b,
   float* zs = FILL == kFillNone ? zpi : xs + Np;
   float* gp = FILL == kFillNone ? xs + Np : xs + 2 * Np;
   float* r = reinterpret_cast<float*>(smem_raw + lay.r);
-  float* stages = reinterpret_cast<float*>(smem_raw + lay.stage0);
-  const size_t stage_floats = lay.stage_bytes / sizeof(float);
-  uint64_t* bars = reinterpret_cast<uint64_t*>(smem_raw + lay.bars);
-
   // this CTA's slab of rows and its tiles of R rows (the last may be short)
   const int m_lo = (int)((long long)rank * M / C);
   const int rows = (int)((long long)(rank + 1) * M / C) - m_lo;
-  const int ntiles = (rows + R - 1) / R;
-  const int total = K * ntiles;  // tiles this CTA consumes, in order
-  const float* Aslab = A + ((size_t)i * M + m_lo) * N;
   const float* bslab = b + (size_t)i * M + m_lo;
   const float gi = gamma[i], thri = thr[i];
   float ti = t[i];
@@ -302,80 +352,26 @@ fista_k_steps_kernel(const float* __restrict__ A, const float* __restrict__ b,
     xs[n] = xi[n];
     if (FILL != kFillNone) zs[n] = zpi[n];
   }
-  if (FILL == kFillBulk && threadIdx.x == 0) {
-    for (int s = 0; s < S; ++s) proxtpu::mbarrier_init(&bars[s], 1);
-    proxtpu::mbarrier_init_fence();
-  }
+  // the slab's tiles go K times through the ring (common.cuh)
+  TileRing<kKThreads, FILL> ring(
+      reinterpret_cast<float*>(smem_raw + lay.stage0),
+      lay.stage_bytes / sizeof(float),
+      reinterpret_cast<uint64_t*>(smem_raw + lay.bars),
+      A + ((size_t)i * M + m_lo) * N, rows, N, R, S, K);
+  ring.init_barriers();
   __syncthreads();
+  ring.prime();
 
-  // The ring.  Tile number q of `total` is tile q % ntiles of the slab and
-  // goes through stage q % S; its barrier completes phase q / S.  A stage is
-  // refilled once every thread has finished both passes on the tile in it,
-  // which a block barrier after the tile's pass 2 shows: `refill(released)`
-  // is called right after such a barrier with the number of tiles released
-  // so far, and starts every fill the ring has room for.
-  int fq = 0, fj = 0, fs = 0;  // next tile to fill: number, tile, stage
-  auto refill = [&](int released) {
-    while (fq < total && fq < released + S) {
-      const float* src = Aslab + (size_t)fj * R * N;
-      const int count = min(R, rows - fj * R) * N;
-      float* stage = stages + fs * stage_floats;
-      if (FILL == kFillBulk) {
-        // by the last warp, which has no row of a short tile in pass 1
-        if (threadIdx.x == kKThreads - 32)
-          proxtpu::fill_stage_bulk(stage, src,
-                                   (uint32_t)count * sizeof(float),
-                                   &bars[fs]);
-      } else {
-        proxtpu::fill_stage_loads<kKThreads>(stage, src, count);
-      }
-      ++fq;
-      if (++fj == ntiles) fj = 0;
-      if (++fs == S) fs = 0;
-    }
-  };
-  if (FILL != kFillNone) {
-    refill(0);
-    // ordinary stores into the first stages are read after this barrier;
-    // later fills are at least one tile's barrier ahead of their use
-    // (S >= 3)
-    if (FILL == kFillLoads) __syncthreads();
-  }
-
-  int q = 0, cs = 0;     // tiles consumed; the stage of tile q
-  uint32_t parity = 0;   // the phase tile q's barrier completes, mod 2
   float mx = 0.f;
   for (int step = 0; step < K; ++step) {
     float* g = FILL == kFillNone ? gp : gp + (step & 1) * Np;
-    for (int j = 0; j < ntiles; ++j) {
-      const int tile_rows = min(R, rows - j * R);
-      const float* tile;
-      if (FILL == kFillNone) {
-        tile = Aslab + (size_t)j * R * N;
-      } else {
-        tile = stages + cs * stage_floats;
-        if (FILL == kFillBulk) proxtpu::mbarrier_wait(&bars[cs], parity);
-      }
-      proxtpu::tile_rows_dot<kKThreads>(tile, bslab + j * R, xs, r + j * R,
-                                        tile_rows, N);
-      // r of this tile complete; every thread is past pass 2 of the tile
-      // before, whose stage is free
-      __syncthreads();
-      if (FILL != kFillNone) refill(q);
-      proxtpu::tile_cols_fma<kKThreads>(tile, r + j * R, g, tile_rows, N,
-                                        j == 0);
-      ++q;
-      if (++cs == S) {
-        cs = 0;
-        parity ^= 1;
-      }
-    }
+    ring.sweep(bslab, xs, r, g);
     // this CTA's partial g complete, and visible to the cluster
     if (C > 1)
       cluster.sync();
     else
       __syncthreads();
-    if (FILL != kFillNone) refill(q);
+    ring.refill(ring.q);
 
     float dot = 0.f;
     mx = 0.f;
@@ -430,24 +426,92 @@ fista_k_steps_kernel(const float* __restrict__ A, const float* __restrict__ b,
   if (C > 1) cluster.sync();
 }
 
+// The variants of the one-step kernels: blocks of 256, 512 and 1024 threads
+// with a ring (bulk copy or ordinary loads), 256 threads on a lane in place.
+using FistaStep = void (*)(const float*, const float*, float*, float*,
+                           const float*, const float*, const float*,
+                           const float*, const float*, float*, float*, int,
+                           int, int, int, int);
+using FbStep = void (*)(const float*, const float*, const float*,
+                        const float*, const float*, const float*, float*,
+                        float*, int, int, int, int);
+
+template <typename Kernel>
+struct Variant {
+  Kernel kernel;
+  Prepared prepared;
+};
+
+int threads_index(int threads) {
+  return threads == 256 ? 0 : threads == 512 ? 1 : threads == 1024 ? 2 : -1;
+}
+
+Variant<FistaStep>* fista_step_variant(int threads, int fill) {
+  static Variant<FistaStep> table[3][3] = {
+      {{fista_step_kernel<256, kFillBulk>},
+       {fista_step_kernel<256, kFillLoads>},
+       {fista_step_kernel<256, kFillNone>}},
+      {{fista_step_kernel<512, kFillBulk>},
+       {fista_step_kernel<512, kFillLoads>},
+       {nullptr}},
+      {{fista_step_kernel<1024, kFillBulk>},
+       {fista_step_kernel<1024, kFillLoads>},
+       {nullptr}}};
+  return &table[threads_index(threads)][fill];
+}
+
+Variant<FbStep>* fb_step_variant(int threads, int fill) {
+  static Variant<FbStep> table[3][3] = {
+      {{fb_step_kernel<256, kFillBulk>},
+       {fb_step_kernel<256, kFillLoads>},
+       {fb_step_kernel<256, kFillNone>}},
+      {{fb_step_kernel<512, kFillBulk>},
+       {fb_step_kernel<512, kFillLoads>},
+       {nullptr}},
+      {{fb_step_kernel<1024, kFillBulk>},
+       {fb_step_kernel<1024, kFillLoads>},
+       {nullptr}}};
+  return &table[threads_index(threads)][fill];
+}
+
+// The plan of kernels/lasso.py (step_plan), checked against the kernel's own
+// layout: `threads` per block, tiles of R rows through S stages (S = 0: the
+// lane in place, 256 threads; S = 1 only where the lane is one tile, so that
+// nothing is refilled), `smem_bytes` of dynamic shared memory.  A bulk copy
+// moves less than 1 MB, its barrier's limit.  Returns the way the tiles are
+// filled, or -1 for a plan the kernels do not take.
+int step_fill(const float* A, int M, int N, int threads, int R, int S,
+              int smem_bytes) {
+  const bool ok = threads_index(threads) >= 0 && R >= 1 &&
+                  (S >= 3 || (S == 1 && R >= M) ||
+                   (S == 0 && threads == kOrderThreads)) &&
+                  (S == 0 || (size_t)R * N * sizeof(float) < (1u << 20));
+  if (!ok || StepLayout(M, N, R, S).total != (size_t)smem_bytes) return -1;
+  const bool aligned =
+      N % 4 == 0 && reinterpret_cast<uintptr_t>(A) % 16 == 0;
+  return S == 0 ? kFillNone : aligned ? kFillBulk : kFillLoads;
+}
+
 }  // namespace
 
 extern "C" {
 
+// fista_step and fb_step launch the plan they are given (see step_fill) or
+// return cudaErrorInvalidValue; they never launch another.
 int proxtpu_fista_step(const float* A, const float* b, float* x, float* zp,
                        const float* beta, const float* gamma,
                        const float* thr, const float* done,
                        const float* shrink, float* res, float* rs, int B,
-                       int M, int N, int restart, void* stream) {
-  const size_t smem = (size_t)(N + M) * sizeof(float);
-  auto kernel = restart ? (shrink ? fista_step_kernel<true, true>
-                                  : fista_step_kernel<true, false>)
-                        : (shrink ? fista_step_kernel<false, true>
-                                  : fista_step_kernel<false, false>);
-  cudaError_t err = prepare(kernel, smem);
+                       int M, int N, int restart, int threads, int R, int S,
+                       int smem_bytes, void* stream) {
+  const int fill = step_fill(A, M, N, threads, R, S, smem_bytes);
+  if (fill < 0) return (int)cudaErrorInvalidValue;
+  Variant<FistaStep>* v = fista_step_variant(threads, fill);
+  cudaError_t err = prepare_once(v->prepared, v->kernel, smem_bytes);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(
-      A, b, x, zp, beta, gamma, thr, done, shrink, res, rs, M, N);
+  v->kernel<<<B, threads, smem_bytes, (cudaStream_t)stream>>>(
+      A, b, x, zp, beta, gamma, thr, done, shrink, res, rs, M, N, R, S,
+      restart);
   return (int)cudaGetLastError();
 }
 
@@ -512,14 +576,32 @@ int proxtpu_fista_k_steps(const float* A, const float* b, float* x,
 
 int proxtpu_fb_step(const float* A, const float* b, const float* x,
                     const float* gamma, const float* thr, const float* shrink,
-                    float* z, float* res, int B, int M, int N, void* stream) {
-  const size_t smem = (size_t)(N + M) * sizeof(float);
-  auto kernel = shrink ? fb_step_kernel<true> : fb_step_kernel<false>;
-  cudaError_t err = prepare(kernel, smem);
+                    float* z, float* res, int B, int M, int N, int threads,
+                    int R, int S, int smem_bytes, void* stream) {
+  const int fill = step_fill(A, M, N, threads, R, S, smem_bytes);
+  if (fill < 0) return (int)cudaErrorInvalidValue;
+  Variant<FbStep>* v = fb_step_variant(threads, fill);
+  cudaError_t err = prepare_once(v->prepared, v->kernel, smem_bytes);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(A, b, x, gamma, thr,
-                                                      shrink, z, res, M, N);
+  v->kernel<<<B, threads, smem_bytes, (cudaStream_t)stream>>>(
+      A, b, x, gamma, thr, shrink, z, res, M, N, R, S);
   return (int)cudaGetLastError();
+}
+
+// Blocks of fista_step (`fista` != 0) or fb_step at this plan that one SM
+// holds at a time, for a lane that takes the bulk copy.
+int proxtpu_step_blocks_per_sm(int fista, int M, int N, int threads, int R,
+                               int S, int smem_bytes, int* out) {
+  const int fill = step_fill(nullptr, M, N, threads, R, S, smem_bytes);
+  if (fill < 0) return (int)cudaErrorInvalidValue;
+  auto held = [&](auto* v) {
+    cudaError_t err = prepare_once(v->prepared, v->kernel, smem_bytes);
+    if (err != cudaSuccess) return err;
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        out, v->kernel, threads, smem_bytes);
+  };
+  return (int)(fista ? held(fista_step_variant(threads, fill))
+                     : held(fb_step_variant(threads, fill)));
 }
 
 // Largest dynamic shared memory a block of this device may opt in to.

@@ -15,10 +15,10 @@ wrapper counts its launches in its ``launches`` attribute.
 
 ``fused_fista_k_steps`` runs K full iterations per launch;
 ``solve_lasso_batch_blocked`` drives it, testing for convergence once per
-block of K.  Its kernel streams a lane's A once per inner step through a
-ring of row tiles in shared memory and, where the batch leaves SMs idle,
-serves a lane by a cluster of thread blocks; the launch plan is chosen here
-on the host (:func:`k_steps_plan`).
+block of K.  All three kernels stream a lane's A once per step through a
+ring of row tiles in shared memory; ``fista_k_steps`` serves a lane by a
+cluster of thread blocks where the batch leaves SMs idle.  The launch plans
+are chosen here on the host (:func:`step_plan`, :func:`k_steps_plan`).
 
 The TPU's lane-packed layout (``pack_lasso_batch``) is not ported: it only
 strips the 128-lane padding of the TPU's tiles, and a row on the card has
@@ -29,6 +29,7 @@ the natural layout through the full-step kernel.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -39,6 +40,10 @@ from . import _build
 
 # t after a restart: the simple t-sequence one step from t = 1
 _PHI = (1 + math.sqrt(5.0)) / 2
+
+
+def _round_up(v, to):
+    return -(-v // to) * to
 
 
 def _soft_threshold(y, thr):
@@ -84,11 +89,11 @@ def reference_fista_full_step(A, b, x, z_prev, beta, gamma, thr, done_mask,
             torch.where(frozen, zero, rs))
 
 
-def _check_operands(A, b, vectors, scalars, smem_bytes=None):
+def _check_operands(A, b, vectors, scalars, smem_bytes):
     """Raise unless the kernels take these operands: float32, contiguous,
     on A's CUDA device, A (B, M, N), b (B, M), ``vectors`` (B, N),
-    ``scalars`` (B,), and a block's shared memory holds ``smem_bytes``
-    (default: one row of N plus r, the one-step kernels' need)."""
+    ``scalars`` (B,) (both as ``(name, tensor)`` pairs), and a block's
+    shared memory holds ``smem_bytes``."""
     if A.dim() != 3:
         raise ValueError(f"A must be (B, M, N), got shape {tuple(A.shape)}")
     B, M, N = A.shape
@@ -106,35 +111,164 @@ def _check_operands(A, b, vectors, scalars, smem_bytes=None):
                              f"expected {shape}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if smem_bytes is None:
-        smem_bytes = (N + M) * 4
     _build.check_shared_bytes(smem_bytes, A.device)
 
 
-def _ptr(t):
-    return None if t is None else t.data_ptr()
+def _operands_ok(A, b, vectors, scalars):
+    """Whether :func:`_check_operands` would pass these tensors: the same
+    tests with no name, list or message built, for the wrappers that run
+    once per iteration.  Where it says no, ``_check_operands`` raises."""
+    if A.dim() != 3 or not A.is_cuda:
+        return False
+    B, M, N = A.shape
+    index, f32 = A.get_device(), torch.float32
+    if (A.dtype is not f32 or not A.is_contiguous() or b.shape != (B, M)
+            or not b.is_cuda or b.get_device() != index
+            or b.dtype is not f32 or not b.is_contiguous()):
+        return False
+    for tensors, shape in ((vectors, (B, N)), (scalars, (B,))):
+        for t in tensors:
+            if (t.shape != shape or not t.is_cuda
+                    or t.get_device() != index or t.dtype is not f32
+                    or not t.is_contiguous()):
+                return False
+    return True
+
+
+# a stage of the ring holds full rows, about this many bytes of them: each
+# tile costs a block barrier and the latency of one row's dot product, so
+# few tall tiles beat many short ones, and three stages of 64 KB (one in
+# use, two in flight) fill a block's 227 KB.  Below three stages a refill
+# by ordinary stores could meet its own reader.
+_STAGE_BYTES = 64 * 1024
+_STAGES = 3
+
+# The launch plan of the ``fb_step`` and ``fista_step`` kernels
+# (csrc/lasso_step.cu): one thread block per lane.
+STEP_THREADS = (256, 512, 1024)
+# what a resident block costs an SM beside its own shared memory: 1 KB the
+# system reserves and the kernels' static scratch, with room for rounding
+_BLOCK_OVERHEAD = 1024 + 512
+# two blocks share an SM only with tiles of at least this many rows: every
+# tile costs a block barrier and the latency of one row's dot product (on an
+# H100 two blocks with tiles of 16 rows beat one with tiles of 32 to 64 by 6
+# to 15 us at 256 lanes of 200 x 400 and 400 x 200; with 8 rows they are even)
+_MIN_SHARED_ROWS = 16
+
+
+def step_threads(N):
+    """Threads of a block of the one-step kernels that walks a ring: 512, or
+    1024 where N is above 512 (a thread per column in pass 2, a warp per row
+    in pass 1)."""
+    return STEP_THREADS[1] if N <= STEP_THREADS[1] else STEP_THREADS[2]
+
+
+def step_shared_bytes(M, N, R, S):
+    """Dynamic shared memory of one block of ``fb_step`` or ``fista_step``.
+    With a ring (S > 0): x and the gradient of N (rounded up to 4) floats
+    each, the residual of M (rounded up to 4), then on 128 bytes S stages of
+    R rows (each rounded up to 128 bytes) and S 8-byte barriers.  With the
+    lane read in place (S = 0): x and the residual, N + M floats.  The same
+    sum as ``StepLayout`` in csrc/lasso_step.cu, which refuses a launch whose
+    total differs."""
+    if S == 0:
+        return (N + M) * 4
+    fixed = (2 * _round_up(N, 4) + _round_up(M, 4)) * 4
+    return _round_up(fixed, 128) + S * (_round_up(R * N * 4, 128) + 8)
+
+
+def _ring_rows(M, N, warps, budget):
+    """Most rows per tile of a ring of ``_STAGES`` stages of at most
+    ``_STAGE_BYTES`` within ``budget`` bytes (0 where not one row fits): a
+    multiple of the block's ``warps`` where one fits (pass 1 gives a warp a
+    row, so a tile takes whole rounds)."""
+    room = budget - step_shared_bytes(M, N, 0, _STAGES)
+    stage = min(_STAGE_BYTES, room // _STAGES // 128 * 128)
+    R = max(0, min(M, stage // (N * 4)))
+    if warps < R < M:
+        R -= R % warps
+    return R
+
+
+def step_plan(B, M, N, sms, limit):
+    """``(threads, R, S, shared bytes)``, the launch plan of ``fb_step`` and
+    ``fista_step`` for a batch of B lanes of (M, N) on a device of ``sms``
+    SMs and ``limit`` bytes of shared memory per block.
+
+    A lane that fits a quarter of an SM's shared memory takes one stage
+    that holds it (``S == 1``, ``R == M``, no refill) and 256 threads, so
+    that four or more such blocks share an SM.  Else the block walks a ring
+    of three stages of R full rows, at most 64 KB each, with
+    :func:`step_threads`' threads: a batch of more lanes than SMs plans for
+    two blocks per SM (half an SM's shared memory each), so that all lanes
+    of up to ``2 sms`` run in one wave and each block's barrier and copy
+    waits are hidden by the other's work, if that leaves tiles of
+    ``_MIN_SHARED_ROWS`` rows or more; a smaller batch gives a block the
+    whole SM.  Where not even three one-row stages fit a whole SM, 256
+    threads read the lane in place (``S == 0``), which takes rows as wide as
+    ``(N + M) * 4 <= limit`` allows."""
+    per_sm = limit + 1024
+    one = step_shared_bytes(M, N, M, 1)
+    if one <= per_sm // 4 - _BLOCK_OVERHEAD:
+        return STEP_THREADS[0], M, 1, one
+    threads = step_threads(N)
+    budgets = [per_sm // k - _BLOCK_OVERHEAD
+               for k in ((2, 1) if B > sms else (1,))]
+    for budget in budgets:
+        R = _ring_rows(M, N, threads // 32, budget)
+        if R >= min(M, _MIN_SHARED_ROWS) or (R and budget == budgets[-1]):
+            R = -(-M // -(-M // R))  # the M rows spread evenly over the tiles
+            return threads, R, _STAGES, step_shared_bytes(M, N, R, _STAGES)
+    return STEP_THREADS[0], M, 0, step_shared_bytes(M, N, M, 0)
+
+
+# the plan of a shape, computed once: the wrappers run once per iteration
+cached_step_plan = functools.lru_cache(maxsize=None)(step_plan)
+
+# the C entries, looked up once
+_entries = {}
+
+
+def _launch_step(name, A, args, flags):
+    """Launch the one-step kernel ``name`` at A's cached plan on the current
+    stream of A's device; ``args`` are the tensors (None for an absent one)
+    and ``flags`` the integers between the shape and the plan."""
+    entry = _entries.get(name)
+    if entry is None:
+        entry = _entries[name] = getattr(_build.library(), "proxtpu_" + name)
+    index = A.get_device()
+    B, M, N = A.shape
+    limit = _build.max_shared_bytes(index)
+    threads, R, S, smem = cached_step_plan(B, M, N, _build.sm_count(index),
+                                           limit)
+    if smem > limit:
+        _build.check_shared_bytes(smem, A.device)
+    ptrs = [None if t is None else t.data_ptr() for t in args]
+    if index == torch.cuda.current_device():
+        # the stream's handle as an int, without a Stream object around it
+        err = entry(*ptrs, B, M, N, *flags, threads, R, S, smem,
+                    torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            err = entry(*ptrs, B, M, N, *flags, threads, R, S, smem,
+                        torch._C._cuda_getCurrentRawStream(index))
+    if err:
+        _build.check(err, name)
 
 
 def fused_fb_prox_grad(A, b, x, gamma, thr, shrink=None):
     """One FB step for the batch (see :func:`reference_fb_prox_grad`),
-    through the ``fb_step`` kernel for CUDA tensors.  Returns
-    ``(z (B, N), res_inf (B,))``."""
+    through the ``fb_step`` kernel for CUDA tensors, at the launch plan of
+    :func:`step_plan`.  Returns ``(z (B, N), res_inf (B,))``."""
     if A.device.type == "cpu":
         return reference_fb_prox_grad(A, b, x, gamma, thr, shrink)
-    scalars = [("gamma", gamma), ("thr", thr)]
-    if shrink is not None:
-        scalars.append(("shrink", shrink))
-    _check_operands(A, b, [("x", x)], scalars)
-    B, M, N = A.shape
+    scalars = (gamma, thr) if shrink is None else (gamma, thr, shrink)
+    if not _operands_ok(A, b, (x,), scalars):
+        _check_operands(A, b, [("x", x)],
+                        zip(("gamma", "thr", "shrink"), scalars), 0)
     z = torch.empty_like(x)
-    res = torch.empty(B, dtype=x.dtype, device=x.device)
-    with torch.cuda.device(A.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _build.library().proxtpu_fb_step(
-            A.data_ptr(), b.data_ptr(), x.data_ptr(), gamma.data_ptr(),
-            thr.data_ptr(), _ptr(shrink), z.data_ptr(), res.data_ptr(),
-            B, M, N, ctypes.c_void_p(stream))
-    _build.check(err, "fb_step")
+    res = x.new_empty(A.shape[0])
+    _launch_step("fb_step", A, (A, b, x, gamma, thr, shrink, z, res), ())
     fused_fb_prox_grad.launches += 1
     return z, res
 
@@ -146,7 +280,7 @@ def fused_fista_full_step(A, b, x, z_prev, beta, gamma, thr, done_mask,
                           shrink=None, restart=False):
     """One full FISTA iteration for the batch (see
     :func:`reference_fista_full_step`), through the ``fista_step`` kernel
-    for CUDA tensors.
+    for CUDA tensors, at the launch plan of :func:`step_plan`.
 
     ``x`` and ``z_prev`` are updated IN PLACE to ``(x_new, z)`` and returned
     (the JAX kernel aliases them to its outputs); they must be separate
@@ -161,22 +295,18 @@ def fused_fista_full_step(A, b, x, z_prev, beta, gamma, thr, done_mask,
         x.copy_(x_new)
         z_prev.copy_(z)
         return x, z_prev, res, rs
-    scalars = [("beta", beta), ("gamma", gamma), ("thr", thr),
-               ("done_mask", done_mask)]
+    scalars = (beta, gamma, thr, done_mask)
     if shrink is not None:
-        scalars.append(("shrink", shrink))
-    _check_operands(A, b, [("x", x), ("z_prev", z_prev)], scalars)
-    B, M, N = A.shape
-    res = torch.empty(B, dtype=x.dtype, device=x.device)
+        scalars += (shrink,)
+    if not _operands_ok(A, b, (x, z_prev), scalars):
+        _check_operands(
+            A, b, [("x", x), ("z_prev", z_prev)],
+            zip(("beta", "gamma", "thr", "done_mask", "shrink"), scalars), 0)
+    res = x.new_empty(A.shape[0])
     rs = torch.empty_like(res)
-    with torch.cuda.device(A.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _build.library().proxtpu_fista_step(
-            A.data_ptr(), b.data_ptr(), x.data_ptr(), z_prev.data_ptr(),
-            beta.data_ptr(), gamma.data_ptr(), thr.data_ptr(),
-            done_mask.data_ptr(), _ptr(shrink), res.data_ptr(),
-            rs.data_ptr(), B, M, N, int(restart), ctypes.c_void_p(stream))
-    _build.check(err, "fista_step")
+    _launch_step("fista_step", A, (A, b, x, z_prev, beta, gamma, thr,
+                                   done_mask, shrink, res, rs),
+                 (int(restart),))
     fused_fista_full_step.launches += 1
     return x, z_prev, res, rs
 
@@ -219,19 +349,8 @@ CLUSTER_SIZES = (8, 4, 2, 1)
 # rows it saves, and small problems keep one block per lane, which sums in
 # the order of a plain loop over the rows
 MIN_SLAB_ROWS = 64
-# a stage of the ring holds full rows, about this many bytes of them: each
-# tile costs a block barrier and the latency of one row's dot product, so
-# few tall tiles beat many short ones, and three stages of 64 KB (one in
-# use, two in flight) fill a block's 227 KB.  Below three stages a refill
-# by ordinary stores could meet its own reader.
-_STAGE_BYTES = 64 * 1024
-_STAGES = 3
 # rows of a tile where no ring fits and the tiles are read in place
 _DIRECT_ROWS = 8
-
-
-def _round_up(v, to):
-    return -(-v // to) * to
 
 
 def cluster_plan(B, M, sms):

@@ -538,6 +538,174 @@ def test_one_slab_is_the_straight_sum(step_data):
     np.testing.assert_array_equal(slab, straight)
 
 
+# The launch plan of the fb_step and fista_step kernels on an H100's shared
+# memory: (threads, rows per tile, stages, shared bytes).
+_STEP_PLANS = {
+    (256, 200, 400): (512, 16, 3, 80920),    # main path, route (c): 2 per SM
+    (64, 200, 400): (512, 29, 3, 143512),    # the main path's narrow phase
+    (256, 400, 200): (512, 31, 3, 77720),    # route (d)
+    (64, 512, 1024): (1024, 16, 3, 206872),  # route (a)'s first step
+    (1024, 64, 128): (256, 64, 1, 34056),    # a lane that fits one stage
+    (7, 33, 161): (256, 33, 1, 22920),       # ragged
+    (2, 24, 12000): (256, 24, 0, 48096),     # too wide for a ring: in place
+}
+
+
+@pytest.mark.parametrize("sms", [108, 132, 144])
+@pytest.mark.parametrize("shape", list(_STEP_PLANS))
+def test_step_plan_of_known_shapes(shape, sms):
+    plan = tl.step_plan(*shape, sms, SHARED_LIMIT)
+    assert plan == _STEP_PLANS[shape]
+    assert tl.step_shared_bytes(*shape[1:], *plan[1:3]) == plan[3]
+    assert tl.cached_step_plan(*shape, sms, SHARED_LIMIT) == plan
+
+
+def test_step_plan_shares_an_sm_only_above_the_sm_count():
+    """120 flagship lanes are more than 108 SMs but fewer than 132: two
+    blocks per SM (half its shared memory each) on the first, a block with
+    taller tiles per SM on the others."""
+    assert tl.step_plan(120, 200, 400, 108, SHARED_LIMIT) == (
+        512, 16, 3, 80920)
+    for sms in (132, 144):
+        assert tl.step_plan(120, 200, 400, sms, SHARED_LIMIT) == (
+            512, 29, 3, 143512)
+    assert 2 * (80920 + 1024) <= SHARED_LIMIT + 1024 < 2 * (143512 + 1024)
+
+
+def _step_layout_bytes(M, N, R, S):
+    """StepLayout of csrc/lasso_step.cu, written out once more."""
+    if S == 0:
+        return 4 * (N + M)
+    fixed = 4 * (2 * (-(-N // 4) * 4) + -(-M // 4) * 4)
+    return (-(-fixed // 128) * 128 + S * (-(-4 * R * N // 128) * 128)
+            + 8 * S)
+
+
+@pytest.mark.parametrize("sms", [108, 132, 144])
+def test_step_plan_over_the_one_step_routes(sms):
+    """Every shape the dispatch sends to the one-step solvers (a lane under
+    1 MB) that the kernels took before (N + M floats of shared memory)
+    gets a plan that fits: the layout's bytes, room left for the kernels'
+    static scratch, one stage only where it holds the whole lane (nothing
+    is refilled), a ring of three stages wherever three one-row stages fit,
+    else the lane in place in N + M floats."""
+    from proxtpu_torch.kernels.dispatch import BLOCKED_LANE_BYTES
+
+    seen = set()
+    for N in (24, 128, 161, 200, 400, 512, 513, 1024, 4096, 8400, 11000,
+              12000, 29040, 57000):
+        for M in (1, 16, 33, 64, 200, 400, 1000):
+            if (M * N * 4 >= BLOCKED_LANE_BYTES
+                    or (N + M) * 4 > SHARED_LIMIT):
+                continue
+            for B in (1, 64, 120, 256, 1024):
+                threads, R, S, used = tl.step_plan(B, M, N, sms,
+                                                   SHARED_LIMIT)
+                seen.add(S)
+                assert used == _step_layout_bytes(M, N, R, S)
+                assert used + 512 <= SHARED_LIMIT, (B, M, N)
+                assert 1 <= R <= M and S in (0, 1, 3)
+                if S == 1:
+                    assert R == M and threads == 256
+                    assert 4 * (used + 1024 + 512) <= SHARED_LIMIT + 1024
+                elif S == 3:
+                    assert threads == (512 if N <= 512 else 1024)
+                    assert R * N * 4 < 1 << 20
+                else:
+                    assert threads == 256 and used == (N + M) * 4
+                    one_row_ring = _step_layout_bytes(M, N, 1, 3)
+                    assert one_row_ring + 1024 + 512 > SHARED_LIMIT + 1024
+    assert seen == {0, 1, 3}
+
+
+def _replay_step_tiles(A, b, x, R):
+    """One lane's two products in the tile order of the one-step kernels, in
+    numpy float32: the lane's rows cut into tiles of R (the last may be
+    short); per tile, r for its rows (a row's 32 strided partial chains,
+    then the warp's xor tree), then every column's chain carried on over the
+    tile's rows in ascending order."""
+    f = np.float32
+    M, N = A.shape
+    r, g = np.zeros(M, f), np.zeros(N, f)
+    for lo in range(0, M, R):
+        for m in range(lo, min(lo + R, M)):
+            r[m] = _replay_row_dot(A[m], x) - b[m]
+        for m in range(lo, min(lo + R, M)):
+            g = (g + r[m] * A[m].astype(np.float64)).astype(f)
+    return r, g
+
+
+def _replay_row_dot(row, x):
+    """a . x as a warp sums it: lane l chains n = l, l + 32, ... by fma,
+    then the xor tree over the 32 lanes."""
+    f = np.float32
+    lanes = np.zeros(32, f)
+    for n in range(len(row)):
+        # fma: the product is not rounded before the sum
+        lanes[n % 32] = f(np.float64(row[n]) * np.float64(x[n])
+                          + np.float64(lanes[n % 32]))
+    return _xor_tree(lanes)[0]
+
+
+def _xor_tree(v):
+    v = v.copy()
+    for o in (16, 8, 4, 2, 1):
+        v = (v + v[np.arange(32) ^ o]).astype(np.float32)
+    return v
+
+
+@pytest.mark.parametrize("R", [1, 3, 5, 16, 23])
+def test_step_tile_order_is_the_straight_sum(step_data, R):
+    """Cutting a lane into tiles of R rows changes no bit of r or g: r is
+    summed row by row, g by ascending rows across the tiles, as a kernel
+    that walks all rows twice sums them (R = M, one tile)."""
+    d = step_data
+    A, b, x = d["A"][0], d["b"][0], d["x"][0]
+    r, g = _replay_step_tiles(A, b, x, R)
+    r_one, g_one = _replay_step_tiles(A, b, x, A.shape[0])
+    np.testing.assert_array_equal(r, r_one)
+    np.testing.assert_array_equal(g, g_one)
+    np.testing.assert_allclose(r, A @ x - b, atol=1e-5)
+    np.testing.assert_allclose(g, A.T @ (A @ x - b), atol=1e-5)
+
+
+def _replay_block_sum(per_thread, order_threads=256):
+    """block_reduce's sum over the first ``order_threads`` threads of a
+    block: each warp's xor tree, then warp 0's xor tree over the warps'
+    sums (lanes beyond the warps hold 0).  What the block's other threads
+    hold is ignored."""
+    warps = order_threads // 32
+    sums = np.zeros(32, np.float32)
+    for w in range(warps):
+        sums[w] = _xor_tree(per_thread[32 * w: 32 * w + 32])[0]
+    return _xor_tree(sums)[0]
+
+
+@pytest.mark.parametrize("threads", [256, 512, 1024])
+@pytest.mark.parametrize("N", [24, 400, 1000])
+def test_rs_keeps_the_order_of_256_threads(threads, N):
+    """rs = sum (x - z)(z - z_prev) in a block of ``threads`` threads is
+    summed by its first 256: thread t chains the columns t, t + 256, ... by
+    fma, then the two xor trees, so every block size gives the bits of a
+    block of 256, within a few ulps of the plain sum."""
+    f = np.float32
+    rng = np.random.default_rng(N)
+    d, e = rng.standard_normal((2, N)).astype(f)
+
+    def chains(stride, width):
+        acc = np.full(width, np.nan, f)  # threads past the first 256
+        acc[:stride] = 0
+        for n in range(N):
+            acc[n % stride] = f(np.float64(d[n]) * np.float64(e[n])
+                                + np.float64(acc[n % stride]))
+        return acc
+
+    got = _replay_block_sum(chains(256, threads))
+    assert got == _replay_block_sum(chains(256, 256))
+    np.testing.assert_allclose(got, np.sum(d.astype(np.float64) * e),
+                               rtol=0, atol=1e-4)
+
+
 def test_solve_lasso_batch_blocked_clamps_to_maxit(small):
     z, it, done = tl.solve_lasso_batch_blocked(*map(_t, small), 1e-12,
                                                maxit=13, iter_block=8)
