@@ -12,11 +12,16 @@ Phases, in order; any failure raises and exits non-zero:
    bulk copy or by ordinary loads, one stage that holds the lane, the lane
    read in place; ``fista_k_steps`` at every branch of its own: 1, 2, 4 and
    8 thread blocks per lane, stages filled by the bulk copy or by ordinary
-   loads, tiles read in place), then time both, the one-step kernels in an
-   eager loop and at the device's pace with their plan and the blocks an SM
-   holds, and their wrappers' host time by part; time the read-floor probe
-   ``read_reduce`` at every step kernel's shape, and its wrapper's host time
-   by part;
+   loads, tiles read in place; ``pg_step`` and ``pg_k_steps`` at clusters
+   of 2 and 1 and both ways to fill the ring; ``cp_k_steps`` bit for bit in
+   both variants, a cluster per image and tiles with a halo), then time
+   both, the one-step kernels in an eager loop and at the device's pace
+   with their plan and the blocks an SM holds, and their wrappers' host
+   time by part; ``pg_step`` and ``pg_k_steps`` at the device's pace with
+   their plan; ``cp_k_steps`` at the device's pace over K = 1, 2, 4, 8
+   (the intercept is the load, store and launch, the slope one step) with
+   its plan; time the read-floor probe ``read_reduce`` at every step
+   kernel's shape, and its wrapper's host time by part;
 4. run the main path at full size: 256 distinct-A lasso problems of
    200 x 400 (``bench.gen_problems``, seed 0) through
    ``solve_lasso_batch_packed_tail(restart=True, k1=192, tail=64)``, drained
@@ -42,7 +47,8 @@ Phases, in order; any failure raises and exits non-zero:
    recheck of every returned (x, y) on the host:
    (e) 64 images of 64 x 64 (``benchmarks/tv_bench.py``, seed 0, noise
        0.15, lam 0.12, tol 1e-4): one thread block per image;
-   (f) 64 images of 256 x 256, the same generator: tiles with a halo;
+   (f) 64 images of 256 x 256, the same generator: a cluster of 16 blocks
+       per image, one band of 16 rows each;
 7. print the kernels' JSON line (time, plain version's time, bound and,
    where one PyTorch call computes the same function, that call's time),
    then the result line.
@@ -100,7 +106,9 @@ CLUSTER_SHAPES = [(32, 256, 512), (16, 512, 256), (16, 515, 256),
                   (16, 515, 250), (3, 40, 8400), (2, 130, 8404)]
 # B above the SM count: one block per lane, two waves
 WIDE_BATCH_SHAPE = (256, 512, 512)
-BOX_SHAPES = [(64, 512), (7, 161)]                # route (b), ragged
+# route (b) (a cluster of 2 blocks per lane), ragged (rows of no multiple
+# of 16 bytes: a ring filled by ordinary loads)
+BOX_SHAPES = [(64, 512), (7, 161)]
 SMALL_BOX = (256, 128)         # dispatch.py:767-770, sent to XLA on a v5e
 
 
@@ -109,15 +117,17 @@ TV_LAM = 0.12
 TV_TOL = 1e-4
 TV_MAXIT = 5000
 TV_SHAPES = [(64, 64, 64), (64, 256, 256)]  # routes (e) and (f)
-TV_RAGGED = (7, 33, 21)
-# cp_k_steps against its plain version.  The kernel rounds every operation
-# on its own, in the plain version's order, so the two should agree to the
-# last bit or nearly; they are held to the JAX package's own one-step
-# tolerance for its kernel (5e-6), and after K = 8 steps to eight times
-# that: one Chambolle-Pock step is nonexpansive in the stepsize-weighted
-# norm, so one-step differences at most add up.
-ATOL_CP = 5e-6
-ATOL_CP_K = 4e-5
+# cp_k_steps is also checked at a ragged shape and the reference's test
+# shape (one block of 1024 and of 512 threads), a ragged image that takes a
+# cluster of 8, rows wider than a block (a cluster of 8 whose threads walk
+# 47 blocks of 32 columns), and at an image no cluster holds (the halo
+# variant)
+TV_CHECK_SHAPES = TV_SHAPES + [(7, 33, 21), (4, 16, 24), (3, 301, 203),
+                               (2, 40, 1500)]
+TV_HALO = (2, 512, 512)
+# K of cp_k_steps at the device's pace: the intercept of the time over K is
+# the load, the store and the launch, the slope one step
+TV_KS = (1, 2, 4, 8)
 # read_reduce against A.sum: both sum M * N f32 terms of size O(1/sqrt(M))
 # in different orders; each carries a few ulps of its largest partial sum
 # (at most about |A|_1 of a lane, ~2e4 at 512 x 1024), so the sums are held
@@ -560,8 +570,12 @@ def check_new_kernels():
     assert {f for _, f in plans} == {"bulk copy", "ordinary loads",
                                      "in place"}, plans
     assert (8, "ordinary loads") in plans, plans
-    for B, n in BOX_SHAPES:
+    pg_plans = set()
+    for B, n in BOX_SHAPES + [SMALL_BOX]:
         d = box_inputs(B, n, seed=B + n)
+        C, R, S = tb.pg_plan(B, n, sms, limit)
+        pg_plans.add((C, "bulk copy" if n % 4 == 0 else "ordinary loads"))
+        print(f"  pg_k_steps {(B, n)}: plan C, R, S = {(C, R, S)}")
         for done in (torch.zeros_like(d["done"]), d["done"]):
             frozen = done != 0
             rest = (d["gamma"], d["lo"], d["hi"])
@@ -587,6 +601,9 @@ def check_new_kernels():
             print(f"  pg_step / pg_k_steps {(B, n)} K={K} "
                   f"frozen={int(frozen.sum())}: max|err| {e1:.3e} / "
                   f"{eK:.3e}")
+    # a cluster of 2 by bulk copy, one block by ordinary loads and by bulk
+    assert pg_plans == {(2, "bulk copy"), (1, "ordinary loads"),
+                        (1, "bulk copy")}, pg_plans
     return worst
 
 
@@ -611,8 +628,10 @@ def time_new_kernels(card):
     """fista_k_steps, pg_step and pg_k_steps against their plain versions at
     the library route's shapes, and pg_step at the small shape the reference
     sent to XLA on a v5e (dispatch.py:767-771; the small lasso shape of
-    dispatch.py:668-676 is among time_kernels'), all lanes live.  Returns
-    the route-shape medians per kernel."""
+    dispatch.py:668-676 is among time_kernels'), all lanes live; pg_step and
+    pg_k_steps also at the device's pace with their plan.  Returns the
+    route-shape medians per kernel and ``{(kernel, shape): ms at the
+    device's pace}`` of the box-QP kernels."""
     from proxtpu_torch.kernels import _build
     from proxtpu_torch.kernels import box_qp as tb
     from proxtpu_torch.kernels import lasso as tl
@@ -640,34 +659,40 @@ def time_new_kernels(card):
               f"{S} stages of {R} rows; A streamed once per inner step "
               f"{1e3 * K * bound(4 * B * M * N, 0)[0]:.1f} us at "
               f"{PEAK_BYTES_S / 1e12} TB/s  [{card}]")
+    pace = {}
+    sms, limit = _build.sm_count(0), _build.max_shared_bytes(0)
+
+    def box_pair(name, B, n, seed, steps):
+        d = box_inputs(B, n, seed=seed)
+        live = torch.zeros_like(d["done"])
+        rest = (d["gamma"], d["lo"], d["hi"])
+        x = d["x"].clone()
+        if steps == 1:
+            kernel = lambda: tb.fused_pg_box_step(  # noqa: E731
+                d["Q"], d["q"], x, *rest, live)
+            plain = lambda: tb.reference_pg_box_step(  # noqa: E731
+                d["Q"], d["q"], d["x"], *rest)
+        else:
+            kernel = lambda: tb.fused_pg_box_k_steps(  # noqa: E731
+                d["Q"], d["q"], x, *rest, live, steps)
+            plain = lambda: tb.reference_pg_box_k_steps(  # noqa: E731
+                d["Q"], d["q"], d["x"], *rest, live, steps)
+        pair = time_pair(name, kernel, plain, f"{(B, n)} K={steps}", card,
+                         steps * B * n * n * 4)
+        g = pace[(name, (B, n))] = graph_ms(kernel)
+        print(f"    at the device's pace (CUDA graph): kernel "
+              f"{1e3 * g:.1f} us; plan C, R, S = "
+              f"{tb.pg_plan(B, n, sms, limit)}; Q streamed once per step "
+              f"{1e3 * steps * bound(4 * B * n * n, 0)[0]:.1f} us at "
+              f"{PEAK_BYTES_S / 1e12} TB/s  [{card}]")
+        return pair
+
     B, n = BOX_SHAPES[0]
-    d = box_inputs(B, n, seed=1)
-    live = torch.zeros_like(d["done"])
-    rest = (d["gamma"], d["lo"], d["hi"])
-    x = d["x"].clone()
-    out["pg_step"] = time_pair(
-        "pg_step",
-        lambda: tb.fused_pg_box_step(d["Q"], d["q"], x, *rest, live),
-        lambda: tb.reference_pg_box_step(d["Q"], d["q"], d["x"], *rest),
-        f"{(B, n)}", card, B * n * n * 4)
-    out["pg_k_steps"] = time_pair(
-        "pg_k_steps",
-        lambda: tb.fused_pg_box_k_steps(d["Q"], d["q"], x, *rest, live, K),
-        lambda: tb.reference_pg_box_k_steps(d["Q"], d["q"], d["x"], *rest,
-                                            live, K),
-        f"{(B, n)} K={K}", card, K * B * n * n * 4)
+    out["pg_step"] = box_pair("pg_step", B, n, 1, 1)
+    out["pg_k_steps"] = box_pair("pg_k_steps", B, n, 1, K)
     print("  small shape (the reference's XLA route on a v5e):")
-    B, n = SMALL_BOX
-    d = box_inputs(B, n, seed=3)
-    live = torch.zeros_like(d["done"])
-    rest = (d["gamma"], d["lo"], d["hi"])
-    x = d["x"].clone()
-    time_pair("pg_step",
-              lambda: tb.fused_pg_box_step(d["Q"], d["q"], x, *rest, live),
-              lambda: tb.reference_pg_box_step(d["Q"], d["q"], d["x"],
-                                               *rest),
-              f"{(B, n)}", card, B * n * n * 4)
-    return out
+    box_pair("pg_step", *SMALL_BOX, 3, 1)
+    return out, pace
 
 
 def tv_images(B, H, W, seed=0, noise=0.15):
@@ -702,18 +727,24 @@ def tv_inputs(B, H, W, seed):
 
 
 def check_tv_kernel():
-    """cp_k_steps against its plain version at the routes' shapes and a
-    ragged one, K = 1 and K = 8, uniform and per-image lam, from zero and
-    from a warm state, with and without frozen images (which come back
-    bit-equal, copied at done = 1 and left in place at done = 2).  Returns
-    the largest absolute error."""
-    from proxtpu_torch.kernels import tv
+    """cp_k_steps against its plain version, bit for bit: the kernel rounds
+    every operation on its own in the plain version's order and a max does
+    not depend on the order, so x, yx, yy and res must be equal
+    (``torch.equal``).  At TV_CHECK_SHAPES (the cluster variant) and
+    TV_HALO (the halo variant), K = 1 and 8, uniform and per-image lam,
+    from zero and from a warm state, with and without frozen images (which
+    come back bit-equal, copied at done = 1 and left in place at done = 2).
+    Returns the largest absolute error."""
+    from proxtpu_torch.kernels import _build, tv
 
-    worst = 0.0
-    for B, H, W in TV_SHAPES + [TV_RAGGED]:
+    sms, limit = _build.sm_count(0), _build.max_shared_bytes(0)
+    worst, variants = 0.0, set()
+    for B, H, W in TV_CHECK_SHAPES + [TV_HALO]:
         d = tv_inputs(B, H, W, seed=B + H + W)
         zero = torch.zeros_like(d["b"])
-        for k, atol in ((1, ATOL_CP), (K, ATOL_CP_K)):
+        for k in (1, K):
+            plan = tv.cp_plan(B, H, W, k, sms, limit)
+            variants.add(plan.variant)
             for lam in (d["lam"], d["lams"]):
                 for state in ((zero, zero, zero), (d["x"], d["yx"], d["yy"])):
                     for done in (None, d["done"]):
@@ -722,7 +753,8 @@ def check_tv_kernel():
                         got = tv.fused_cp_k_steps(*args, k, done)
                         torch.cuda.synchronize()
                         err = max(max_err(g, w) for g, w in zip(got, want))
-                        assert err <= atol, (B, H, W, k, err)
+                        assert all(torch.equal(g, w) for g, w in
+                                   zip(got, want)), (B, H, W, k, plan, err)
                         worst = max(worst, err)
                         if done is not None:
                             frozen = done != 0
@@ -736,37 +768,63 @@ def check_tv_kernel():
                             torch.cuda.synchronize()
                             assert all(torch.equal(g, w) for g, w in
                                        zip(again, got)), (B, H, W, k)
-                        print(f"  cp_k_steps {(B, H, W)} K={k} per-image "
-                              f"lam={lam is d['lams']} warm="
-                              f"{state[0] is not zero} frozen="
-                              f"{0 if done is None else int(done.sum())}: "
-                              f"max|err| {err:.3e}")
+            print(f"  cp_k_steps {(B, H, W)} K={k} {plan_text(plan, H)}: "
+                  f"x, yx, yy, res equal to the plain version's bits in 8 "
+                  f"cases (lam uniform and per image, zero and warm state, "
+                  f"{int(d['done'].sum())} images frozen or none)")
+    assert variants == {"cluster", "halo"}, variants
     return worst
 
 
-def time_tv_kernel(card):
-    """cp_k_steps (K = 8, writing into given buffers, as the solver calls
-    it) beside its plain version at the two routes' shapes, in an eager
-    loop, and the kernel at the device's own pace.  Returns ``{shape:
-    (kernel ms, plain ms)}``."""
-    from proxtpu_torch.kernels import tv
+def plan_text(plan, H):
+    if plan.variant == "halo":
+        return f"halo variant, tiles of {plan.TH} x {plan.TW}"
+    return (f"cluster of {plan.C} x {plan.threads} threads, "
+            f"{-(-H // plan.C)} rows a block, {plan.smem} bytes")
 
-    out = {}
+
+def time_tv_kernel(card):
+    """cp_k_steps (writing into given buffers, as the solver calls it)
+    beside its plain version at the two routes' shapes, K = 8, in an eager
+    loop; and the kernel at the device's own pace at K = 1, 2, 4, 8, with
+    the intercept and slope of a line through those four times and the
+    plan.  Returns ``({shape: (kernel ms, plain ms)}, {("cp_k_steps",
+    shape): ms at the device's pace, K = 8})``."""
+    import ctypes
+
+    from proxtpu_torch.kernels import _build, tv
+
+    out, pace = {}, {}
+    sms, limit = _build.sm_count(0), _build.max_shared_bytes(0)
     for B, H, W in TV_SHAPES:
         d = tv_inputs(B, H, W, seed=1)
         args = (d["b"], d["x"], d["yx"], d["yy"], d["g1"], d["g2"], d["lam"])
         bufs = tuple(torch.empty_like(d["b"]) for _ in range(3))
-        kernel = lambda: tv.fused_cp_k_steps(  # noqa: E731
-            *args, K, None, out=bufs)
         nbytes = 4 * (7 * B * H * W + 4 * B)
         out[(B, H, W)] = time_pair(
-            "cp_k_steps", kernel, lambda: tv.reference_cp_k_steps(*args, K),
+            "cp_k_steps",
+            lambda: tv.fused_cp_k_steps(*args, K, None, out=bufs),
+            lambda: tv.reference_cp_k_steps(*args, K),
             f"{(B, H, W)} K={K}", card, nbytes)
-        print(f"    at the device's pace (CUDA graph): kernel "
-              f"{1e3 * graph_ms(kernel):.1f} us; bound "
+        ts = [graph_ms(lambda k=k: tv.fused_cp_k_steps(*args, k, None,
+                                                       out=bufs))
+              for k in TV_KS]
+        slope, icpt = np.polyfit(TV_KS, ts, 1)
+        pace[("cp_k_steps", (B, H, W))] = ts[-1]
+        plan = tv.cp_plan(B, H, W, K, sms, limit)
+        held = ctypes.c_int()
+        _build.check(_build.library().proxtpu_cp_active_clusters(
+            H, W, plan.C, plan.threads, plan.smem, ctypes.byref(held)),
+            "cp_active_clusters")
+        print(f"    at the device's pace (CUDA graph), K = "
+              f"{', '.join(map(str, TV_KS))}: "
+              f"{', '.join(f'{1e3 * t:.1f}' for t in ts)} us; intercept "
+              f"{1e3 * icpt:.1f} us, slope {1e3 * slope:.1f} us a step; "
+              f"{plan_text(plan, H)}, {held.value} clusters at once, "
+              f"{B} clusters; bound at K = {K} "
               f"{1e3 * cp_bound(B, H, W)[0]:.1f} us ({nbytes / 1e6:.1f} MB "
               f"over {PEAK_BYTES_S / 1e12} TB/s)  [{card}]")
-    return out
+    return out, pace
 
 
 def floor_operand(B, M, N, seed):
@@ -993,15 +1051,17 @@ def check_tv_contract_small():
           f"driver {it_g.tolist()}, max|d x| {dx:.2e}")
 
 
-def phase_tv_routes(card):
+def phase_tv_routes(card, pace):
     """Routes (e) and (f): the TV configuration of benchmarks/tv_bench.py at
-    64 x 64 and at 256 x 256, 64 images each.  Returns the launches per
-    kernel summed over the two."""
+    64 x 64 and at 256 x 256, 64 images each, with the device time per solve
+    (every launch at K = 8's time: the one init launch at K = 1 is counted
+    high).  Returns the launches per kernel summed over the two."""
     total = {}
     for tag, (B, H, W) in zip("ef", TV_SHAPES):
         solve, check = tv_route(tv_images(B, H, W))
         launches = drive(f"route ({tag}) TV {(B, H, W)}", solve, check,
-                         TV_TOL, card, ("cp_k_steps",), dx_tol=1e-3)
+                         TV_TOL, card, ("cp_k_steps",), dx_tol=1e-3,
+                         pace=pace, shape=(B, H, W))
         for k, n in launches.items():
             total[k] = total.get(k, 0) + n
     return total
@@ -1320,7 +1380,7 @@ def phase_routes(card, pace):
                   fb, maxit=10_000, tol=1e-4,
                   use_kernels="auto" if use else False)(**kw),
               lambda xs: box_recheck(Qs, qs, gam, xs), 1e-4, card,
-              ("pg_step", "pg_k_steps")))
+              ("pg_step", "pg_k_steps"), pace=pace, shape=(B, n)))
     # (c) the flagship through the library entry point: the packed solver
     solve, check = lasso_route(*bench.gen_problems(bench.BATCH), 3000)
     add(drive(f"route (c) flagship {MAIN_SHAPES[0]}", solve, check, TOL,
@@ -1380,8 +1440,11 @@ def main():
     worst["cp_k_steps"] = check_tv_kernel()
     worst["read_reduce"] = check_read_reduce()
     times, pace = time_kernels(card)
-    times.update(time_new_kernels(card))
-    tv_times = time_tv_kernel(card)
+    box_times, box_pace = time_new_kernels(card)
+    times.update(box_times)
+    pace.update(box_pace)
+    tv_times, tv_pace = time_tv_kernel(card)
+    pace.update(tv_pace)
     times["cp_k_steps"] = tv_times[TV_SHAPES[1]]
     print("read floor, read_reduce vs A.sum(dim=(1, 2)):")
     floors, floor_launches = phase_read_floor(card)
@@ -1394,7 +1457,7 @@ def main():
     for k, n in phase_routes(card, pace).items():
         launches[k] = launches.get(k, 0) + n
     print("TV route, BatchedAlgorithm -> match_tv_solver:")
-    for k, n in phase_tv_routes(card).items():
+    for k, n in phase_tv_routes(card, pace).items():
         launches[k] = launches.get(k, 0) + n
     launches["read_reduce"] = floor_launches
     kernels = {

@@ -4,7 +4,7 @@
 // pass: a ring of row tiles of an operator in shared memory, filled by the
 // bulk copy and used for both products A x and A^T r, so that the operator
 // is read from device memory once (TileRing, which the three lasso kernels
-// share).
+// share), or for A x alone (the box-QP kernel).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -66,38 +66,6 @@ __device__ __forceinline__ void block_reduce(float& mx, float& sum,
   __syncthreads();  // scratch is free again for the next call
 }
 
-// out[m] = (A x)[m] - c[m] (SUB) or (A x)[m] + c[m], for the M rows of a
-// row-major A (M, N); x is in shared memory.  Each warp takes rows with a
-// stride; lanes stride along the row, so the reads of A are coalesced.  The
-// loads of a row are issued UNROLL at a time before their products are
-// summed: a pass is bound by how many reads are in flight, and the compiler
-// does not batch them across the dependent sum on its own.  The order of
-// the sum does not depend on UNROLL.
-template <int THREADS, bool SUB>
-__device__ __forceinline__ void rows_dot(const float* __restrict__ A,
-                                         const float* __restrict__ c,
-                                         const float* x, float* out, int M,
-                                         int N) {
-  constexpr int kWarps = THREADS / 32;
-  constexpr int kUnroll = 8;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int m = warp; m < M; m += kWarps) {
-    const float* row = A + (size_t)m * N;
-    float acc = 0.f;
-    int n = lane;
-    for (; n + 32 * (kUnroll - 1) < N; n += 32 * kUnroll) {
-      float a[kUnroll];
-#pragma unroll
-      for (int j = 0; j < kUnroll; ++j) a[j] = __ldg(row + n + 32 * j);
-#pragma unroll
-      for (int j = 0; j < kUnroll; ++j) acc = fmaf(a[j], x[n + 32 * j], acc);
-    }
-    for (; n < N; n += 32) acc = fmaf(__ldg(row + n), x[n], acc);
-    acc = warp_sum(acc);
-    if (lane == 0) out[m] = SUB ? acc - c[m] : acc + c[m];
-  }
-}
-
 // clip(v, lo, hi) = min(max(v, lo), hi) that keeps a NaN (fminf/fmaxf
 // would drop it), like jnp.clip / torch.clamp
 __device__ __forceinline__ float nanclip(float v, float lo, float hi) {
@@ -122,11 +90,13 @@ cudaError_t prepare(Kernel kernel, size_t smem) {
 // one bulk copy (cp.async.bulk, no tensor map) that reports its bytes to the
 // stage's mbarrier; else every thread fills it with ordinary loads and
 // stores.  Both passes then read the tile from shared memory:
-//   tile_rows_dot  out[m] = a_m . x - c[m]   a warp per row, as rows_dot
+//   tile_rows_dot  out[m] = a_m . x -+ c[m]  a warp per row: a lane strides
+//                  the row by 32 in one fmaf chain, then the warp's tree
 //   tile_cols_fma  g[n] += sum_m r[m] A[m, n]  a thread per column, rows in
 //                  ascending order in one fmaf chain
-// The order of every sum is rows_dot's and a column loop's over the whole
-// operator, whatever the tile height: cutting into tiles changes no bit.
+// The order of every sum is that of a warp per row and a column loop over
+// the whole operator, whatever the tile height: cutting into tiles changes
+// no bit.
 
 __device__ __forceinline__ uint32_t shared_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -198,13 +168,17 @@ __device__ __forceinline__ void fill_stage_loads(float* stage,
   for (; k < count; k += THREADS) stage[k] = __ldg(src + k);
 }
 
-// Pass 1 on a tile: out[m] = a_m . x - c[m] for its `rows` rows.  A warp
-// takes rows with a stride; a lane strides the row by 32 in one fmaf chain,
-// then the warp's tree: rows_dot's order.  The row's tail (fewer than
-// kUnroll entries a lane) is one more batch under a predicate, so that its
-// loads too are in flight together.  `tile` is in shared memory (or, read
-// in place, in device memory); x in shared memory.
-template <int THREADS>
+// Pass 1 on a tile: out[m] = a_m . x - c[m] (or + c[m] where ADD) for its
+// `rows` rows.  A warp takes rows with a stride; a lane strides the row by
+// 32 in one fmaf chain, then the warp's tree.  The loads of a row are issued
+// kUnroll at a time before their products are summed: a pass is bound by how
+// many reads are in flight, and the compiler does not batch them across the
+// dependent sum on its own.  The row's tail (fewer than kUnroll entries a
+// lane) is one more batch under a predicate, so that its loads too are in
+// flight together.  The order of the sum does not depend on kUnroll.  `tile`
+// is in shared memory (or, read in place, in device memory); x in shared
+// memory.
+template <int THREADS, bool ADD = false>
 __device__ __forceinline__ void tile_rows_dot(const float* tile,
                                               const float* __restrict__ c,
                                               const float* x, float* out,
@@ -236,7 +210,7 @@ __device__ __forceinline__ void tile_rows_dot(const float* tile,
         if (n + 32 * j < N) acc = fmaf(a[j], xv[j], acc);
     }
     acc = warp_sum(acc);
-    if (lane == 0) out[m] = acc - c[m];
+    if (lane == 0) out[m] = ADD ? acc + c[m] : acc - c[m];
   }
 }
 
@@ -315,11 +289,14 @@ __host__ __device__ inline size_t round_up(size_t v, size_t to) {
 //   ring.init_barriers();  __syncthreads();  ring.prime();
 //   per sweep:  ring.sweep(c, x, r, g);  a block (or cluster) barrier;
 //               ring.refill(ring.q);
+//   or, pass 1 alone, per sweep:  ring.sweep_rows(c, x, out);
 //
 // After sweep(), r[m] = a_m . x - c[m] for the slab's rows, and g[n] = sum
 // over the slab's rows, ascending, of r[m] A[m, n], which the thread that
 // owns column n (n = threadIdx.x + k THREADS) may read at once; A crossed
-// the memory system once.  With ordinary loads a refill is read at least one
+// the memory system once.  After sweep_rows(), out[m] = a_m . x + c[m] for
+// the slab's rows, readable after the block's next barrier; a tile's stage
+// is refilled right after the barrier that ends its pass 1.  With ordinary loads a refill is read at least one
 // tile's barrier after its stores, which needs S >= 3 or a slab of one tile
 // (no refill at all).  Every thread of the block makes every call.
 template <int THREADS, int FILL>
@@ -382,24 +359,43 @@ struct TileRing {
                                         const float* x, float* r, float* g) {
     for (int j = 0; j < ntiles; ++j) {
       const int tile_rows = min(R, rows - j * R);
-      const float* tile;
-      if (FILL == kFillNone) {
-        tile = slab + (size_t)j * R * N;
-      } else {
-        tile = stages + cs * stage_floats;
-        if (FILL == kFillBulk) mbarrier_wait(&bars[cs], parity);
-      }
+      const float* tile = wait_tile(j);
       tile_rows_dot<THREADS>(tile, c + j * R, x, r + j * R, tile_rows, N);
       // r of this tile complete; every thread is past pass 2 of the tile
       // before, whose stage is free
       __syncthreads();
       refill(q);
       tile_cols_fma<THREADS>(tile, r + j * R, g, tile_rows, N, j == 0);
-      ++q;
-      if (++cs == S) {
-        cs = 0;
-        parity ^= 1;
-      }
+      next_tile();
+    }
+  }
+
+  __device__ __forceinline__ void sweep_rows(const float* __restrict__ c,
+                                             const float* x, float* out) {
+    for (int j = 0; j < ntiles; ++j) {
+      const int tile_rows = min(R, rows - j * R);
+      const float* tile = wait_tile(j);
+      tile_rows_dot<THREADS, true>(tile, c + j * R, x, out + j * R,
+                                   tile_rows, N);
+      __syncthreads();  // every thread is past this tile, whose stage is free
+      next_tile();
+      refill(q);
+    }
+  }
+
+ private:
+  // tile j of the slab: in its stage once its copy has landed, or in place
+  __device__ __forceinline__ const float* wait_tile(int j) {
+    if (FILL == kFillNone) return slab + (size_t)j * R * N;
+    if (FILL == kFillBulk) mbarrier_wait(&bars[cs], parity);
+    return stages + cs * stage_floats;
+  }
+
+  __device__ __forceinline__ void next_tile() {
+    ++q;
+    if (++cs == S) {
+      cs = 0;
+      parity ^= 1;
     }
   }
 };

@@ -43,13 +43,17 @@ _SIGNATURES = {
     # C (blocks per lane), R (rows per tile), S (stages), shared bytes,
     # stream
     "proxtpu_fista_k_steps": [_P] * 9 + [_I] * 9 + [_P],
-    # Q, q, x, gamma, lo, hi, done, res, B, n, stream
-    "proxtpu_pg_step": [_P] * 8 + [_I] * 2 + [_P],
-    # Q, q, x, gamma, lo, hi, done, res, B, n, K, stream
-    "proxtpu_pg_k_steps": [_P] * 8 + [_I] * 3 + [_P],
+    # Q, q, x, gamma, lo, hi, done, res, B, n, K, C (blocks per lane),
+    # R (rows per tile), S (stages), shared bytes, stream
+    "proxtpu_pg_k_steps": [_P] * 8 + [_I] * 7 + [_P],
+    # b, x, yx, yy, g1, g2, lam, done, xo, yxo, yyo, res, B, H, W, K,
+    # C (blocks per image), threads, shared bytes, stream
+    "proxtpu_cp_k_steps": [_P] * 12 + [_I] * 7 + [_P],
+    # H, W, C, threads, shared bytes, out
+    "proxtpu_cp_active_clusters": [_I] * 5 + [ctypes.POINTER(_I)],
     # b, x, yx, yy, g1, g2, lam, done, xo, yxo, yyo, res, scratch, B, H, W,
     # K, TH, TW, stream
-    "proxtpu_cp_k_steps": [_P] * 13 + [_I] * 6 + [_P],
+    "proxtpu_cp_k_steps_halo": [_P] * 13 + [_I] * 6 + [_P],
     # A, partial, counter, out, B, n, S, chunk, stream
     "proxtpu_read_reduce": [_P] * 4 + [_I, _L, _I, _L, _P],
     "proxtpu_max_smem_optin": [_I, ctypes.POINTER(_I)],

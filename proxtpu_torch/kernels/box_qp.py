@@ -13,17 +13,30 @@ plain version for tensors on the CPU; for CUDA tensors it launches its
 kernel or raises on operands the kernel does not take.  Each wrapper counts
 its launches in its ``launches`` attribute.  The wrappers update x in place
 (the TPU kernels alias x to their output).
+
+Both wrappers launch one kernel, ``pg_k_steps`` (``pg_step`` is K = 1), at
+the launch plan of :func:`pg_plan`: the blocks of a cluster per lane and the
+ring of row tiles of ``fista_k_steps`` (``kernels/lasso.py``), with Q read
+once per inner step.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from ..utils.host_loop import run_host_loop
 from ..utils.precision import require_full_f32_matmul
 from . import _build
+from .lasso import MIN_SLAB_ROWS, _round_up, cluster_plan, ring_plan
+
+# least rows of a lane one block of a cluster takes: the step reads each row
+# of Q once (fista_k_steps reads a row of A twice), so what every block
+# repeats per step (the cluster barrier, the copy of the other blocks' rows
+# of x, the clip of its own) weighs twice as much per row
+PG_MIN_SLAB_ROWS = 2 * MIN_SLAB_ROWS
 
 
 def reference_pg_box_step(Q, q, x, gamma, lo, hi):
@@ -50,10 +63,41 @@ def reference_pg_box_k_steps(Q, q, x, gamma, lo, hi, done_mask, K=8):
             torch.where(frozen, torch.zeros_like(res), res))
 
 
+def pg_shared_bytes(M, N, C, R, S):
+    """Dynamic shared memory of one block of ``pg_k_steps`` for Q of M rows
+    of N (M = N = n).  With a ring (S > 0): two buffers of x of N (rounded up
+    to 4) floats, the gradient of the longest slab of ``ceil(M / C)`` rows
+    (rounded up to 4), then on 128 bytes S stages of R rows (each rounded up
+    to 128 bytes) and S 8-byte barriers.  With the tiles read in place
+    (S = 0): x and the gradient, N + M floats.  The same sum as ``PgLayout``
+    in csrc/box_qp_step.cu, which refuses a launch whose total differs."""
+    if S == 0:
+        return (N + M) * 4
+    fixed = (2 * _round_up(N, 4) + _round_up(-(-M // C), 4)) * 4
+    return _round_up(fixed, 128) + S * (_round_up(R * N * 4, 128) + 8)
+
+
+def pg_plan(B, n, sms, limit):
+    """``(C, R, S)``, the launch plan of ``pg_k_steps`` for a batch of B
+    lanes of n on a device of ``sms`` SMs and ``limit`` bytes of shared
+    memory per block: :func:`~proxtpu_torch.kernels.lasso.cluster_plan`'s
+    blocks per lane with at least ``PG_MIN_SLAB_ROWS`` rows each, and
+    :func:`~proxtpu_torch.kernels.lasso.ring_plan`'s ring on this kernel's
+    layout; where no ring fits (``S == 0``), one block per lane reads tiles
+    of a few rows in place, which takes n as large as ``2 n * 4 <= limit``
+    allows."""
+    C = cluster_plan(B, n, sms, PG_MIN_SLAB_ROWS)
+    R, S = ring_plan(n, n, C, limit, pg_shared_bytes)
+    return (C, R, S) if S else (1, R, S)
+
+
+# the plan of a shape, computed once: pg_step runs once per iteration
+cached_pg_plan = functools.lru_cache(maxsize=None)(pg_plan)
+
+
 def _check_operands(Q, q, x, scalars):
     """Raise unless the kernels take these operands: float32, contiguous,
-    on Q's CUDA device, Q (B, n, n), q and x (B, n), ``scalars`` (B,), and
-    x plus the gradient fit in a block's shared memory."""
+    on Q's CUDA device, Q (B, n, n), q and x (B, n), ``scalars`` (B,)."""
     if Q.dim() != 3 or Q.shape[1] != Q.shape[2]:
         raise ValueError(f"Q must be (B, n, n), got shape {tuple(Q.shape)}")
     B, n, _ = Q.shape
@@ -70,7 +114,28 @@ def _check_operands(Q, q, x, scalars):
                              f"expected {shape}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    _build.check_shared_bytes(2 * n * 4, Q.device)
+
+
+def _launch(name, Q, q, x, gamma, lo, hi, done_mask, K):
+    """Launch ``pg_k_steps`` for K steps at Q's cached plan on the current
+    stream of Q's device; x is updated in place.  Returns res (B,)."""
+    B, n, _ = Q.shape
+    index = Q.get_device()
+    C, R, S = cached_pg_plan(B, n, _build.sm_count(index),
+                             _build.max_shared_bytes(index))
+    smem = pg_shared_bytes(n, n, C, R, S)
+    _build.check_shared_bytes(smem, Q.device)
+    res = torch.empty(B, dtype=x.dtype, device=x.device)
+    with torch.cuda.device(Q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _build.library().proxtpu_pg_k_steps(
+            Q.data_ptr(), q.data_ptr(), x.data_ptr(), gamma.data_ptr(),
+            lo.data_ptr(), hi.data_ptr(),
+            None if done_mask is None else done_mask.data_ptr(),
+            res.data_ptr(), B, n, int(K), C, R, S, smem,
+            ctypes.c_void_p(stream))
+    _build.check(err, name)
+    return res
 
 
 def _freeze_in_place(x, z, res, done_mask):
@@ -80,8 +145,8 @@ def _freeze_in_place(x, z, res, done_mask):
 
 
 def fused_pg_box_step(Q, q, x, gamma, lo, hi, done_mask=None):
-    """One projected-gradient step for the batch through the ``pg_step``
-    kernel (see :func:`reference_pg_box_step`).  ``x`` is updated IN PLACE
+    """One projected-gradient step for the batch through the ``pg_k_steps``
+    kernel at K = 1 (see :func:`reference_pg_box_step`).  ``x`` is updated IN PLACE
     to z and returned.  ``done_mask`` (B,) float, optional: lanes with a
     nonzero entry keep x and report res 0.  Returns ``(x, res_inf)``."""
     if Q.device.type == "cpu":
@@ -93,16 +158,7 @@ def fused_pg_box_step(Q, q, x, gamma, lo, hi, done_mask=None):
     if done_mask is not None:
         scalars.append(("done_mask", done_mask))
     _check_operands(Q, q, x, scalars)
-    B, n, _ = Q.shape
-    res = torch.empty(B, dtype=x.dtype, device=x.device)
-    with torch.cuda.device(Q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _build.library().proxtpu_pg_step(
-            Q.data_ptr(), q.data_ptr(), x.data_ptr(), gamma.data_ptr(),
-            lo.data_ptr(), hi.data_ptr(),
-            None if done_mask is None else done_mask.data_ptr(),
-            res.data_ptr(), B, n, ctypes.c_void_p(stream))
-    _build.check(err, "pg_step")
+    res = _launch("pg_step", Q, q, x, gamma, lo, hi, done_mask, 1)
     fused_pg_box_step.launches += 1
     return x, res
 
@@ -124,15 +180,7 @@ def fused_pg_box_k_steps(Q, q, x, gamma, lo, hi, done_mask, K=8):
         return x, res
     _check_operands(Q, q, x, [("gamma", gamma), ("lo", lo), ("hi", hi),
                               ("done_mask", done_mask)])
-    B, n, _ = Q.shape
-    res = torch.empty(B, dtype=x.dtype, device=x.device)
-    with torch.cuda.device(Q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _build.library().proxtpu_pg_k_steps(
-            Q.data_ptr(), q.data_ptr(), x.data_ptr(), gamma.data_ptr(),
-            lo.data_ptr(), hi.data_ptr(), done_mask.data_ptr(),
-            res.data_ptr(), B, n, int(K), ctypes.c_void_p(stream))
-    _build.check(err, "pg_k_steps")
+    res = _launch("pg_k_steps", Q, q, x, gamma, lo, hi, done_mask, K)
     fused_pg_box_k_steps.launches += 1
     return x, res
 

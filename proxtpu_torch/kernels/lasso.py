@@ -353,12 +353,12 @@ MIN_SLAB_ROWS = 64
 _DIRECT_ROWS = 8
 
 
-def cluster_plan(B, M, sms):
+def cluster_plan(B, M, sms, min_rows=MIN_SLAB_ROWS):
     """Thread blocks per lane, C: the largest of 8, 4, 2, 1 such that the
     B * C blocks fit the ``sms`` SMs in one wave and every block gets at
-    least ``MIN_SLAB_ROWS`` of the lane's M rows."""
+    least ``min_rows`` of the lane's M rows."""
     for C in CLUSTER_SIZES:
-        if C == 1 or (B * C <= sms and M // C >= MIN_SLAB_ROWS):
+        if C == 1 or (B * C <= sms and M // C >= min_rows):
             return C
 
 
@@ -383,13 +383,15 @@ def k_steps_shared_bytes(M, N, C, R, S):
     return _round_up(fixed, 128) + S * (_round_up(R * N * 4, 128) + 8)
 
 
-def ring_plan(M, N, C, limit):
+def ring_plan(M, N, C, limit, shared_bytes=k_steps_shared_bytes):
     """``(R, S)``: rows per tile and stages of the ring of a block that owns
     ``ceil(M / C)`` rows of N floats, within ``limit`` bytes of shared
-    memory.  Three stages of about ``_STAGE_BYTES``, or of fewer rows where
-    those do not fit; ``S == 0`` where not even three one-row stages fit."""
+    memory by the kernel's layout ``shared_bytes(M, N, C, R, S)``
+    (``fista_k_steps``' by default).  Three stages of about
+    ``_STAGE_BYTES``, or of fewer rows where those do not fit; ``S == 0``
+    where not even three one-row stages fit."""
     R = max(1, min(-(-M // C), _STAGE_BYTES // (N * 4)))
-    while k_steps_shared_bytes(M, N, C, R, _STAGES) > limit:
+    while shared_bytes(M, N, C, R, _STAGES) > limit:
         if R == 1:
             return _DIRECT_ROWS, 0
         R //= 2

@@ -21,10 +21,12 @@ The step has a plain PyTorch version (:func:`reference_cp_step`, and
 :func:`mxu_cp_step` with the stencils as bidiagonal matrix products) and a
 wrapper, :func:`fused_cp_k_steps`, over the CUDA kernel ``cp_k_steps`` in
 ``proxtpu_torch/csrc/tv_step.cu``, which runs K iterations per launch with
-the state in shared memory.  The wrapper runs the plain version for tensors
-on the CPU; for CUDA tensors it launches the kernel or raises on operands
-the kernel does not take.  It counts its launches in its ``launches``
-attribute.
+the state in shared memory: a thread-block cluster per image, one band of
+rows per block, or, for an image no cluster can hold, tiles with a halo
+(:func:`cp_plan` chooses from the shape).  The wrapper runs the plain
+version for tensors on the CPU; for CUDA tensors it launches the kernel or
+raises on operands the kernel does not take.  It counts its launches in its
+``launches`` attribute.
 
 Boundary: the divergence takes 0 above row 0 and left of column 0, the dual
 field's last row (of yx) and last column (of yy) count as 0, and the forward
@@ -39,18 +41,28 @@ tol``, sampled every K iterations, so counts are upper bounds.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from typing import NamedTuple
 
 import torch
 
 from ..utils.host_loop import run_host_loop
 from ..utils.precision import require_full_f32_matmul
 from . import _build
+from .lasso import _round_up
 
 # planes of one tile in shared memory: b, x, yx, yy and mid = 2 xbar - x
 _SMEM_PLANES = 5
 # shared memory left to the kernel's static scratch
 _SMEM_RESERVE = 1024
+# blocks of a cluster: up to 8 portable, 16 where the device allows a
+# non-portable size (Hopper does)
+CP_CLUSTER_MAX = 16
+# threads of a block of the cluster variant, and the spacings of its planes
+# in shared memory (floats), compile-time constants of its variants
+CP_THREADS = (512, 1024)
+CP_SPACINGS = (1024, 2048, 4096, 8192, 11520)
 
 
 def _dual_ball(vx, vy, lamb):
@@ -153,10 +165,10 @@ def reference_cp_k_steps(b, x, yx, yy, g1, g2, lam, K=8, done=None,
 
 
 def tile_plan(H, W, K, smem_limit):
-    """``(TH, TW)``: the tile of one thread block.  A whole image when its
-    five planes fit in ``smem_limit`` bytes of shared memory; else balanced
-    tiles whose halo of K cells per side still fits.  Raises if K leaves no
-    room for a tile."""
+    """``(TH, TW)``: the tile of one thread block of the halo variant.  A
+    whole image when its five planes fit in ``smem_limit`` bytes of shared
+    memory; else balanced tiles whose halo of K cells per side still fits.
+    Raises if K leaves no room for a tile."""
     cells = (smem_limit - _SMEM_RESERVE) // (_SMEM_PLANES * 4)
     if H * W <= cells:
         return H, W
@@ -171,6 +183,79 @@ def tile_plan(H, W, K, smem_limit):
         return n if n <= side else -(-n // -(-n // side))
 
     return split(H), split(W)
+
+
+class CpPlan(NamedTuple):
+    """The launch plan of ``cp_k_steps``: ``variant`` "cluster" (C blocks
+    per image, each one band of rows, ``threads`` per block) or "halo" (one
+    block of 1024 threads per tile of TH x TW); ``smem`` the dynamic shared
+    memory of a block."""
+    variant: str
+    C: int
+    threads: int
+    TH: int
+    TW: int
+    smem: int
+
+
+def cp_band_bytes(H, W, C):
+    """Dynamic shared memory of one block of the cluster variant: the five
+    planes (b, x, yx, yy, mid) at the least of ``CP_SPACINGS`` floats apart
+    that holds the longest band, ``ceil(H / C)`` rows of W rounded up to 32,
+    and two guards of 16 bytes; None where no spacing holds it.  The same
+    sum as ``band_bytes`` in csrc/tv_step.cu, which refuses a launch whose
+    total differs."""
+    cells = -(-H // C) * _round_up(W, 32)
+    spacing = next((p for p in CP_SPACINGS if p >= cells), None)
+    return None if spacing is None else _SMEM_PLANES * 4 * spacing + 32
+
+
+def cp_plan(B, H, W, K, sms, limit):
+    """The :class:`CpPlan` of a batch of B images of H x W, K steps per
+    launch, on a device of ``sms`` SMs and ``limit`` bytes of shared memory
+    per block.
+
+    The cluster variant wherever a cluster of at most ``CP_CLUSTER_MAX``
+    blocks holds an image's planes, band by band.  An image one block holds
+    takes one block (C = 1): a cluster barrier costs more than the SMs a
+    second block would bring.  A larger image takes the least power of two
+    of blocks whose bands let two blocks share an SM, so that one block's
+    load and barrier waits overlap the other's steps; else the least power
+    of two that holds it (clusters of a power of two pack an SM group
+    without a remainder); else the least C.  A block takes 512 threads where
+    its band has no more cells or two blocks share an SM, else 1024.  Where
+    no cluster holds the image, the halo variant at :func:`tile_plan`'s
+    tile, which raises where K leaves no room.  The choice depends on the
+    shape alone."""
+    room = limit - _SMEM_RESERVE
+
+    def held(C):
+        nbytes = cp_band_bytes(H, W, C)
+        return nbytes is not None and nbytes <= room
+
+    fits = [C for C in range(1, min(H, CP_CLUSTER_MAX) + 1) if held(C)]
+    if not fits:
+        TH, TW = tile_plan(H, W, K, limit)
+        cells = min(H, TH + 2 * K) * min(W, TW + 2 * K)
+        return CpPlan("halo", 0, 1024, TH, TW, _SMEM_PLANES * 4 * cells)
+
+    def two_per_sm(C):
+        return 2 * (cp_band_bytes(H, W, C) + _SMEM_RESERVE) <= limit
+
+    C = fits[0]
+    if C > 1:
+        pow2 = [c for c in fits if c >= C and c & (c - 1) == 0]
+        C = next((c for c in pow2 if two_per_sm(c)), pow2[0] if pow2 else C)
+    smem = cp_band_bytes(H, W, C)
+    small = -(-H // C) * _round_up(W, 32) <= CP_THREADS[0]
+    shared = B * C > sms and two_per_sm(C)
+    return CpPlan("cluster", C, CP_THREADS[0 if small or shared else 1], 0, 0,
+                  smem)
+
+
+# the plan of a shape, computed once: the solver calls the kernel per block
+# of K iterations
+cached_cp_plan = functools.lru_cache(maxsize=None)(cp_plan)
 
 
 def _check_operands(b, planes, scalars):
@@ -208,8 +293,11 @@ def fused_cp_k_steps(b, x, yx, yy, g1, g2, lam, K=8, done=None, out=None):
         as 1, and the caller vouches that ``out`` already holds the image's
         state, so nothing is copied.
       out: optional ``(x, yx, yy)`` buffers to write, distinct from the
-        inputs (a tile reads the cells its neighbours write); new tensors
-        are allocated when absent.
+        inputs (a block of the halo variant reads the cells its neighbours
+        write); new tensors are allocated when absent.
+
+    The kernel runs :func:`cp_plan`'s variant; a plan the device refuses
+    raises, no other is tried.
 
     Returns ``(x, yx, yy, res)``, ``res`` (B,) the last inner step's
     ``||xbar - x||_inf + ||ybar - y||_inf`` per image."""
@@ -235,19 +323,28 @@ def fused_cp_k_steps(b, x, yx, yy, g1, g2, lam, K=8, done=None, out=None):
     if any(o.data_ptr() in ins for o in out):
         raise ValueError("out must not alias b, x, yx or yy")
     B, H, W = b.shape
-    TH, TW = tile_plan(H, W, K, _build.max_shared_bytes(b.device.index))
+    index = b.get_device()
+    plan = cached_cp_plan(B, H, W, int(K), _build.sm_count(index),
+                          _build.max_shared_bytes(index))
     res = torch.empty(B, dtype=b.dtype, device=b.device)
-    # per image: the bit patterns of three running maxima and a ticket
-    scratch = torch.zeros((B, 4), dtype=torch.int32, device=b.device)
-    with torch.cuda.device(b.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _build.library().proxtpu_cp_k_steps(
-            b.data_ptr(), x.data_ptr(), yx.data_ptr(), yy.data_ptr(),
+    ptrs = [b.data_ptr(), x.data_ptr(), yx.data_ptr(), yy.data_ptr(),
             g1.data_ptr(), g2.data_ptr(), lam.data_ptr(),
-            None if done is None else done.data_ptr(),
-            out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
-            res.data_ptr(), scratch.data_ptr(), B, H, W, int(K), TH, TW,
-            ctypes.c_void_p(stream))
+            None if done is None else done.data_ptr(), out[0].data_ptr(),
+            out[1].data_ptr(), out[2].data_ptr(), res.data_ptr()]
+    with torch.cuda.device(b.device):
+        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+        lib = _build.library()
+        if plan.variant == "cluster":
+            err = lib.proxtpu_cp_k_steps(*ptrs, B, H, W, int(K), plan.C,
+                                         plan.threads, plan.smem, stream)
+        else:
+            # per image: the bit patterns of three running maxima and a
+            # ticket
+            scratch = torch.zeros((B, 4), dtype=torch.int32,
+                                  device=b.device)
+            err = lib.proxtpu_cp_k_steps_halo(
+                *ptrs, scratch.data_ptr(), B, H, W, int(K), plan.TH,
+                plan.TW, stream)
     _build.check(err, "cp_k_steps")
     fused_cp_k_steps.launches += 1
     return out[0], out[1], out[2], res

@@ -1,13 +1,21 @@
-"""Hold this tree's lasso and probe kernels against an earlier tree's on one
-GPU: the same bits, and the time of both in one call.
+"""Hold this tree's kernels against an earlier tree's on one GPU: the same
+bits, and the time of both in one call.
 
     python -m proxtpu_torch.tools.compare_earlier --other-csrc DIR [--plans]
 
-``DIR`` holds the ``lasso_step.cu``, ``probe.cu`` and ``common.cuh`` of the
-earlier tree, whose entries ``proxtpu_fista_step`` and ``proxtpu_fb_step``
-take no launch plan (one block of 256 threads per lane, A read twice per
-step) and whose ``proxtpu_fista_k_steps`` and ``proxtpu_read_reduce`` take
-the arguments they take in this tree.
+``DIR`` holds the ``lasso_step.cu``, ``probe.cu``, ``box_qp_step.cu``,
+``tv_step.cu`` and ``common.cuh`` of the earlier tree, for example
+
+    mkdir -p build/parent_csrc && for f in lasso_step.cu probe.cu \\
+        box_qp_step.cu tv_step.cu common.cuh; do git show \\
+        COMMIT:proxtpu_torch/csrc/$f > build/parent_csrc/$f; done
+
+whose entries ``proxtpu_fista_step``, ``proxtpu_fb_step``,
+``proxtpu_fista_k_steps`` and ``proxtpu_read_reduce`` take the arguments
+they take in this tree, ``proxtpu_pg_step`` and ``proxtpu_pg_k_steps`` no
+launch plan (one block per lane), and ``proxtpu_cp_k_steps`` a zeroed
+scratch and the tile of ``tile_plan`` (a halo around every tile of an image
+larger than one block's shared memory).
 
 ``fista_step`` and ``fb_step``: at every shape a path gives them, a ragged
 one, one whose rows take ordinary loads through the ring, one read in place
@@ -21,6 +29,20 @@ and stages, with the blocks one SM holds at each plan.
 
 ``fista_k_steps``: the two kernels at the wrapper's plan must be equal to the
 last bit, restart off and on, and are timed the same way.
+
+``pg_step`` and ``pg_k_steps``: at route (b)'s shape, the small one and a
+ragged one, K = 1 and 8, with and without frozen lanes, x and ``res`` equal
+to the last bit, and both timed at route (b)'s shape.  ``--plans`` also
+times this tree's kernel over blocks per lane, rows per tile and stages
+(each plan's bits held too).
+
+``cp_k_steps``: at routes (e) and (f)'s shapes, a ragged one, the
+reference's test shape and an image no cluster holds, K = 1 and 8, lam
+uniform and per image, from zero and from a warm state, with and without
+frozen images, x, yx, yy and ``res`` equal to the last bit; both timed at
+the routes' shapes (the earlier call with the zeroing of its scratch, as
+its wrapper made it).  ``--plans`` also times this tree's cluster variant
+over blocks per image and threads per block (each plan's bits held too).
 
 ``read_reduce``: at every shape the read floor is taken at, the two sums
 must be equal to the last bit, and both C entries are timed at the device's
@@ -40,7 +62,9 @@ import numpy as np
 import torch
 
 from proxtpu_torch.kernels import _build
+from proxtpu_torch.kernels import box_qp as tb
 from proxtpu_torch.kernels import lasso as tl
+from proxtpu_torch.kernels import tv
 
 K = 8
 ATOL_K = 5e-5  # chip_smoke.py: K steps of two f32 versions
@@ -60,22 +84,39 @@ PLAN_ROWS = (8, 10, 16, 20, 23, 25, 32, 40, 50, 64)
 PLAN_STAGES = (1, 3, 4, 6)
 FLOOR_SHAPES = [(256, 200, 400), (64, 200, 400), (64, 512, 1024),
                 (1024, 64, 128), (64, 512, 512), (256, 128, 128)]
+# the box-QP kernels: route (b), the small shape, ragged rows
+PG_SHAPES = [(64, 512), (256, 128), (7, 161)]
+# --plans: blocks per lane, rows per tile, stages
+PG_PLAN_C = (1, 2, 4)
+PG_PLAN_ROWS = (8, 16, 32, 64)
+PG_PLAN_STAGES = (3, 4)
+# cp_k_steps: routes (e) and (f), ragged, the reference's test shape, the
+# halo variant; timed at the first two
+TV_SHAPES = [(64, 64, 64), (64, 256, 256), (7, 33, 21), (4, 16, 24),
+             (3, 301, 203), (2, 40, 1500), (2, 512, 512)]
+TV_TIMED = TV_SHAPES[:2]
+# --plans: blocks per image and threads per block
+TV_PLAN_C = {(64, 64, 64): (1, 2, 4), (64, 256, 256): (6, 8, 16)}
+TV_PLAN_THREADS = tv.CP_THREADS
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_SOURCES = ("lasso_step.cu", "probe.cu", "box_qp_step.cu", "tv_step.cu")
 
 
 def build_other(csrc):
-    """Compile the earlier ``lasso_step.cu`` and ``probe.cu`` into a library
-    of their own, with the earlier entries' signatures."""
+    """Compile the earlier sources into a library of their own, with the
+    earlier entries' signatures."""
     out = Path(tempfile.mkdtemp()) / "libother.so"
     subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
-                    str(out), str(Path(csrc) / "lasso_step.cu"),
-                    str(Path(csrc) / "probe.cu")], check=True,
-                   capture_output=True, text=True)
+                    str(out), *(str(Path(csrc) / f) for f in _SOURCES)],
+                   check=True, capture_output=True, text=True)
     lib = ctypes.CDLL(str(out))
-    lib.proxtpu_fista_step.argtypes = [_P] * 11 + [_I] * 4 + [_P]
-    lib.proxtpu_fb_step.argtypes = [_P] * 8 + [_I] * 3 + [_P]
+    lib.proxtpu_fista_step.argtypes = [_P] * 11 + [_I] * 8 + [_P]
+    lib.proxtpu_fb_step.argtypes = [_P] * 8 + [_I] * 7 + [_P]
     lib.proxtpu_fista_k_steps.argtypes = [_P] * 9 + [_I] * 9 + [_P]
     lib.proxtpu_read_reduce.argtypes = [_P] * 4 + [_I, _L, _I, _L, _P]
+    lib.proxtpu_pg_step.argtypes = [_P] * 8 + [_I] * 2 + [_P]
+    lib.proxtpu_pg_k_steps.argtypes = [_P] * 8 + [_I] * 3 + [_P]
+    lib.proxtpu_cp_k_steps.argtypes = [_P] * 13 + [_I] * 6 + [_P]
     return lib
 
 
@@ -138,22 +179,22 @@ def step_plan(B, M, N):
                         _build.max_shared_bytes(0))
 
 
-def call_fista_step(lib, d, state, restart, shrink, done, plan=None):
+def call_fista_step(lib, d, state, restart, shrink, done, plan):
     """Launch ``proxtpu_fista_step`` of ``lib`` on ``state`` = (x, z_prev,
-    res, rs), x and z_prev updated in place; ``plan`` is ``(threads, R, S,
-    bytes)`` for this tree's entry, None for the earlier one."""
+    res, rs), x and z_prev updated in place, at ``plan`` = ``(threads, R,
+    S, bytes)``."""
     B, M, N = d["A"].shape
     x, zp, res, rs = state
     err = lib.proxtpu_fista_step(
         d["A"].data_ptr(), d["b"].data_ptr(), x.data_ptr(), zp.data_ptr(),
         d["beta"].data_ptr(), d["gamma"].data_ptr(), d["thr"].data_ptr(),
         done.data_ptr(), shrink.data_ptr() if shrink is not None else None,
-        res.data_ptr(), rs.data_ptr(), B, M, N, int(restart),
-        *(plan or ()), stream())
+        res.data_ptr(), rs.data_ptr(), B, M, N, int(restart), *plan,
+        stream())
     _build.check(err, "fista_step")
 
 
-def call_fb_step(lib, d, out, shrink, plan=None):
+def call_fb_step(lib, d, out, shrink, plan):
     """Launch ``proxtpu_fb_step`` of ``lib``; ``out`` = (z, res)."""
     B, M, N = d["A"].shape
     z, res = out
@@ -161,7 +202,7 @@ def call_fb_step(lib, d, out, shrink, plan=None):
         d["A"].data_ptr(), d["b"].data_ptr(), d["x"].data_ptr(),
         d["gamma"].data_ptr(), d["thr"].data_ptr(),
         shrink.data_ptr() if shrink is not None else None, z.data_ptr(),
-        res.data_ptr(), B, M, N, *(plan or ()), stream())
+        res.data_ptr(), B, M, N, *plan, stream())
     _build.check(err, "fb_step")
 
 
@@ -180,7 +221,7 @@ def compare_steps(other, this, card, plans):
         for shrink in (None, d["shrink"]):
             old = (torch.empty_like(d["x"]), torch.empty_like(d["t"]))
             new = (torch.empty_like(d["x"]), torch.empty_like(d["t"]))
-            call_fb_step(other, d, old, shrink)
+            call_fb_step(other, d, old, shrink, plan)
             call_fb_step(this, d, new, shrink, plan)
             torch.cuda.synchronize()
             assert all(torch.equal(a, b) for a, b in zip(old, new)), (
@@ -188,7 +229,8 @@ def compare_steps(other, this, card, plans):
             for restart in (False, True):
                 for done in (live, d["done"]):
                     old, new = fresh_step(d), fresh_step(d)
-                    call_fista_step(other, d, old, restart, shrink, done)
+                    call_fista_step(other, d, old, restart, shrink, done,
+                                    plan)
                     call_fista_step(this, d, new, restart, shrink, done,
                                     plan)
                     torch.cuda.synchronize()
@@ -210,10 +252,10 @@ def compare_steps(other, this, card, plans):
         pairs = {
             "fista_step": (
                 lambda: call_fista_step(other, d, state, True, None,
-                                        d["done"]),
+                                        d["done"], plan),
                 lambda: call_fista_step(this, d, state, True, None,
                                         d["done"], plan)),
-            "fb_step": (lambda: call_fb_step(other, d, out, None),
+            "fb_step": (lambda: call_fb_step(other, d, out, None, plan),
                         lambda: call_fb_step(this, d, out, None, plan)),
         }
         for name, (old_fn, new_fn) in pairs.items():
@@ -312,6 +354,214 @@ def compare_k_steps(other, this, card):
               f"{g[1]:.1f} / {g[2]:.1f} us  [{card}]")
 
 
+def pg_inputs(B, n, seed, frozen=0.3):
+    rng = np.random.default_rng(seed)
+    G = rng.standard_normal((B, n, n))
+    Q = ((G + G.transpose(0, 2, 1)) / (2 * np.sqrt(2 * n))).astype(np.float32)
+    L = np.abs(np.linalg.eigvalsh(Q.astype(np.float64))).max(axis=1)
+    arrays = dict(
+        Q=Q, q=rng.standard_normal((B, n)).astype(np.float32),
+        x=rng.uniform(-1, 1, (B, n)).astype(np.float32),
+        gamma=(0.95 / L).astype(np.float32),
+        lo=np.full(B, -1.0, np.float32), hi=np.full(B, 1.0, np.float32),
+        done=(rng.random(B) < frozen).astype(np.float32))
+    return {k: torch.tensor(v, device="cuda") for k, v in arrays.items()}
+
+
+def call_pg(lib, d, x, res, K, done, plan=None):
+    """K steps of ``lib``'s box-QP kernel on x (in place): the earlier
+    entries (``plan`` None, ``pg_step`` at K = 1) or this tree's
+    ``pg_k_steps`` at ``plan`` = (C, R, S)."""
+    B, n = d["q"].shape
+    ptrs = (d["Q"].data_ptr(), d["q"].data_ptr(), x.data_ptr(),
+            d["gamma"].data_ptr(), d["lo"].data_ptr(), d["hi"].data_ptr(),
+            None if done is None else done.data_ptr(), res.data_ptr())
+    if plan is not None:
+        err = lib.proxtpu_pg_k_steps(*ptrs, B, n, K, *plan,
+                                     tb.pg_shared_bytes(n, n, *plan),
+                                     stream())
+    elif K == 1:
+        err = lib.proxtpu_pg_step(*ptrs, B, n, stream())
+    else:
+        err = lib.proxtpu_pg_k_steps(*ptrs, B, n, K, stream())
+    _build.check(err, "pg_k_steps")
+
+
+def compare_pg(other, this, card, plans):
+    """``pg_step`` and ``pg_k_steps``: bits at PG_SHAPES, then times."""
+    sms, limit = _build.sm_count(0), _build.max_shared_bytes(0)
+
+    def same(d, K, done, plan):
+        B, n = d["q"].shape
+        old = (d["x"].clone(), torch.empty(B, device="cuda"))
+        new = (d["x"].clone(), torch.empty(B, device="cuda"))
+        call_pg(other, d, *old, K, done)
+        call_pg(this, d, *new, K, done, plan)
+        torch.cuda.synchronize()
+        return all(torch.equal(a, b) for a, b in zip(old, new))
+
+    for B, n in PG_SHAPES:
+        d = pg_inputs(B, n, seed=B + n)
+        plan = tb.pg_plan(B, n, sms, limit)
+        for K_ in (1, K):
+            for done in (None, d["done"]):
+                assert same(d, K_, done, plan), ("pg", B, n, K_, plan)
+        print(f"pg_step, pg_k_steps {(B, n)} plan C, R, S = {plan}: x, res "
+              f"equal to the earlier kernel's bits, K = 1 and {K}, "
+              f"{int(d['done'].sum())} lanes frozen or none")
+    B, n = PG_SHAPES[0]
+    d = pg_inputs(B, n, seed=1, frozen=0.0)
+    plan = tb.pg_plan(B, n, sms, limit)
+    x, res = d["x"].clone(), torch.empty(B, device="cuda")
+    live = d["done"]
+    for K_ in (1, K):
+        old_fn = lambda: call_pg(other, d, x, res, K_, live)  # noqa: E731
+        new_fn = lambda: call_pg(this, d, x, res, K_, live,  # noqa: E731
+                                 plan)
+        o1, n1, n2, o2 = (event_us(old_fn), event_us(new_fn),
+                          event_us(new_fn), event_us(old_fn))
+        g = (graph_us(old_fn), graph_us(new_fn), graph_us(new_fn),
+             graph_us(old_fn))
+        print(f"pg_k_steps {(B, n)} K={K_} plan C, R, S = {plan}: eager "
+              f"earlier {o1:.1f} / {o2:.1f} us, this {n1:.1f} / {n2:.1f} us; "
+              f"device pace earlier {g[0]:.1f} / {g[3]:.1f} us, this "
+              f"{g[1]:.1f} / {g[2]:.1f} us  [{card}]")
+    if not plans:
+        return
+    print(f"  pg_k_steps {(B, n)} K={K} over plans, device pace  [{card}]:")
+    for C in PG_PLAN_C:
+        for R in PG_PLAN_ROWS:
+            for S in PG_PLAN_STAGES:
+                if tb.pg_shared_bytes(n, n, C, R, S) > limit:
+                    continue
+                d_live = dict(d, done=live)
+                assert same(d_live, K, live, (C, R, S)), ("pg", C, R, S)
+                fn = lambda: call_pg(this, d, x, res, K, live,  # noqa: E731
+                                     (C, R, S))
+                print(f"    C={C} R={R} S={S} ({-(-(n // C) // R)} tiles a "
+                      f"step): {graph_us(fn, reps=5):.1f} us, bits equal")
+
+
+def tv_inputs(B, H, W, seed, frozen=0.5):
+    rng = np.random.default_rng(seed)
+    g1, g2 = tv.default_tv_stepsizes()
+    clean = np.zeros((B, H, W), np.float32)
+    clean[:, H // 4: 3 * H // 4, W // 4: 3 * W // 4] = 1.0
+    arrays = dict(
+        b=clean + 0.15 * rng.standard_normal((B, H, W)).astype(np.float32),
+        x=rng.standard_normal((B, H, W)).astype(np.float32),
+        yx=(0.05 * rng.standard_normal((B, H, W))).astype(np.float32),
+        yy=(0.05 * rng.standard_normal((B, H, W))).astype(np.float32),
+        g1=np.full(B, g1, np.float32), g2=np.full(B, g2, np.float32),
+        lam=np.full(B, 0.12, np.float32),
+        lams=rng.uniform(0.05, 0.3, B).astype(np.float32),
+        done=(rng.random(B) < frozen).astype(np.float32))
+    return {k: torch.tensor(v, device="cuda") for k, v in arrays.items()}
+
+
+def call_cp(lib, ops, out, res, K, done, plan=None, scratch=None):
+    """K steps of ``lib``'s ``cp_k_steps`` from ``ops`` = (b, x, yx, yy, g1,
+    g2, lam) into ``out`` and ``res``: the earlier entry (``plan`` None; its
+    scratch is zeroed first, as its wrapper did, and its tile is
+    ``tile_plan``'s) or this tree's cluster variant at ``plan`` = (C,
+    threads)."""
+    B, H, W = ops[0].shape
+    ptrs = [t.data_ptr() for t in ops]
+    ptrs += [None if done is None else done.data_ptr()]
+    ptrs += [t.data_ptr() for t in out] + [res.data_ptr()]
+    if plan is None:
+        scratch.zero_()
+        TH, TW = tv.tile_plan(H, W, K, _build.max_shared_bytes(0))
+        err = lib.proxtpu_cp_k_steps(*ptrs, scratch.data_ptr(), B, H, W, K,
+                                     TH, TW, stream())
+    else:
+        C, threads = plan
+        err = lib.proxtpu_cp_k_steps(*ptrs, B, H, W, K, C, threads,
+                                     tv.cp_band_bytes(H, W, C), stream())
+    _build.check(err, "cp_k_steps")
+
+
+def active_clusters(H, W, C, threads):
+    out = ctypes.c_int()
+    _build.check(_build.library().proxtpu_cp_active_clusters(
+        H, W, C, threads, tv.cp_band_bytes(H, W, C), ctypes.byref(out)),
+        "cp_active_clusters")
+    return out.value
+
+
+def compare_tv(other, card, plans):
+    """``cp_k_steps``: bits at TV_SHAPES (this tree through its wrapper, at
+    its plan), then times at TV_TIMED."""
+    sms, limit = _build.sm_count(0), _build.max_shared_bytes(0)
+
+    def run_old(d, ops, K_, done):
+        B = ops[0].shape[0]
+        out = tuple(torch.empty_like(ops[0]) for _ in range(3))
+        res = torch.empty(B, device="cuda")
+        call_cp(other, ops, out, res, K_, done,
+                scratch=torch.empty((B, 4), dtype=torch.int32,
+                                    device="cuda"))
+        return (*out, res)
+
+    for B, H, W in TV_SHAPES:
+        d = tv_inputs(B, H, W, seed=B + H + W)
+        zero = torch.zeros_like(d["b"])
+        for K_ in (1, K):
+            plan = tv.cp_plan(B, H, W, K_, sms, limit)
+            cases = 0
+            for lam in (d["lam"], d["lams"]):
+                for state in ((zero,) * 3, (d["x"], d["yx"], d["yy"])):
+                    for done in (None, d["done"]):
+                        ops = (d["b"], *state, d["g1"], d["g2"], lam)
+                        old = run_old(d, ops, K_, done)
+                        new = tv.fused_cp_k_steps(*ops, K_, done)
+                        torch.cuda.synchronize()
+                        assert all(torch.equal(a, b) for a, b in
+                                   zip(old, new)), ("cp", B, H, W, K_, plan)
+                        cases += 1
+            print(f"cp_k_steps {(B, H, W)} K={K_} plan {tuple(plan)}: x, "
+                  f"yx, yy, res equal to the earlier kernel's bits in "
+                  f"{cases} cases")
+    for B, H, W in TV_TIMED:
+        d = tv_inputs(B, H, W, seed=1, frozen=0.0)
+        ops = (d["b"], d["x"], d["yx"], d["yy"], d["g1"], d["g2"], d["lam"])
+        out = tuple(torch.empty_like(d["b"]) for _ in range(3))
+        res = torch.empty(B, device="cuda")
+        scratch = torch.empty((B, 4), dtype=torch.int32, device="cuda")
+        plan = tv.cp_plan(B, H, W, K, sms, limit)
+        old_fn = lambda: call_cp(other, ops, out, res, K,  # noqa: E731
+                                 None, scratch=scratch)
+        new_fn = lambda: call_cp(_build.library(), ops, out,  # noqa: E731
+                                 res, K, None, (plan.C, plan.threads))
+        o1, n1, n2, o2 = (event_us(old_fn), event_us(new_fn),
+                          event_us(new_fn), event_us(old_fn))
+        g = (graph_us(old_fn), graph_us(new_fn), graph_us(new_fn),
+             graph_us(old_fn))
+        print(f"cp_k_steps {(B, H, W)} K={K} plan {tuple(plan)}: eager "
+              f"earlier {o1:.1f} / {o2:.1f} us, this {n1:.1f} / {n2:.1f} us; "
+              f"device pace earlier {g[0]:.1f} / {g[3]:.1f} us, this "
+              f"{g[1]:.1f} / {g[2]:.1f} us  [{card}]")
+        if not plans:
+            continue
+        want = run_old(d, ops, K, None)
+        print(f"  cp_k_steps {(B, H, W)} K={K} over plans, device pace "
+              f"[{card}]:")
+        for C in TV_PLAN_C[(B, H, W)]:
+            for threads in TV_PLAN_THREADS:
+                if tv.cp_band_bytes(H, W, C) + 1024 > limit:
+                    continue
+                fn = lambda: call_cp(  # noqa: E731
+                    _build.library(), ops, out, res, K, None, (C, threads))
+                fn()
+                torch.cuda.synchronize()
+                assert all(torch.equal(a, b) for a, b in
+                           zip(want, (*out, res))), ("cp", C, threads)
+                print(f"    C={C} threads={threads} "
+                      f"({-(-H // C)} rows a block, "
+                      f"{active_clusters(H, W, C, threads)} clusters at "
+                      f"once): {graph_us(fn, reps=5):.1f} us, bits equal")
+
+
 def event_us(fn, reps=10, inner=10):
     for _ in range(3):
         fn()
@@ -368,6 +618,8 @@ def main():
     compare_steps(other, this, card, args.plans)
     compare_k_steps(other, this, card)
     compare_read_reduce(other.proxtpu_read_reduce, card)
+    compare_pg(other, this, card, args.plans)
+    compare_tv(other, card, args.plans)
 
 
 if __name__ == "__main__":
