@@ -21,7 +21,11 @@ Phases, in order; any failure raises and exits non-zero:
    their plan; ``cp_k_steps`` at the device's pace over K = 1, 2, 4, 8
    (the intercept is the load, store and launch, the slope one step) with
    its plan; time the read-floor probe ``read_reduce`` at every step
-   kernel's shape, and its wrapper's host time by part;
+   kernel's shape, and its wrapper's host time by part; the bfloat16-A
+   instances of ``fb_step`` and ``fista_step`` at every check shape and
+   every branch of their plan at 2 bytes an entry, each bit-equal to the
+   float32 kernel on ``A16.float()`` and near the plain version there,
+   then timed at the main path's two shapes beside the float32 instances;
 4. run the main path at full size: 256 distinct-A lasso problems of
    200 x 400 (``bench.gen_problems``, seed 0) through
    ``solve_lasso_batch_packed_tail(restart=True, k1=192, tail=64)``, drained
@@ -41,7 +45,23 @@ Phases, in order; any failure raises and exits non-zero:
    (c) the flagship 256 x 200 x 400: the packed solver, ``fista_step``;
    (d) 256 tall 400 x 200 lasso problems with the strong-convexity modulus
        ``mf``: ``fb_step`` then ``fista_step`` with a constant beta;
-6. drive the TV route, ``BatchedAlgorithm(make_chambolle_pock_iteration)``
+6. drive the rest of the lasso family at full width, each on the kernel
+   and the plain route, every lane done, a host recheck, launch counts:
+   (g) the shared-A path of ``benchmarks/shared_bench.py``: one 200 x 400
+       A, 256 lambdas log-spaced from 0.02 to 0.5 lambda_max, through
+       ``BatchedAlgorithm`` with a ``Shared`` least-squares f, with and
+       without adaptive restart: ``solve_lasso_multirhs`` (cuBLAS, no
+       hand-written kernel) against the generic driver;
+   (h) ``solve_lasso_batch_mixed`` on the flagship problems, with and
+       without restart: the bf16 instances in stage 1, the float32 ones in
+       stage 2, their launches apart;
+   (i) ``step_mult = 1.5`` with restart through ``solve_lasso_batch_packed``
+       and ``solve_lasso_batch``, the canonical recheck at gamma = 1/L,
+       beside the restart-only counts;
+   (j) ``solve_lasso_batch_compacting`` on the flagship problems with lambda
+       spread (rng 5), restart on and off: bit-equal to
+       ``solve_lasso_batch`` on the kernel route;
+7. drive the TV route, ``BatchedAlgorithm(make_chambolle_pock_iteration)``
    -> ``match_tv_solver`` -> ``solve_tv_batch`` -> ``cp_k_steps``, on the
    kernel route and on the generic driver, with a float64 fixed-point
    recheck of every returned (x, y) on the host:
@@ -49,7 +69,7 @@ Phases, in order; any failure raises and exits non-zero:
        0.15, lam 0.12, tol 1e-4): one thread block per image;
    (f) 64 images of 256 x 256, the same generator: a cluster of 16 blocks
        per image, one band of 16 rows each;
-7. print the kernels' JSON line (time, plain version's time, bound and,
+8. print the kernels' JSON line (time, plain version's time, bound and,
    where one PyTorch call computes the same function, that call's time),
    then the result line.
 
@@ -81,6 +101,10 @@ STEP_SHAPES = MAIN_SHAPES + [(256, 400, 200), (64, 512, 1024),
 # than a block's shared memory (a ring filled by ordinary loads), and rows
 # too wide for three one-row stages beside x, g and r (the lane in place)
 CHECK_SHAPES = STEP_SHAPES + [(7, 33, 161), (5, 300, 250), (2, 24, 12000)]
+# the bfloat16-A instances at the same shapes (at 2 bytes an entry
+# (2, 24, 12000) walks a ring of one-row tiles) and at a lane whose bf16
+# rows are still too wide for a ring (read in place)
+BF16_CHECK_SHAPES = CHECK_SHAPES + [(2, 24, 20000)]
 # One step against its plain version.  Both sum 200- to 1024-term f32
 # products in different orders (warp shuffles vs cuBLAS), so each output
 # carries a few ulps of its largest partial sums: iterates and residuals
@@ -157,11 +181,13 @@ def cp_bound(B, H, W):
     return bound(4 * (7 * B * H * W + 4 * B), 25 * K * B * H * W)
 
 
-def lasso_bound(B, M, N, vecs, scalars, steps):
-    """A lasso step kernel: A, b, ``vecs`` (B, N) and ``scalars`` (B,)
-    operands and results moved once; two products with A per step (2 M N
-    operations each) plus about ten per entry of the iterate."""
-    return bound(4 * (B * M * N + B * M + vecs * B * N + scalars * B),
+def lasso_bound(B, M, N, vecs, scalars, steps, a_bytes=4):
+    """A lasso step kernel: A (``a_bytes`` an entry), b, ``vecs`` (B, N) and
+    ``scalars`` (B,) operands and results moved once; two products with A
+    per step (2 M N operations each) plus about ten per entry of the
+    iterate."""
+    return bound(a_bytes * B * M * N
+                 + 4 * (B * M + vecs * B * N + scalars * B),
                  steps * B * (4 * M * N + 10 * N))
 
 
@@ -293,6 +319,101 @@ def check_kernels():
     return worst
 
 
+def raises(exc, fn):
+    """Hold that ``fn()`` raises ``exc``: a kernel wrapper refuses an
+    operand, it never takes the plain version for a CUDA tensor."""
+    try:
+        fn()
+    except exc:
+        return
+    raise AssertionError(f"no {exc.__name__} raised")
+
+
+def check_bf16_kernels():
+    """The bfloat16-A instances of fb_step and fista_step at every shape of
+    BF16_CHECK_SHAPES, which reach every branch of their plan at 2 bytes an
+    entry, with and without shrink, restart off and on, with and without
+    frozen lanes: each result is equal to the last bit to the float32
+    kernel's on ``A16.float()`` (the same sums in the same order on the
+    same values), and within ATOL / RS_RTOL of the plain version there.
+    Operands they do not take raise.  Returns the largest error against the
+    plain version per instance."""
+    from proxtpu_torch.kernels import _build
+    from proxtpu_torch.kernels import lasso as tl
+
+    worst = {"fb_step_bf16": 0.0, "fista_step_bf16": 0.0}
+    branches = set()
+    sms, limit = _build.sm_count(0), _build.max_shared_bytes(0)
+    for B, M, N in BF16_CHECK_SHAPES:
+        d = step_inputs(B, M, N, seed=B + M + N)
+        A16 = d["A"].to(torch.bfloat16)
+        A32 = A16.float()
+        threads, R, S, smem = tl.step_plan(B, M, N, sms, limit, elem=2)
+        branch = ("in place" if S == 0 else
+                  ("one stage, " if S == 1 else "ring, ")
+                  + ("bulk copy" if N * 2 % 16 == 0 else "ordinary loads"))
+        branches.add(branch)
+        cases = 0
+        for shrink in (None, d["shrink"]):
+            args = (d["b"], d["x"], d["gamma"], d["thr"])
+            got = tl.fused_fb_prox_grad(A16, *args, shrink=shrink)
+            f32 = tl.fused_fb_prox_grad(A32, *args, shrink=shrink)
+            want = tl.reference_fb_prox_grad(A32, *args, shrink=shrink)
+            torch.cuda.synchronize()
+            assert all(torch.equal(g, f) for g, f in zip(got, f32)), (
+                "fb_step_bf16", B, M, N, shrink is not None)
+            err = max(max_err(g, w) for g, w in zip(got, want))
+            assert err <= ATOL, (B, M, N, err)
+            worst["fb_step_bf16"] = max(worst["fb_step_bf16"], err)
+            cases += 1
+            for restart in (False, True):
+                for done in (torch.zeros_like(d["done"]), d["done"]):
+                    rest = (d["beta"], d["gamma"], d["thr"], done)
+                    got, f32 = (tl.fused_fista_full_step(
+                        A, d["b"], d["x"].clone(), d["z_prev"].clone(),
+                        *rest, shrink=shrink, restart=restart)
+                        for A in (A16, A32))
+                    want = tl.reference_fista_full_step(
+                        A32, d["b"], d["x"], d["z_prev"], *rest,
+                        shrink=shrink, restart=restart)
+                    torch.cuda.synchronize()
+                    assert all(torch.equal(g, f) for g, f in zip(got, f32)), (
+                        "fista_step_bf16", B, M, N, restart,
+                        shrink is not None)
+                    err = max(max_err(g, w) for g, w in zip(got[:3], want))
+                    rs_err = float(((got[3] - want[3]).abs()
+                                    / (1 + want[3].abs())).max())
+                    assert err <= ATOL and rs_err <= RS_RTOL, (
+                        B, M, N, restart, err, rs_err)
+                    frozen = done != 0
+                    assert torch.equal(got[0][frozen], d["x"][frozen])
+                    worst["fista_step_bf16"] = max(worst["fista_step_bf16"],
+                                                   err)
+                    cases += 1
+        print(f"  fb_step_bf16 / fista_step_bf16 {(B, M, N)}: {threads} "
+              f"threads, {S} stages of {R} rows, {smem} bytes ({branch}); "
+              f"equal to the float32 kernel on A16.float() in {cases} cases, "
+              f"max|err| to the plain version {worst['fb_step_bf16']:.3e} / "
+              f"{worst['fista_step_bf16']:.3e}")
+    assert branches == {"ring, bulk copy", "ring, ordinary loads",
+                        "one stage, bulk copy", "one stage, ordinary loads",
+                        "in place"}, branches
+    d = step_inputs(*MAIN_SHAPES[1], seed=sum(MAIN_SHAPES[1]))
+    A16 = d["A"].to(torch.bfloat16)
+    fb = (d["b"], d["x"], d["gamma"], d["thr"])
+    raises(TypeError, lambda: tl.fused_fb_prox_grad(d["A"].half(), *fb))
+    raises(TypeError, lambda: tl.fused_fb_prox_grad(
+        A16, d["b"], d["x"].to(torch.bfloat16), d["gamma"], d["thr"]))
+    raises(ValueError, lambda: tl.fused_fb_prox_grad(
+        A16.transpose(1, 2).contiguous().transpose(1, 2), *fb))
+    raises(TypeError, lambda: tl.solve_lasso_batch_mixed(
+        d["A"], d["b"], d["thr"], 1.0 / d["gamma"], TOL,
+        warm_dtype=torch.float16))
+    print("  refused: A in float16, x in bfloat16, a bf16 A not contiguous, "
+          "warm_dtype float16 (each raises)")
+    return worst
+
+
 def time_ms(fn, reps=20, inner=10):
     """``reps`` samples of one step's time in ms, each from CUDA events
     around ``inner`` back-to-back calls, after a warm-up.  This is the
@@ -382,8 +503,8 @@ def time_kernels(card):
             g = pace[(name, (B, M, N))] = graph_ms(kernel)
             held = ctypes.c_int()
             _build.check(_build.library().proxtpu_step_blocks_per_sm(
-                int(name == "fista_step"), M, N, *plan, ctypes.byref(held)),
-                "step_blocks_per_sm")
+                int(name == "fista_step"), 4, M, N, *plan,
+                ctypes.byref(held)), "step_blocks_per_sm")
             print(f"  {name:10s} {(B, M, N)}: kernel {1e3 * k:.1f} us eager "
                   f"(runs {1e3 * statistics.median(k1):.1f} / "
                   f"{1e3 * statistics.median(k2):.1f}), {1e3 * g:.1f} us at "
@@ -400,6 +521,67 @@ def time_kernels(card):
         if (B, M, N) in MAIN_SHAPES:
             step_host_parts(d, card)
     return flagship, pace
+
+
+def time_bf16_kernels(card, pace):
+    """The bfloat16-A instances of fb_step and fista_step at the main
+    path's two shapes, against their plain versions (the float32 step on A
+    cast up per call), in an eager loop and at the device's pace, with the
+    plan at 2 bytes an entry, the blocks one SM holds and the bound, beside
+    the float32 instance's time at the device's pace (``pace`` of
+    time_kernels, which this adds the bf16 instances to).  Returns the
+    flagship-shape eager medians per instance."""
+    import ctypes
+
+    from proxtpu_torch.kernels import _build
+    from proxtpu_torch.kernels import lasso as tl
+
+    flagship = {}
+    for B, M, N in MAIN_SHAPES:
+        d = step_inputs(B, M, N, seed=B + M + N)
+        A16 = d["A"].to(torch.bfloat16)
+        live = torch.zeros_like(d["done"])
+        fb = (d["b"], d["x"], d["gamma"], d["thr"])
+        rest = (d["beta"], d["gamma"], d["thr"], live)
+        x, zp = d["x"].clone(), d["z_prev"].clone()
+        pairs = {
+            "fb_step_bf16": (lambda: tl.fused_fb_prox_grad(A16, *fb),
+                             lambda: tl.reference_fb_prox_grad(A16, *fb)),
+            "fista_step_bf16": (
+                lambda: tl.fused_fista_full_step(A16, d["b"], x, zp, *rest,
+                                                 restart=True),
+                lambda: tl.reference_fista_full_step(
+                    A16, d["b"], d["x"], d["z_prev"], *rest, restart=True)),
+        }
+        plan = tl.step_plan(B, M, N, _build.sm_count(0),
+                            _build.max_shared_bytes(0), elem=2)
+        gb = B * M * N * 2 / 1e9
+        for name, (kernel, plain) in pairs.items():
+            p1, k1, k2, p2 = (time_ms(plain, reps=10), time_ms(kernel),
+                              time_ms(kernel), time_ms(plain, reps=10))
+            k, p = statistics.median(k1 + k2), statistics.median(p1 + p2)
+            g = pace[(name, (B, M, N))] = graph_ms(kernel)
+            held = ctypes.c_int()
+            _build.check(_build.library().proxtpu_step_blocks_per_sm(
+                int(name == "fista_step_bf16"), 2, M, N, *plan,
+                ctypes.byref(held)), "step_blocks_per_sm")
+            base = name[:-len("_bf16")]
+            bnd = lasso_bound(B, M, N, *STEP_OPERANDS[base], 1, a_bytes=2)[0]
+            print(f"  {name:15s} {(B, M, N)}: kernel {1e3 * k:.1f} us eager "
+                  f"(runs {1e3 * statistics.median(k1):.1f} / "
+                  f"{1e3 * statistics.median(k2):.1f}), {1e3 * g:.1f} us at "
+                  f"the device's pace (A read once at 2 bytes = "
+                  f"{gb / (g * 1e-3):.0f} GB/s), float32 instance "
+                  f"{1e3 * pace[(base, (B, M, N))]:.1f} us at the device's "
+                  f"pace; plain {1e3 * p:.1f} us (runs "
+                  f"{1e3 * statistics.median(p1):.1f} / "
+                  f"{1e3 * statistics.median(p2):.1f}); bound "
+                  f"{1e3 * bnd:.1f} us; plan {plan[0]} threads, {plan[2]} "
+                  f"stages of {plan[1]} rows, {plan[3]} bytes, {held.value} "
+                  f"blocks per SM  [{card}]")
+            if (B, M, N) == MAIN_SHAPES[0]:
+                flagship[name] = (k, p)
+    return flagship
 
 
 def step_host_parts(d, card):
@@ -486,7 +668,7 @@ def step_host_parts(d, card):
         "fused_fb_prox_grad, whole": lambda: tl.fused_fb_prox_grad(*fb),
     }
     print(f"    host time per call by part at {tuple(A.shape)} "
-          f"(time.perf_counter, median of 10 batches of 200 calls)  [{card}]:")
+          f"(time.perf_counter, median of 5 batches of 100 calls)  [{card}]:")
     for name, fn in parts.items():
         print(f"      {name}: {host_us(fn):.2f} us")
 
@@ -862,7 +1044,7 @@ def check_read_reduce():
     return worst
 
 
-def host_us(fn, batches=10, batch=200):
+def host_us(fn, batches=5, batch=100):
     """Microseconds of host time per call of ``fn``: the median over
     ``batches`` of the mean of ``batch`` calls by ``time.perf_counter``,
     synchronising between batches, outside the clock, so that a part that
@@ -941,7 +1123,7 @@ def read_reduce_host_parts(A, card):
         "A.sum(dim=(1, 2)), whole": lambda: A.sum(dim=(1, 2)),
     }
     print(f"    host time per call by part at {tuple(A.shape)} "
-          f"(time.perf_counter, median of 10 batches of 200 calls)  [{card}]:")
+          f"(time.perf_counter, median of 5 batches of 100 calls)  [{card}]:")
     for name, fn in parts.items():
         print(f"      {name}: {host_us(fn):.2f} us")
 
@@ -1259,23 +1441,27 @@ def phase_main_path(card, pace):
 
 
 def launch_counters():
-    """The kernel wrappers, whose ``launches`` attributes count launches."""
+    """``{kernel: (wrapper, attribute)}``: the attribute of the wrapper that
+    counts the kernel's launches (the one-step lasso wrappers count their
+    float32 and bfloat16 instances apart)."""
     from proxtpu_torch.kernels import box_qp as tb
     from proxtpu_torch.kernels import lasso as tl
     from proxtpu_torch.kernels import probe, tv
 
-    return {"cp_k_steps": tv.fused_cp_k_steps,
-            "read_reduce": probe.read_reduce,
-            "fb_step": tl.fused_fb_prox_grad,
-            "fista_step": tl.fused_fista_full_step,
-            "fista_k_steps": tl.fused_fista_k_steps,
-            "pg_step": tb.fused_pg_box_step,
-            "pg_k_steps": tb.fused_pg_box_k_steps}
+    return {"cp_k_steps": (tv.fused_cp_k_steps, "launches"),
+            "read_reduce": (probe.read_reduce, "launches"),
+            "fb_step": (tl.fused_fb_prox_grad, "launches"),
+            "fista_step": (tl.fused_fista_full_step, "launches"),
+            "fb_step_bf16": (tl.fused_fb_prox_grad, "launches_bf16"),
+            "fista_step_bf16": (tl.fused_fista_full_step, "launches_bf16"),
+            "fista_k_steps": (tl.fused_fista_k_steps, "launches"),
+            "pg_step": (tb.fused_pg_box_step, "launches"),
+            "pg_k_steps": (tb.fused_pg_box_k_steps, "launches")}
 
 
 def drive(name, solve, check, tol, card, expect, dx_tol=None, pace=None,
           shape=None):
-    """Drive one route through BatchedAlgorithm: once on the kernel route
+    """Drive one route (``solve(use_kernels)``): once on the kernel route
     with every launch counter set to 0 just before and read just after
     (the counts this route adds to the kernels' JSON line), once on the
     plain route, which must launch no kernel.  Every lane done on both;
@@ -1289,22 +1475,25 @@ def drive(name, solve, check, tol, card, expect, dx_tol=None, pace=None,
         sol = sol if isinstance(sol, tuple) else (sol,)
         return [t.cpu().numpy() for t in sol]
 
-    wrappers = launch_counters()
+    counters = launch_counters()
+
+    def read():
+        return {k: getattr(w, a) for k, (w, a) in counters.items()}
+
     solve(True)  # warm-up (the kernel route's first call)
     torch.cuda.synchronize()
-    for w in wrappers.values():
-        w.launches = 0
+    for w, a in counters.values():
+        setattr(w, a, 0)
     t0 = time.perf_counter()
     xs, iters, done = solve(True)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = {k: w.launches for k, w in wrappers.items()}
+    launches = read()
     t0 = time.perf_counter()
     xs_p, it_p, done_p = solve(False)
     torch.cuda.synchronize()
     dt_p = time.perf_counter() - t0
-    assert all(w.launches == launches[k] for k, w in wrappers.items()), (
-        f"{name}: the plain route launched a kernel")
+    assert read() == launches, f"{name}: the plain route launched a kernel"
     assert bool(done.all()), f"{name}: {int((~done).sum())} lanes left"
     assert bool(done_p.all()), f"{name}: {int((~done_p).sum())} plain left"
     moved = {k for k, n in launches.items() if n > 0}
@@ -1401,6 +1590,184 @@ def phase_routes(card, pace):
     return total
 
 
+def profiled_device_ms(fn):
+    """The device time of one call of ``fn`` in ms: the kernels' self time
+    summed over a ``torch.profiler`` trace of the call (cuBLAS and PyTorch's
+    own kernels included), or None where the trace holds no device time.
+    The profiler slows the host, so the call's wall is not read here.
+    Returns ``(ms, text)``, the text with the seconds the trace took."""
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = time.perf_counter()
+    # the device's activity only: recording every host operation as well
+    # costs the host far more than the solve
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+             for e in prof.key_averages())
+    ms = us / 1e3 if us > 0 else None
+    text = "not measured" if ms is None else f"{ms:.3f} ms"
+    return ms, f"{text} (torch.profiler, {time.perf_counter() - t0:.1f} s)"
+
+
+def shared_problem():
+    """The shared-A lasso path of benchmarks/shared_bench.py:43-60: one A of
+    200 x 400 and one b (seed 0), 256 lambdas log-spaced from 0.02 to 0.5
+    lambda_max, Lf = ||A||_2^2."""
+    M, N, B = 200, 400, 256
+    rng = np.random.default_rng(0)
+    A = (rng.standard_normal((M, N)) / np.sqrt(M)).astype(np.float32)
+    b = rng.standard_normal(M).astype(np.float32)
+    lam_max = float(np.max(np.abs(A.T @ b)))
+    lams = (lam_max * np.logspace(np.log10(0.02), np.log10(0.5), B)
+            ).astype(np.float32)
+    return A, b, lams, float(np.linalg.norm(A, 2) ** 2)
+
+
+def shared_recheck(A, b, lams, Lf, xs):
+    """The float32 FB residual of every lane on the shared A."""
+    gam = np.float32(1.0 / Lf)
+    y = xs - gam * ((xs @ A.T - b) @ A)
+    z = np.sign(y) * np.maximum(np.abs(y) - gam * lams[:, None], 0.0)
+    return float(np.max(np.abs(xs - z)) / gam)
+
+
+def phase_lasso_rest(card, pace):
+    """Routes (g) to (j): the shared-A path, the mixed-precision solver, the
+    over-relaxed solvers and the compacting driver at full width.  Returns
+    the launches per kernel summed over the driven routes."""
+    import bench
+    from proxtpu_torch import (
+        AdaptiveRestartSequence,
+        BatchedAlgorithm,
+        FixedNesterovSequence,
+        Shared,
+        make_fast_forward_backward_iteration as ffb,
+        problems_from_numpy,
+    )
+    from proxtpu_torch.kernels import lasso as tl
+    from proxtpu_torch.prox import LeastSquaresLoss, NormL1
+
+    total = {}
+
+    def add(launches):
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+
+    # (g) one A for 256 lambdas: dispatch takes solve_lasso_multirhs, whose
+    # two products a step are torch.matmul; no hand-written kernel runs
+    A, b, lams, Lf = shared_problem()
+    calls = []
+    real = tl.solve_lasso_multirhs
+
+    def counted(*args, **kw):
+        calls.append(kw["iter_block"])
+        return real(*args, **kw)
+
+    tl.solve_lasso_multirhs = counted
+    try:
+        for restart in (False, True):
+            kw = dict(x0=torch.zeros(len(lams), A.shape[1], device=DEVICE),
+                      f=Shared(LeastSquaresLoss(
+                          torch.tensor(A, device=DEVICE),
+                          torch.tensor(b, device=DEVICE))),
+                      g=NormL1(torch.tensor(lams, device=DEVICE)), Lf=Lf)
+            if restart:
+                kw["extrapolation_sequence"] = AdaptiveRestartSequence(
+                    FixedNesterovSequence())
+            del calls[:]
+            solve = lambda use: BatchedAlgorithm(  # noqa: E731
+                ffb, maxit=3000, tol=TOL,
+                use_kernels="auto" if use else False)(**kw)
+            add(drive(f"route (g) shared A {A.shape}, {len(lams)} lambdas "
+                      f"restart={restart}", solve,
+                      lambda xs: shared_recheck(A, b, lams, Lf, xs), TOL,
+                      card, ()))
+            _, text = profiled_device_ms(lambda: solve(True))
+            print(f"  device time per solve (cuBLAS and PyTorch's "
+                  f"kernels): {text}  [{card}]")
+            # the warm-up, the timed and the profiled solve, all at K = 1
+            assert calls == [1, 1, 1], calls
+    finally:
+        tl.solve_lasso_multirhs = real
+    print("  route (g): both kernel-route solves reached "
+          "solve_lasso_multirhs at iter_block = 1")
+
+    As, bs, lams, Lfs = bench.gen_problems(bench.BATCH)
+    P = problems_from_numpy(As, bs, lams, Lfs, device=DEVICE)
+    check = lambda xs: recheck(As, bs, lams, Lfs, xs)  # noqa: E731
+    # (h) the bf16 warm stage, then the float32 polish
+    for restart in (False, True):
+        launches = drive(
+            f"route (h) solve_lasso_batch_mixed {MAIN_SHAPES[0]} "
+            f"restart={restart}",
+            lambda use: tl.solve_lasso_batch_mixed(
+                *P, TOL, maxit=3000, use_kernel=use, restart=restart),
+            check, TOL, card,
+            ("fb_step", "fista_step", "fb_step_bf16", "fista_step_bf16"),
+            pace=pace, shape=MAIN_SHAPES[0])
+        print(f"  route (h) restart={restart}: bf16 instances "
+              f"{launches['fb_step_bf16']} fb_step + "
+              f"{launches['fista_step_bf16']} fista_step, float32 "
+              f"{launches['fb_step']} + {launches['fista_step']}")
+        add(launches)
+    # (i) over-relaxed restart-FISTA, beside restart alone
+    _, it_r, done_r = tl.solve_lasso_batch_packed(*P, TOL, maxit=3000,
+                                                  restart=True)
+    assert bool(done_r.all())
+    for solver, expect in ((tl.solve_lasso_batch_packed, ("fista_step",)),
+                           (tl.solve_lasso_batch,
+                            ("fb_step", "fista_step"))):
+        add(drive(f"route (i) {solver.__name__} step_mult=1.5 restart=True "
+                  f"{MAIN_SHAPES[0]}",
+                  lambda use: solver(*P, TOL, maxit=3000, restart=True,
+                                     step_mult=1.5, use_kernel=use),
+                  check, TOL, card, expect, pace=pace,
+                  shape=MAIN_SHAPES[0]))
+    print(f"  route (i) beside restart alone (solve_lasso_batch_packed, "
+          f"step_mult=1): iterations mean {it_r.float().mean():.2f} max "
+          f"{int(it_r.max())}")
+    # (j) the compacting driver against solve_lasso_batch, kernel route
+    rng = np.random.default_rng(5)
+    spread = (lams * (0.2 + 0.8 * rng.random(len(lams)))).astype(np.float32)
+    P = problems_from_numpy(As, bs, spread, Lfs, device=DEVICE)
+    counters = launch_counters()
+    for restart in (False, True):
+        runs = {}
+        for solver in (tl.solve_lasso_batch, tl.solve_lasso_batch_compacting):
+            solver(*P, TOL, maxit=3000, restart=restart)  # warm-up
+            torch.cuda.synchronize()
+            for w, a in counters.values():
+                setattr(w, a, 0)
+            t0 = time.perf_counter()
+            out = solver(*P, TOL, maxit=3000, restart=restart)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {k: getattr(w, a) for k, (w, a) in counters.items()}
+            add(launches)
+            _, dev = profiled_device_ms(
+                lambda: solver(*P, TOL, maxit=3000, restart=restart))
+            runs[solver.__name__] = (out, wall, launches, dev)
+        (ref, dt_ref, l_ref, dev_ref), (got, dt, l_got, dev) = runs.values()
+        assert all(torch.equal(g, r) for g, r in zip(got, ref)), (
+            "route (j): compacting differs from solve_lasso_batch", restart)
+        assert bool(got[2].all()), f"route (j): {int((~got[2]).sum())} left"
+        r = recheck(As, bs, spread, Lfs, got[0].cpu().numpy())
+        assert r <= 2 * TOL, r
+        it = got[1].float()
+        print(f"route (j) solve_lasso_batch_compacting restart={restart} "
+              f"{MAIN_SHAPES[0]}, lambda spread: counts, done flags and "
+              f"solutions equal to solve_lasso_batch's; recheck {r:.3e}, "
+              f"iterations mean {it.mean():.2f} max {int(it.max())}; "
+              f"compacting {dt:.4f} s ({l_got['fb_step']} fb_step, "
+              f"{l_got['fista_step']} fista_step; device {dev}), "
+              f"solve_lasso_batch {dt_ref:.4f} s ({l_ref['fb_step']} + "
+              f"{l_ref['fista_step']}; device {dev_ref})  [{card}]")
+    return total
+
+
 def kernel_bounds():
     """``{kernel: (shape, ms, by)}``: the bound of each kernel at the shape
     its times in the JSON line are taken at.  Bytes: every operand read
@@ -1421,6 +1788,11 @@ def kernel_bounds():
                     *lasso_bound(B, M, N, *STEP_OPERANDS["fb_step"], 1)),
         "fista_step": ((B, M, N),
                        *lasso_bound(B, M, N, *STEP_OPERANDS["fista_step"], 1)),
+        # the bfloat16-A instances: A at 2 bytes an entry
+        "fb_step_bf16": ((B, M, N), *lasso_bound(
+            B, M, N, *STEP_OPERANDS["fb_step"], 1, a_bytes=2)),
+        "fista_step_bf16": ((B, M, N), *lasso_bound(
+            B, M, N, *STEP_OPERANDS["fista_step"], 1, a_bytes=2)),
         # A, b, x, z_prev, t, gamma, thr, done -> x, z_prev, t, res
         "fista_k_steps": ((Bk, Mk, Nk), *lasso_bound(Bk, Mk, Nk, 4, 6, K)),
         # Q, q, x, gamma, lo, hi, done -> x, res
@@ -1432,37 +1804,56 @@ def kernel_bounds():
 
 
 def main():
-    card = phase_identify()
-    phase_build()
+    started = time.perf_counter()
+    seconds = {}
+
+    def phase(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    card = phase("identify", phase_identify)
+    phase("build", phase_build)
     print("kernel vs plain on the card:")
-    worst = check_kernels()
-    worst.update(check_new_kernels())
-    worst["cp_k_steps"] = check_tv_kernel()
-    worst["read_reduce"] = check_read_reduce()
-    times, pace = time_kernels(card)
-    box_times, box_pace = time_new_kernels(card)
+    worst = phase("check f32", check_kernels)
+    worst.update(phase("check k-steps, box QP", check_new_kernels))
+    worst["cp_k_steps"] = phase("check TV", check_tv_kernel)
+    worst["read_reduce"] = phase("check read_reduce", check_read_reduce)
+    worst.update(phase("check bf16", check_bf16_kernels))
+    times, pace = phase("time one-step", time_kernels, card)
+    times.update(phase("time bf16", time_bf16_kernels, card, pace))
+    box_times, box_pace = phase("time k-steps, box QP", time_new_kernels,
+                                card)
     times.update(box_times)
     pace.update(box_pace)
-    tv_times, tv_pace = time_tv_kernel(card)
+    tv_times, tv_pace = phase("time TV", time_tv_kernel, card)
     pace.update(tv_pace)
     times["cp_k_steps"] = tv_times[TV_SHAPES[1]]
     print("read floor, read_reduce vs A.sum(dim=(1, 2)):")
-    floors, floor_launches = phase_read_floor(card)
+    floors, floor_launches = phase("read floor", phase_read_floor, card)
     times["read_reduce"] = floors[MAIN_SHAPES[0]]
     print("cross-path contract at the reference test shapes:")
-    check_contract_small()
-    check_tv_contract_small()
-    launches = phase_main_path(card, pace)
+    phase("contract", check_contract_small)
+    phase("TV contract", check_tv_contract_small)
+    launches = phase("main path", phase_main_path, card, pace)
     print("library route, BatchedAlgorithm -> match_kernel_solver:")
-    for k, n in phase_routes(card, pace).items():
+    for k, n in phase("routes (a)-(d)", phase_routes, card, pace).items():
+        launches[k] = launches.get(k, 0) + n
+    print("the rest of the lasso family, routes (g) to (j):")
+    for k, n in phase("routes (g)-(j)", phase_lasso_rest, card,
+                      pace).items():
         launches[k] = launches.get(k, 0) + n
     print("TV route, BatchedAlgorithm -> match_tv_solver:")
-    for k, n in phase_tv_routes(card, pace).items():
+    for k, n in phase("routes (e), (f)", phase_tv_routes, card,
+                      pace).items():
         launches[k] = launches.get(k, 0) + n
     launches["read_reduce"] = floor_launches
     kernels = {
         "fista_step": ("lasso_step.cu", "proxtpu/kernels/lasso.py:156"),
         "fb_step": ("lasso_step.cu", "proxtpu/kernels/lasso.py:37"),
+        "fista_step_bf16": ("lasso_step.cu", "proxtpu/kernels/lasso.py:156"),
+        "fb_step_bf16": ("lasso_step.cu", "proxtpu/kernels/lasso.py:37"),
         "fista_k_steps": ("lasso_step.cu", "proxtpu/kernels/lasso.py:768"),
         "pg_step": ("box_qp_step.cu", "proxtpu/kernels/box_qp.py:31"),
         "pg_k_steps": ("box_qp_step.cu", "proxtpu/kernels/box_qp.py:174"),
@@ -1474,6 +1865,10 @@ def main():
     # the one PyTorch call that computes a kernel's function, where there
     # is one: read_reduce's plain version is that call
     library = {"read_reduce": times["read_reduce"][1]}
+    print(f"chip_smoke: {time.perf_counter() - started:.1f} s, the build "
+          f"included; by phase: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
+          + f"  [{card}]")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"proxtpu_torch/csrc/{source}", "replaces": replaces,

@@ -4,9 +4,12 @@
 // pass: a ring of row tiles of an operator in shared memory, filled by the
 // bulk copy and used for both products A x and A^T r, so that the operator
 // is read from device memory once (TileRing, which the three lasso kernels
-// share), or for A x alone (the box-QP kernel).
+// share), or for A x alone (the box-QP kernel).  The operator's entries are
+// float, or bfloat16 cast up to float as each is read (the one-step lasso
+// kernels' bf16-A instance).
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -84,19 +87,28 @@ cudaError_t prepare(Kernel kernel, size_t smem) {
 
 // ---- The tile pass -------------------------------------------------------
 //
-// A tile is `rows` full rows of a row-major operator (rows, N): one
-// contiguous run of rows * N * 4 bytes.  Where the run starts on 16 bytes
-// and N * 4 is a multiple of 16, one thread fills a stage of the ring with
-// one bulk copy (cp.async.bulk, no tensor map) that reports its bytes to the
-// stage's mbarrier; else every thread fills it with ordinary loads and
-// stores.  Both passes then read the tile from shared memory:
+// A tile is `rows` full rows of a row-major operator (rows, N) of entries of
+// type T (float or __nv_bfloat16): one contiguous run of rows * N *
+// sizeof(T) bytes.  Where the run starts on 16 bytes and N * sizeof(T) is a
+// multiple of 16, one thread fills a stage of the ring with one bulk copy
+// (cp.async.bulk, no tensor map) that reports its bytes to the stage's
+// mbarrier; else every thread fills it with ordinary loads and stores.  Both
+// passes then read the tile from shared memory, each entry cast to float as
+// it is read (exact for bf16, nothing for float):
 //   tile_rows_dot  out[m] = a_m . x -+ c[m]  a warp per row: a lane strides
 //                  the row by 32 in one fmaf chain, then the warp's tree
 //   tile_cols_fma  g[n] += sum_m r[m] A[m, n]  a thread per column, rows in
 //                  ascending order in one fmaf chain
 // The order of every sum is that of a warp per row and a column loop over
 // the whole operator, whatever the tile height: cutting into tiles changes
-// no bit.
+// no bit, and a bf16 operator gives the bits of the float operator of the
+// same values.
+
+// An operator entry as float: bf16 -> float is exact.
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
 
 __device__ __forceinline__ uint32_t shared_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -135,8 +147,8 @@ __device__ __forceinline__ void mbarrier_wait(uint64_t* bar, uint32_t parity) {
 // One thread: arm the stage's barrier with `bytes` and start the bulk copy
 // of `bytes` (a multiple of 16, source and destination on 16 bytes) into
 // the stage.
-__device__ __forceinline__ void fill_stage_bulk(float* stage,
-                                                const float* src,
+template <typename T>
+__device__ __forceinline__ void fill_stage_bulk(T* stage, const T* src,
                                                 uint32_t bytes,
                                                 uint64_t* bar) {
   const uint32_t bar_addr = shared_addr(bar);
@@ -151,15 +163,15 @@ __device__ __forceinline__ void fill_stage_bulk(float* stage,
       : "memory");
 }
 
-// Every thread: copy `count` floats into the stage with ordinary loads, four
-// in flight per thread; readable after the next block barrier.
-template <int THREADS>
-__device__ __forceinline__ void fill_stage_loads(float* stage,
-                                                 const float* __restrict__ src,
+// Every thread: copy `count` entries into the stage with ordinary loads,
+// four in flight per thread; readable after the next block barrier.
+template <int THREADS, typename T>
+__device__ __forceinline__ void fill_stage_loads(T* stage,
+                                                 const T* __restrict__ src,
                                                  int count) {
   int k = threadIdx.x;
   for (; k + 3 * THREADS < count; k += 4 * THREADS) {
-    float v[4];
+    T v[4];
 #pragma unroll
     for (int j = 0; j < 4; ++j) v[j] = __ldg(src + k + j * THREADS);
 #pragma unroll
@@ -178,8 +190,8 @@ __device__ __forceinline__ void fill_stage_loads(float* stage,
 // flight together.  The order of the sum does not depend on kUnroll.  `tile`
 // is in shared memory (or, read in place, in device memory); x in shared
 // memory.
-template <int THREADS, bool ADD = false>
-__device__ __forceinline__ void tile_rows_dot(const float* tile,
+template <int THREADS, bool ADD = false, typename T = float>
+__device__ __forceinline__ void tile_rows_dot(const T* tile,
                                               const float* __restrict__ c,
                                               const float* x, float* out,
                                               int rows, int N) {
@@ -187,13 +199,13 @@ __device__ __forceinline__ void tile_rows_dot(const float* tile,
   constexpr int kUnroll = 8;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   for (int m = warp; m < rows; m += kWarps) {
-    const float* row = tile + (size_t)m * N;
+    const T* row = tile + (size_t)m * N;
     float acc = 0.f;
     int n = lane;
     for (; n + 32 * (kUnroll - 1) < N; n += 32 * kUnroll) {
       float a[kUnroll];
 #pragma unroll
-      for (int j = 0; j < kUnroll; ++j) a[j] = row[n + 32 * j];
+      for (int j = 0; j < kUnroll; ++j) a[j] = to_float(row[n + 32 * j]);
 #pragma unroll
       for (int j = 0; j < kUnroll; ++j) acc = fmaf(a[j], x[n + 32 * j], acc);
     }
@@ -202,7 +214,7 @@ __device__ __forceinline__ void tile_rows_dot(const float* tile,
 #pragma unroll
       for (int j = 0; j < kUnroll - 1; ++j) {
         const bool in = n + 32 * j < N;
-        a[j] = in ? row[n + 32 * j] : 0.f;
+        a[j] = in ? to_float(row[n + 32 * j]) : 0.f;
         xv[j] = in ? x[n + 32 * j] : 0.f;
       }
 #pragma unroll
@@ -219,9 +231,9 @@ __device__ __forceinline__ void tile_rows_dot(const float* tile,
 // entry.  r is in shared memory: where it starts on 16 bytes, eight of its
 // entries are two loads.  The tail (fewer than kUnroll rows) is one more
 // batch under a predicate.
-__device__ __forceinline__ float tile_col_fma(const float* col,
-                                              const float* r, int rows, int N,
-                                              float acc) {
+template <typename T>
+__device__ __forceinline__ float tile_col_fma(const T* col, const float* r,
+                                              int rows, int N, float acc) {
   constexpr int kUnroll = 8;
   const bool vec = (reinterpret_cast<uintptr_t>(r) & 15) == 0;
   int m = 0;
@@ -246,7 +258,7 @@ __device__ __forceinline__ float tile_col_fma(const float* col,
 #pragma unroll
     for (int j = 0; j < kUnroll - 1; ++j) {
       const bool in = m + j < rows;
-      a[j] = in ? col[(size_t)(m + j) * N] : 0.f;
+      a[j] = in ? to_float(col[(size_t)(m + j) * N]) : 0.f;
       rv[j] = in ? r[m + j] : 0.f;
     }
 #pragma unroll
@@ -259,10 +271,10 @@ __device__ __forceinline__ float tile_col_fma(const float* col,
 // Pass 2 on a tile: g[n] (+)= sum over the tile's rows, ascending, of
 // r[m] * A[m, n], a thread per column; `first` starts the chain from 0.
 // Only the thread that owns column n touches g[n].
-template <int THREADS>
-__device__ __forceinline__ void tile_cols_fma(const float* tile,
-                                              const float* r, float* g,
-                                              int rows, int N, bool first) {
+template <int THREADS, typename T>
+__device__ __forceinline__ void tile_cols_fma(const T* tile, const float* r,
+                                              float* g, int rows, int N,
+                                              bool first) {
   for (int n = threadIdx.x; n < N; n += THREADS)
     g[n] = tile_col_fma(tile + n, r, rows, N, first ? 0.f : g[n]);
 }
@@ -277,7 +289,8 @@ __host__ __device__ inline size_t round_up(size_t v, size_t to) {
   return (v + to - 1) / to * to;
 }
 
-// One block's walk over its slab of `rows` full rows of N floats, in tiles
+// One block's walk over its slab of `rows` full rows of N entries of type T
+// (float, or bf16 in the one-step lasso kernels), in tiles
 // of R rows (the last may be short) through a ring of S stages, `sweeps`
 // times over.  Tile number q of sweeps * ntiles is tile q % ntiles of the
 // slab and goes through stage q % S; its barrier completes phase q / S.  A
@@ -299,22 +312,22 @@ __host__ __device__ inline size_t round_up(size_t v, size_t to) {
 // is refilled right after the barrier that ends its pass 1.  With ordinary loads a refill is read at least one
 // tile's barrier after its stores, which needs S >= 3 or a slab of one tile
 // (no refill at all).  Every thread of the block makes every call.
-template <int THREADS, int FILL>
+template <int THREADS, int FILL, typename T = float>
 struct TileRing {
-  float* stages;        // S stages of stage_floats floats, on 128 bytes
-  size_t stage_floats;
+  T* stages;            // S stages of stage_elems entries, on 128 bytes
+  size_t stage_elems;
   uint64_t* bars;       // S mbarriers (bulk copy only)
-  const float* slab;    // the slab's first row, in device memory
+  const T* slab;        // the slab's first row, in device memory
   int rows, N, R, S, ntiles, total;
   int fq, fj, fs;       // next tile to fill: number, tile of the slab, stage
   int q, cs;            // tiles consumed; the stage of tile q
   uint32_t parity;      // the phase tile q's barrier completes, mod 2
 
-  __device__ __forceinline__ TileRing(float* stages, size_t stage_floats,
-                                      uint64_t* bars, const float* slab,
+  __device__ __forceinline__ TileRing(T* stages, size_t stage_elems,
+                                      uint64_t* bars, const T* slab,
                                       int rows, int N, int R, int S,
                                       int sweeps)
-      : stages(stages), stage_floats(stage_floats), bars(bars), slab(slab),
+      : stages(stages), stage_elems(stage_elems), bars(bars), slab(slab),
         rows(rows), N(N), R(R), S(S), ntiles((rows + R - 1) / R),
         total(sweeps * ((rows + R - 1) / R)), fq(0), fj(0), fs(0), q(0),
         cs(0), parity(0) {}
@@ -330,13 +343,13 @@ struct TileRing {
   __device__ __forceinline__ void refill(int released) {
     if (FILL != kFillNone) {
       while (fq < total && fq < released + S) {
-        const float* src = slab + (size_t)fj * R * N;
+        const T* src = slab + (size_t)fj * R * N;
         const int count = min(R, rows - fj * R) * N;
-        float* stage = stages + fs * stage_floats;
+        T* stage = stages + fs * stage_elems;
         if (FILL == kFillBulk) {
           // by the last warp, which has no row of a short tile in pass 1
           if (threadIdx.x == THREADS - 32)
-            fill_stage_bulk(stage, src, (uint32_t)count * sizeof(float),
+            fill_stage_bulk(stage, src, (uint32_t)count * sizeof(T),
                             &bars[fs]);
         } else {
           fill_stage_loads<THREADS>(stage, src, count);
@@ -359,13 +372,14 @@ struct TileRing {
                                         const float* x, float* r, float* g) {
     for (int j = 0; j < ntiles; ++j) {
       const int tile_rows = min(R, rows - j * R);
-      const float* tile = wait_tile(j);
-      tile_rows_dot<THREADS>(tile, c + j * R, x, r + j * R, tile_rows, N);
+      const T* tile = wait_tile(j);
+      tile_rows_dot<THREADS, false, T>(tile, c + j * R, x, r + j * R,
+                                       tile_rows, N);
       // r of this tile complete; every thread is past pass 2 of the tile
       // before, whose stage is free
       __syncthreads();
       refill(q);
-      tile_cols_fma<THREADS>(tile, r + j * R, g, tile_rows, N, j == 0);
+      tile_cols_fma<THREADS, T>(tile, r + j * R, g, tile_rows, N, j == 0);
       next_tile();
     }
   }
@@ -374,9 +388,9 @@ struct TileRing {
                                              const float* x, float* out) {
     for (int j = 0; j < ntiles; ++j) {
       const int tile_rows = min(R, rows - j * R);
-      const float* tile = wait_tile(j);
-      tile_rows_dot<THREADS, true>(tile, c + j * R, x, out + j * R,
-                                   tile_rows, N);
+      const T* tile = wait_tile(j);
+      tile_rows_dot<THREADS, true, T>(tile, c + j * R, x, out + j * R,
+                                      tile_rows, N);
       __syncthreads();  // every thread is past this tile, whose stage is free
       next_tile();
       refill(q);
@@ -385,10 +399,10 @@ struct TileRing {
 
  private:
   // tile j of the slab: in its stage once its copy has landed, or in place
-  __device__ __forceinline__ const float* wait_tile(int j) {
+  __device__ __forceinline__ const T* wait_tile(int j) {
     if (FILL == kFillNone) return slab + (size_t)j * R * N;
     if (FILL == kFillBulk) mbarrier_wait(&bars[cs], parity);
-    return stages + cs * stage_floats;
+    return stages + cs * stage_elems;
   }
 
   __device__ __forceinline__ void next_tile() {

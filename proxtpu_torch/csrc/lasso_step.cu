@@ -9,7 +9,8 @@
 //   fb_step     <- _fb_step_kernel (lasso.py:37, via fused_fb_prox_grad)
 //   fista_k_steps <- _fb_k_steps_kernel (lasso.py:768, via fused_fista_k_steps)
 //
-// Per lane i (one CTA each), with A_i (M, N) row-major f32:
+// Per lane i (one CTA each), with A_i (M, N) row-major f32 (fb_step and
+// fista_step also take A in bfloat16, below):
 //   r = A x - b;  g = A^T r;  y = x - gamma g;  z = sign(y) max(|y| - thr, 0)
 //   [z = z / shrink]   (divide, not multiply by the reciprocal: bit-faithful
 //                       to ElasticNet.prox)
@@ -92,6 +93,16 @@
 // K = 8, C = 2, three stages of 16 rows: about 375 us a launch, 2.9 TB/s of
 // A, where one CTA per lane reading A twice took about 860 us.
 //
+// fb_step and fista_step have a second instance for A stored in bfloat16
+// (proxtpu_fb_step_bf16, proxtpu_fista_step_bf16): the Pallas kernels take
+// a narrower A and cast it up in VMEM (lasso.py:59, :184), for the bf16
+// warm stage of solve_lasso_batch_mixed.  Only the storage narrows: the
+// ring stages R rows of N * 2 bytes, each entry is cast to float as a pass
+// reads it (exact), and every sum keeps its order, so the bf16 instance
+// returns the bits of the float instance run on A16.float(); it reads half
+// the bytes of A.  The bulk copy needs N * 2 to be a multiple of 16 (N % 8
+// == 0, as at 400); other rows fill the ring by ordinary loads.
+//
 // Plain C interface for ctypes.  Every entry launches on the given stream,
 // does not synchronise, and returns cudaGetLastError().
 
@@ -142,20 +153,20 @@ __device__ __forceinline__ float prox_point(float xv, float g, float gamma,
 
 // Dynamic shared memory of fb_step and fista_step, in bytes from its start.
 // With a ring (S > 0): x (then z) and g of Np = N rounded up to 4 floats
-// each, r of M rounded up to 4, then on 128 bytes S stages of R rows (each
-// rounded up to 128 bytes) and S mbarriers.  With the lane read in place
-// (S = 0): x (then z) and r, N + M floats, the shared memory of a kernel
-// that keeps no tile at all.  kernels/lasso.py (step_shared_bytes) computes
-// the same total.
+// each, r of M rounded up to 4, then on 128 bytes S stages of R rows of A
+// (`elem` bytes an entry; each stage rounded up to 128 bytes) and S
+// mbarriers.  With the lane read in place (S = 0): x (then z) and r, N + M
+// floats, the shared memory of a kernel that keeps no tile at all.
+// kernels/lasso.py (step_shared_bytes) computes the same total.
 struct StepLayout {
   int Np;
   size_t r, stage0, stage_bytes, bars, total;
-  __host__ __device__ StepLayout(int M, int N, int R, int S) {
+  __host__ __device__ StepLayout(int M, int N, int R, int S, size_t elem) {
     Np = S ? (int)round_up(N, 4) : N;
     r = (S ? 2 : 1) * (size_t)Np * sizeof(float);
     const size_t fixed = r + (S ? round_up(M, 4) : M) * sizeof(float);
     stage0 = round_up(fixed, 128);
-    stage_bytes = round_up((size_t)R * N * sizeof(float), 128);
+    stage_bytes = round_up((size_t)R * N * elem, 128);
     bars = stage0 + S * stage_bytes;
     total = S ? bars + S * sizeof(uint64_t) : fixed;
   }
@@ -164,16 +175,17 @@ struct StepLayout {
 // One lane's FB step up to the prox: x into shared memory, one sweep of the
 // ring over the lane's M rows (or, FILL == kFillNone, both passes on the lane
 // in place), then z at every column n by the thread that owns it, handed to
-// finish(n, x_n, z).  The fills start before x is asked for.
-template <int THREADS, int FILL, typename Finish>
+// finish(n, x_n, z).  The fills start before x is asked for.  A's entries
+// are of type T (float or bf16).
+template <int THREADS, int FILL, typename T, typename Finish>
 __device__ __forceinline__ void step_prox(unsigned char* smem_raw,
-                                          const float* __restrict__ Ai,
+                                          const T* __restrict__ Ai,
                                           const float* __restrict__ bi,
                                           const float* xi, int M, int N,
                                           int R, int S, float gamma,
                                           float thr, const float* shrink,
                                           int i, Finish finish) {
-  const StepLayout lay(M, N, R, S);
+  const StepLayout lay(M, N, R, S, sizeof(T));
   float* xs = reinterpret_cast<float*>(smem_raw);
   float* r = reinterpret_cast<float*>(smem_raw + lay.r);
   const float si = shrink ? shrink[i] : 1.f;
@@ -184,7 +196,7 @@ __device__ __forceinline__ void step_prox(unsigned char* smem_raw,
   if (FILL == kFillNone) {
     for (int n = threadIdx.x; n < N; n += THREADS) xs[n] = xi[n];
     __syncthreads();
-    proxtpu::tile_rows_dot<THREADS>(Ai, bi, xs, r, M, N);
+    proxtpu::tile_rows_dot<THREADS, false, T>(Ai, bi, xs, r, M, N);
     __syncthreads();
     for (int n = threadIdx.x; n < N; n += THREADS) {
       const float xv = xs[n];
@@ -192,9 +204,9 @@ __device__ __forceinline__ void step_prox(unsigned char* smem_raw,
     }
   } else {
     float* g = xs + lay.Np;
-    TileRing<THREADS, FILL> ring(
-        reinterpret_cast<float*>(smem_raw + lay.stage0),
-        lay.stage_bytes / sizeof(float),
+    TileRing<THREADS, FILL, T> ring(
+        reinterpret_cast<T*>(smem_raw + lay.stage0),
+        lay.stage_bytes / sizeof(T),
         reinterpret_cast<uint64_t*>(smem_raw + lay.bars), Ai, M, N, R, S, 1);
     ring.init_barriers();
     __syncthreads();
@@ -209,9 +221,9 @@ __device__ __forceinline__ void step_prox(unsigned char* smem_raw,
   }
 }
 
-template <int THREADS, int FILL>
+template <int THREADS, int FILL, typename T>
 __global__ void __launch_bounds__(THREADS, step_blocks(THREADS))
-fista_step_kernel(const float* __restrict__ A, const float* __restrict__ b,
+fista_step_kernel(const T* __restrict__ A, const float* __restrict__ b,
                   float* x, float* zp, const float* __restrict__ beta,
                   const float* __restrict__ gamma,
                   const float* __restrict__ thr,
@@ -234,9 +246,10 @@ fista_step_kernel(const float* __restrict__ A, const float* __restrict__ b,
   float* zpi = zp + (size_t)i * N;
   const float beta_i = beta[i];  // asked for before the sweep, used after
   float* zs = reinterpret_cast<float*>(smem_raw);  // z takes x's place
-  step_prox<THREADS, FILL>(smem_raw, A + (size_t)i * M * N, b + (size_t)i * M,
-                           xi, M, N, R, S, gamma[i], thr[i], shrink, i,
-                           [&](int n, float, float z) { zs[n] = z; });
+  step_prox<THREADS, FILL, T>(smem_raw, A + (size_t)i * M * N,
+                              b + (size_t)i * M, xi, M, N, R, S, gamma[i],
+                              thr[i], shrink, i,
+                              [&](int n, float, float z) { zs[n] = z; });
   __syncthreads();  // z complete
 
   // res and rs as a block of kOrderThreads threads sums them: thread t
@@ -264,9 +277,9 @@ fista_step_kernel(const float* __restrict__ A, const float* __restrict__ b,
   }
 }
 
-template <int THREADS, int FILL>
+template <int THREADS, int FILL, typename T>
 __global__ void __launch_bounds__(THREADS, step_blocks(THREADS))
-fb_step_kernel(const float* __restrict__ A, const float* __restrict__ b,
+fb_step_kernel(const T* __restrict__ A, const float* __restrict__ b,
                const float* __restrict__ x, const float* __restrict__ gamma,
                const float* __restrict__ thr,
                const float* __restrict__ shrink, float* __restrict__ z_out,
@@ -277,12 +290,13 @@ fb_step_kernel(const float* __restrict__ A, const float* __restrict__ b,
   const int i = blockIdx.x;
   float* zi = z_out + (size_t)i * N;
   float mx = 0.f, unused = 0.f;
-  step_prox<THREADS, FILL>(smem_raw, A + (size_t)i * M * N, b + (size_t)i * M,
-                           x + (size_t)i * N, M, N, R, S, gamma[i], thr[i],
-                           shrink, i, [&](int n, float xv, float z) {
-                             mx = nanmax(mx, fabsf(xv - z));
-                             zi[n] = z;
-                           });
+  step_prox<THREADS, FILL, T>(smem_raw, A + (size_t)i * M * N,
+                              b + (size_t)i * M, x + (size_t)i * N, M, N, R,
+                              S, gamma[i], thr[i], shrink, i,
+                              [&](int n, float xv, float z) {
+                                mx = nanmax(mx, fabsf(xv - z));
+                                zi[n] = z;
+                              });
   block_reduce<THREADS>(mx, unused, scratch);
   if (threadIdx.x == 0) res[i] = mx;
 }
@@ -426,15 +440,18 @@ fista_k_steps_kernel(const float* __restrict__ A, const float* __restrict__ b,
   if (C > 1) cluster.sync();
 }
 
-// The variants of the one-step kernels: blocks of 256, 512 and 1024 threads
-// with a ring (bulk copy or ordinary loads), 256 threads on a lane in place.
-using FistaStep = void (*)(const float*, const float*, float*, float*,
+// The variants of the one-step kernels, per type of A: blocks of 256, 512
+// and 1024 threads with a ring (bulk copy or ordinary loads), 256 threads on
+// a lane in place.
+template <typename T>
+using FistaStep = void (*)(const T*, const float*, float*, float*,
                            const float*, const float*, const float*,
                            const float*, const float*, float*, float*, int,
                            int, int, int, int);
-using FbStep = void (*)(const float*, const float*, const float*,
-                        const float*, const float*, const float*, float*,
-                        float*, int, int, int, int);
+template <typename T>
+using FbStep = void (*)(const T*, const float*, const float*, const float*,
+                        const float*, const float*, float*, float*, int, int,
+                        int, int);
 
 template <typename Kernel>
 struct Variant {
@@ -446,73 +463,118 @@ int threads_index(int threads) {
   return threads == 256 ? 0 : threads == 512 ? 1 : threads == 1024 ? 2 : -1;
 }
 
-Variant<FistaStep>* fista_step_variant(int threads, int fill) {
-  static Variant<FistaStep> table[3][3] = {
-      {{fista_step_kernel<256, kFillBulk>},
-       {fista_step_kernel<256, kFillLoads>},
-       {fista_step_kernel<256, kFillNone>}},
-      {{fista_step_kernel<512, kFillBulk>},
-       {fista_step_kernel<512, kFillLoads>},
+template <typename T>
+Variant<FistaStep<T>>* fista_step_variant(int threads, int fill) {
+  static Variant<FistaStep<T>> table[3][3] = {
+      {{fista_step_kernel<256, kFillBulk, T>},
+       {fista_step_kernel<256, kFillLoads, T>},
+       {fista_step_kernel<256, kFillNone, T>}},
+      {{fista_step_kernel<512, kFillBulk, T>},
+       {fista_step_kernel<512, kFillLoads, T>},
        {nullptr}},
-      {{fista_step_kernel<1024, kFillBulk>},
-       {fista_step_kernel<1024, kFillLoads>},
+      {{fista_step_kernel<1024, kFillBulk, T>},
+       {fista_step_kernel<1024, kFillLoads, T>},
        {nullptr}}};
   return &table[threads_index(threads)][fill];
 }
 
-Variant<FbStep>* fb_step_variant(int threads, int fill) {
-  static Variant<FbStep> table[3][3] = {
-      {{fb_step_kernel<256, kFillBulk>},
-       {fb_step_kernel<256, kFillLoads>},
-       {fb_step_kernel<256, kFillNone>}},
-      {{fb_step_kernel<512, kFillBulk>},
-       {fb_step_kernel<512, kFillLoads>},
+template <typename T>
+Variant<FbStep<T>>* fb_step_variant(int threads, int fill) {
+  static Variant<FbStep<T>> table[3][3] = {
+      {{fb_step_kernel<256, kFillBulk, T>},
+       {fb_step_kernel<256, kFillLoads, T>},
+       {fb_step_kernel<256, kFillNone, T>}},
+      {{fb_step_kernel<512, kFillBulk, T>},
+       {fb_step_kernel<512, kFillLoads, T>},
        {nullptr}},
-      {{fb_step_kernel<1024, kFillBulk>},
-       {fb_step_kernel<1024, kFillLoads>},
+      {{fb_step_kernel<1024, kFillBulk, T>},
+       {fb_step_kernel<1024, kFillLoads, T>},
        {nullptr}}};
   return &table[threads_index(threads)][fill];
 }
 
 // The plan of kernels/lasso.py (step_plan), checked against the kernel's own
-// layout: `threads` per block, tiles of R rows through S stages (S = 0: the
-// lane in place, 256 threads; S = 1 only where the lane is one tile, so that
-// nothing is refilled), `smem_bytes` of dynamic shared memory.  A bulk copy
-// moves less than 1 MB, its barrier's limit.  Returns the way the tiles are
-// filled, or -1 for a plan the kernels do not take.
-int step_fill(const float* A, int M, int N, int threads, int R, int S,
-              int smem_bytes) {
+// layout for A of `elem` bytes an entry: `threads` per block, tiles of R
+// rows through S stages (S = 0: the lane in place, 256 threads; S = 1 only
+// where the lane is one tile, so that nothing is refilled), `smem_bytes` of
+// dynamic shared memory.  A bulk copy moves less than 1 MB, its barrier's
+// limit, and needs rows and the lane's start on 16 bytes.  Returns the way
+// the tiles are filled, or -1 for a plan the kernels do not take.
+int step_fill(const void* A, int M, int N, int threads, int R, int S,
+              int smem_bytes, size_t elem) {
   const bool ok = threads_index(threads) >= 0 && R >= 1 &&
                   (S >= 3 || (S == 1 && R >= M) ||
                    (S == 0 && threads == kOrderThreads)) &&
-                  (S == 0 || (size_t)R * N * sizeof(float) < (1u << 20));
-  if (!ok || StepLayout(M, N, R, S).total != (size_t)smem_bytes) return -1;
+                  (S == 0 || (size_t)R * N * elem < (1u << 20));
+  if (!ok || StepLayout(M, N, R, S, elem).total != (size_t)smem_bytes)
+    return -1;
   const bool aligned =
-      N % 4 == 0 && reinterpret_cast<uintptr_t>(A) % 16 == 0;
+      (size_t)N * elem % 16 == 0 && reinterpret_cast<uintptr_t>(A) % 16 == 0;
   return S == 0 ? kFillNone : aligned ? kFillBulk : kFillLoads;
 }
 
-}  // namespace
-
-extern "C" {
-
 // fista_step and fb_step launch the plan they are given (see step_fill) or
 // return cudaErrorInvalidValue; they never launch another.
-int proxtpu_fista_step(const float* A, const float* b, float* x, float* zp,
-                       const float* beta, const float* gamma,
-                       const float* thr, const float* done,
-                       const float* shrink, float* res, float* rs, int B,
-                       int M, int N, int restart, int threads, int R, int S,
-                       int smem_bytes, void* stream) {
-  const int fill = step_fill(A, M, N, threads, R, S, smem_bytes);
+template <typename T>
+int launch_fista_step(const T* A, const float* b, float* x, float* zp,
+                      const float* beta, const float* gamma, const float* thr,
+                      const float* done, const float* shrink, float* res,
+                      float* rs, int B, int M, int N, int restart,
+                      int threads, int R, int S, int smem_bytes,
+                      void* stream) {
+  const int fill = step_fill(A, M, N, threads, R, S, smem_bytes, sizeof(T));
   if (fill < 0) return (int)cudaErrorInvalidValue;
-  Variant<FistaStep>* v = fista_step_variant(threads, fill);
+  Variant<FistaStep<T>>* v = fista_step_variant<T>(threads, fill);
   cudaError_t err = prepare_once(v->prepared, v->kernel, smem_bytes);
   if (err != cudaSuccess) return (int)err;
   v->kernel<<<B, threads, smem_bytes, (cudaStream_t)stream>>>(
       A, b, x, zp, beta, gamma, thr, done, shrink, res, rs, M, N, R, S,
       restart);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_fb_step(const T* A, const float* b, const float* x,
+                   const float* gamma, const float* thr, const float* shrink,
+                   float* z, float* res, int B, int M, int N, int threads,
+                   int R, int S, int smem_bytes, void* stream) {
+  const int fill = step_fill(A, M, N, threads, R, S, smem_bytes, sizeof(T));
+  if (fill < 0) return (int)cudaErrorInvalidValue;
+  Variant<FbStep<T>>* v = fb_step_variant<T>(threads, fill);
+  cudaError_t err = prepare_once(v->prepared, v->kernel, smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  v->kernel<<<B, threads, smem_bytes, (cudaStream_t)stream>>>(
+      A, b, x, gamma, thr, shrink, z, res, M, N, R, S);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// fista_step and fb_step, A in float32 or in bfloat16, launch the plan they
+// are given (see step_fill) or return cudaErrorInvalidValue; they never
+// launch another.
+int proxtpu_fista_step(const float* A, const float* b, float* x, float* zp,
+                       const float* beta, const float* gamma,
+                       const float* thr, const float* done,
+                       const float* shrink, float* res, float* rs, int B,
+                       int M, int N, int restart, int threads, int R, int S,
+                       int smem_bytes, void* stream) {
+  return launch_fista_step(A, b, x, zp, beta, gamma, thr, done, shrink, res,
+                           rs, B, M, N, restart, threads, R, S, smem_bytes,
+                           stream);
+}
+
+int proxtpu_fista_step_bf16(const __nv_bfloat16* A, const float* b, float* x,
+                            float* zp, const float* beta, const float* gamma,
+                            const float* thr, const float* done,
+                            const float* shrink, float* res, float* rs,
+                            int B, int M, int N, int restart, int threads,
+                            int R, int S, int smem_bytes, void* stream) {
+  return launch_fista_step(A, b, x, zp, beta, gamma, thr, done, shrink, res,
+                           rs, B, M, N, restart, threads, R, S, smem_bytes,
+                           stream);
 }
 
 // C CTAs per lane as one cluster, tiles of R rows through S stages (S = 0:
@@ -578,21 +640,28 @@ int proxtpu_fb_step(const float* A, const float* b, const float* x,
                     const float* gamma, const float* thr, const float* shrink,
                     float* z, float* res, int B, int M, int N, int threads,
                     int R, int S, int smem_bytes, void* stream) {
-  const int fill = step_fill(A, M, N, threads, R, S, smem_bytes);
-  if (fill < 0) return (int)cudaErrorInvalidValue;
-  Variant<FbStep>* v = fb_step_variant(threads, fill);
-  cudaError_t err = prepare_once(v->prepared, v->kernel, smem_bytes);
-  if (err != cudaSuccess) return (int)err;
-  v->kernel<<<B, threads, smem_bytes, (cudaStream_t)stream>>>(
-      A, b, x, gamma, thr, shrink, z, res, M, N, R, S);
-  return (int)cudaGetLastError();
+  return launch_fb_step(A, b, x, gamma, thr, shrink, z, res, B, M, N,
+                        threads, R, S, smem_bytes, stream);
 }
 
-// Blocks of fista_step (`fista` != 0) or fb_step at this plan that one SM
-// holds at a time, for a lane that takes the bulk copy.
-int proxtpu_step_blocks_per_sm(int fista, int M, int N, int threads, int R,
-                               int S, int smem_bytes, int* out) {
-  const int fill = step_fill(nullptr, M, N, threads, R, S, smem_bytes);
+int proxtpu_fb_step_bf16(const __nv_bfloat16* A, const float* b,
+                         const float* x, const float* gamma,
+                         const float* thr, const float* shrink, float* z,
+                         float* res, int B, int M, int N, int threads, int R,
+                         int S, int smem_bytes, void* stream) {
+  return launch_fb_step(A, b, x, gamma, thr, shrink, z, res, B, M, N,
+                        threads, R, S, smem_bytes, stream);
+}
+
+// Blocks of fista_step (`fista` != 0) or fb_step at this plan, A of
+// `elem_bytes` (4: float32, 2: bfloat16) an entry, that one SM holds at a
+// time, for a lane that takes the bulk copy.
+int proxtpu_step_blocks_per_sm(int fista, int elem_bytes, int M, int N,
+                               int threads, int R, int S, int smem_bytes,
+                               int* out) {
+  if (elem_bytes != 4 && elem_bytes != 2) return (int)cudaErrorInvalidValue;
+  const int fill =
+      step_fill(nullptr, M, N, threads, R, S, smem_bytes, elem_bytes);
   if (fill < 0) return (int)cudaErrorInvalidValue;
   auto held = [&](auto* v) {
     cudaError_t err = prepare_once(v->prepared, v->kernel, smem_bytes);
@@ -600,8 +669,11 @@ int proxtpu_step_blocks_per_sm(int fista, int M, int N, int threads, int R,
     return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         out, v->kernel, threads, smem_bytes);
   };
-  return (int)(fista ? held(fista_step_variant(threads, fill))
-                     : held(fb_step_variant(threads, fill)));
+  if (elem_bytes == 2)
+    return (int)(fista ? held(fista_step_variant<__nv_bfloat16>(threads, fill))
+                       : held(fb_step_variant<__nv_bfloat16>(threads, fill)));
+  return (int)(fista ? held(fista_step_variant<float>(threads, fill))
+                     : held(fb_step_variant<float>(threads, fill)));
 }
 
 // Largest dynamic shared memory a block of this device may opt in to.

@@ -28,8 +28,11 @@ from .lasso import (
     reference_fista_k_steps,
     solve_lasso_batch,
     solve_lasso_batch_blocked,
+    solve_lasso_batch_compacting,
+    solve_lasso_batch_mixed,
     solve_lasso_batch_packed,
     solve_lasso_batch_packed_tail,
+    solve_lasso_multirhs,
 )
 
 __all__ = [
@@ -39,7 +42,9 @@ __all__ = [
     "fused_fista_full_step", "fused_fista_k_steps", "reference_fb_prox_grad",
     "reference_fista_full_step", "reference_fista_k_steps",
     "solve_lasso_batch", "solve_lasso_batch_blocked",
+    "solve_lasso_batch_compacting", "solve_lasso_batch_mixed",
     "solve_lasso_batch_packed", "solve_lasso_batch_packed_tail",
+    "solve_lasso_multirhs",
     "read_reduce", "reference_read_reduce", "default_tv_stepsizes",
     "fused_cp_k_steps", "mxu_cp_step", "reference_cp_k_steps",
     "reference_cp_step", "solve_tv_batch",

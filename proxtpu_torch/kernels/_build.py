@@ -32,13 +32,17 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _SIGNATURES = {
     # A, b, x, z_prev, beta, gamma, thr, done, shrink, res, rs, B, M, N,
-    # restart, threads, R (rows per tile), S (stages), shared bytes, stream
+    # restart, threads, R (rows per tile), S (stages), shared bytes, stream;
+    # A float32, or bfloat16 for the _bf16 entry
     "proxtpu_fista_step": [_P] * 11 + [_I] * 8 + [_P],
+    "proxtpu_fista_step_bf16": [_P] * 11 + [_I] * 8 + [_P],
     # A, b, x, gamma, thr, shrink, z, res, B, M, N, threads, R, S, shared
     # bytes, stream
     "proxtpu_fb_step": [_P] * 8 + [_I] * 7 + [_P],
-    # fista (else fb), M, N, threads, R, S, shared bytes, out
-    "proxtpu_step_blocks_per_sm": [_I] * 7 + [ctypes.POINTER(_I)],
+    "proxtpu_fb_step_bf16": [_P] * 8 + [_I] * 7 + [_P],
+    # fista (else fb), bytes of an entry of A, M, N, threads, R, S, shared
+    # bytes, out
+    "proxtpu_step_blocks_per_sm": [_I] * 8 + [ctypes.POINTER(_I)],
     # A, b, x, z_prev, t, gamma, thr, done, res, B, M, N, K, restart,
     # C (blocks per lane), R (rows per tile), S (stages), shared bytes,
     # stream

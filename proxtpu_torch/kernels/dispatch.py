@@ -22,8 +22,9 @@ plain version (CPU).  The reference's rules are kept, with two changes:
   matmul beat its kernel on a v5e (``dispatch.py:668-676``, ``:767-771``),
   a measurement of that chip, not a semantic rule.
 * The shared-A leg (one A, many right-hand sides: ``solve_lasso_multirhs``)
-  is not ported; such a problem returns ``None`` and the generic driver
-  solves it.
+  runs one step per convergence test (K = 1) on every device; the
+  reference blocks K steps on a TPU only (``dispatch.py:627``), a choice of
+  that chip's trip cost.
 """
 
 from __future__ import annotations
@@ -180,6 +181,42 @@ def match_tv_solver(factory, kwargs, *, tol, maxit, stop=None, solution=None,
         gamma2=gamma2, use_kernel=use_kernel, return_dual=True)
 
 
+def _match_multirhs(A, b, f, g_l1, g_lam2, kwargs, x0, x0_pass, mf,
+                    restart, tol, maxit):
+    """The shared-A leg of :func:`match_kernel_solver`: A (M, N) shared by
+    the B lanes of b (B, M) -> :func:`~.lasso.solve_lasso_multirhs` at
+    K = 1, or ``None``.  It needs a scalar step (``Lf`` or ``gamma``), a
+    scalar or (B,) l1 weight (and ridge), x0 (B, N) and no ``mf``; float64
+    takes it too, since no hand-written kernel runs."""
+    B = b.shape[0]
+    if not bool((torch.as_tensor(getattr(f, "lam", 1.0)) == 1.0).all()):
+        return None
+    lam = _scalar_or_vec(g_l1, B, A.dtype, A.device)
+    lam2 = (None if g_lam2 is None
+            else _scalar_or_vec(g_lam2, B, A.dtype, A.device))
+    if g_lam2 is not None and lam2 is None:
+        return None
+    Lf, gamma = kwargs.get("Lf"), kwargs.get("gamma")
+    if gamma is not None:
+        gamma = torch.as_tensor(gamma)
+        Lfs = 1.0 / gamma if gamma.dim() == 0 else None
+    elif Lf is not None:
+        Lf = torch.as_tensor(Lf)
+        Lfs = Lf if Lf.dim() == 0 else None
+    else:
+        Lfs = None
+    if lam is None or Lfs is None:
+        return None
+    if tuple(x0.shape) != (B, A.shape[1]) or mf is not None:
+        return None
+
+    from . import lasso
+
+    return lambda: lasso.solve_lasso_multirhs(
+        A, b, lam, Lfs, tol, maxit=maxit, iter_block=1, restart=restart,
+        x0=x0_pass, lam2=lam2)
+
+
 def match_kernel_solver(factory, kwargs, *, tol, maxit, stop=None,
                         solution=None, iter_block=8):
     """``run() -> (xs, iters, done)`` for a kernel-route problem, or
@@ -192,6 +229,9 @@ def match_kernel_solver(factory, kwargs, *, tol, maxit, stop=None,
       ``NormL1`` or ``ElasticNet`` + a fixed step (``Lf`` or ``gamma``) +
       x0 + the default sequence or adaptive restart around it, optionally
       a scalar ``mf > 0``  ->  the lasso solvers;
+    * the same with one A (M, N) for every lane (b (B, M), or b (M,) of a
+      ``Shared`` f broadcast to x0's lanes), a scalar step and no ``mf``
+      ->  :func:`~.lasso.solve_lasso_multirhs` at K = 1;
     * ``make_forward_backward_iteration`` + ``Quadratic`` (stacked Q, q) +
       ``IndBox`` (finite scalar bounds) + a fixed step  ->  the box-QP
       solvers.
@@ -247,8 +287,15 @@ def match_kernel_solver(factory, kwargs, *, tol, maxit, stop=None,
         if g_lam2 is not None and mf is not None:
             return None
         A, b = torch.as_tensor(f.A), torch.as_tensor(f.b)
-        # a 2-D A shared by every lane is the multi-right-hand-side leg,
-        # not ported: the generic driver solves it
+        if A.dim() == 2 and b.dim() == 1:
+            # a Shared f (the regularisation path): one (A, b) for every
+            # lane, lam per lane; b is broadcast to x0's lanes
+            if x0.dim() == 0:
+                return None
+            b = b.expand(x0.shape[0], b.shape[0])
+        if A.dim() == 2 and b.dim() == 2:
+            return _match_multirhs(A, b, f, g_l1, g_lam2, kwargs, x0, x0_pass,
+                                   mf, restart, tol, maxit)
         if A.dim() != 3 or b.dim() != 2 or A.shape[0] != b.shape[0]:
             return None
         B = A.shape[0]

@@ -19,6 +19,15 @@ block of K.  All three kernels stream a lane's A once per step through a
 ring of row tiles in shared memory; ``fista_k_steps`` serves a lane by a
 cluster of thread blocks where the batch leaves SMs idle.  The launch plans
 are chosen here on the host (:func:`step_plan`, :func:`k_steps_plan`).
+``fb_step`` and ``fista_step`` also take A stored in bfloat16 (the warm
+stage of :func:`solve_lasso_batch_mixed`): they compute in float32 on each
+entry cast up, and return the bits of the float32 kernel on ``A.float()``.
+
+Beside them: the over-relaxed solvers (``step_mult``), the compacting
+driver (:func:`solve_lasso_batch_compacting`), the shared-A solver
+(:func:`solve_lasso_multirhs`, two ``torch.matmul`` a step in full float32,
+no hand-written kernel, as the reference leaves it to XLA) and the
+two-stage mixed-precision solver (:func:`solve_lasso_batch_mixed`).
 
 The TPU's lane-packed layout (``pack_lasso_batch``) is not ported: it only
 strips the 128-lane padding of the TPU's tiles, and a row on the card has
@@ -56,8 +65,12 @@ def reference_fb_prox_grad(A, b, x, gamma, thr, shrink=None):
     Args: A (B, M, N), b (B, M), x (B, N); gamma, thr (B,) per-lane step and
     soft-threshold level; ``shrink`` (B,) optional elastic-net prox
     denominator ``1 + gamma*lam2`` (divided, bit-matching
-    ``ElasticNet.prox``).  Returns ``(z (B, N), res_inf (B,))``."""
+    ``ElasticNet.prox``).  An A stored in bfloat16 is cast up to x's dtype
+    first, as the kernel casts each entry.  Returns ``(z (B, N), res_inf
+    (B,))``."""
     require_full_f32_matmul()
+    if A.dtype == torch.bfloat16:
+        A = A.to(x.dtype)
     r = torch.bmm(A, x.unsqueeze(2)).squeeze(2) - b
     grad = torch.bmm(r.unsqueeze(1), A).squeeze(1)
     y = x - gamma[:, None] * grad
@@ -89,11 +102,12 @@ def reference_fista_full_step(A, b, x, z_prev, beta, gamma, thr, done_mask,
             torch.where(frozen, zero, rs))
 
 
-def _check_operands(A, b, vectors, scalars, smem_bytes):
-    """Raise unless the kernels take these operands: float32, contiguous,
-    on A's CUDA device, A (B, M, N), b (B, M), ``vectors`` (B, N),
-    ``scalars`` (B,) (both as ``(name, tensor)`` pairs), and a block's
-    shared memory holds ``smem_bytes``."""
+def _check_operands(A, b, vectors, scalars, smem_bytes, a_dtypes=(
+        torch.float32,)):
+    """Raise unless the kernels take these operands: float32 (A of one of
+    ``a_dtypes``), contiguous, on A's CUDA device, A (B, M, N), b (B, M),
+    ``vectors`` (B, N), ``scalars`` (B,) (both as ``(name, tensor)``
+    pairs), and a block's shared memory holds ``smem_bytes``."""
     if A.dim() != 3:
         raise ValueError(f"A must be (B, M, N), got shape {tuple(A.shape)}")
     B, M, N = A.shape
@@ -104,8 +118,10 @@ def _check_operands(A, b, vectors, scalars, smem_bytes):
         if not t.is_cuda or t.device != A.device:
             raise ValueError(f"{name} is on {t.device}; the kernel needs "
                              f"every operand on one CUDA device ({A.device})")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} is {t.dtype}; the kernel takes float32")
+        dtypes = a_dtypes if name == "A" else (torch.float32,)
+        if t.dtype not in dtypes:
+            raise TypeError(f"{name} is {t.dtype}; the kernel takes "
+                            + " or ".join(map(str, dtypes)))
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, "
                              f"expected {shape}")
@@ -114,15 +130,21 @@ def _check_operands(A, b, vectors, scalars, smem_bytes):
     _build.check_shared_bytes(smem_bytes, A.device)
 
 
+# A's types the one-step kernels take: float32, or bfloat16 storage
+STEP_A_DTYPES = (torch.float32, torch.bfloat16)
+
+
 def _operands_ok(A, b, vectors, scalars):
-    """Whether :func:`_check_operands` would pass these tensors: the same
-    tests with no name, list or message built, for the wrappers that run
-    once per iteration.  Where it says no, ``_check_operands`` raises."""
+    """Whether :func:`_check_operands` would pass these tensors (A of
+    ``STEP_A_DTYPES``): the same tests with no name, list or message built,
+    for the wrappers that run once per iteration.  Where it says no,
+    ``_check_operands`` raises."""
     if A.dim() != 3 or not A.is_cuda:
         return False
     B, M, N = A.shape
     index, f32 = A.get_device(), torch.float32
-    if (A.dtype is not f32 or not A.is_contiguous() or b.shape != (B, M)
+    if (A.dtype not in STEP_A_DTYPES or not A.is_contiguous()
+            or b.shape != (B, M)
             or not b.is_cuda or b.get_device() != index
             or b.dtype is not f32 or not b.is_contiguous()):
         return False
@@ -163,37 +185,39 @@ def step_threads(N):
     return STEP_THREADS[1] if N <= STEP_THREADS[1] else STEP_THREADS[2]
 
 
-def step_shared_bytes(M, N, R, S):
-    """Dynamic shared memory of one block of ``fb_step`` or ``fista_step``.
-    With a ring (S > 0): x and the gradient of N (rounded up to 4) floats
-    each, the residual of M (rounded up to 4), then on 128 bytes S stages of
-    R rows (each rounded up to 128 bytes) and S 8-byte barriers.  With the
-    lane read in place (S = 0): x and the residual, N + M floats.  The same
-    sum as ``StepLayout`` in csrc/lasso_step.cu, which refuses a launch whose
+def step_shared_bytes(M, N, R, S, elem=4):
+    """Dynamic shared memory of one block of ``fb_step`` or ``fista_step``
+    for A of ``elem`` bytes an entry (4: float32, 2: bfloat16).  With a ring
+    (S > 0): x and the gradient of N (rounded up to 4) floats each, the
+    residual of M (rounded up to 4), then on 128 bytes S stages of R rows
+    (each rounded up to 128 bytes) and S 8-byte barriers.  With the lane
+    read in place (S = 0): x and the residual, N + M floats.  The same sum
+    as ``StepLayout`` in csrc/lasso_step.cu, which refuses a launch whose
     total differs."""
     if S == 0:
         return (N + M) * 4
     fixed = (2 * _round_up(N, 4) + _round_up(M, 4)) * 4
-    return _round_up(fixed, 128) + S * (_round_up(R * N * 4, 128) + 8)
+    return _round_up(fixed, 128) + S * (_round_up(R * N * elem, 128) + 8)
 
 
-def _ring_rows(M, N, warps, budget):
+def _ring_rows(M, N, warps, budget, elem=4):
     """Most rows per tile of a ring of ``_STAGES`` stages of at most
-    ``_STAGE_BYTES`` within ``budget`` bytes (0 where not one row fits): a
-    multiple of the block's ``warps`` where one fits (pass 1 gives a warp a
-    row, so a tile takes whole rounds)."""
+    ``_STAGE_BYTES`` within ``budget`` bytes (0 where not one row of
+    ``elem``-byte entries fits): a multiple of the block's ``warps`` where
+    one fits (pass 1 gives a warp a row, so a tile takes whole rounds)."""
     room = budget - step_shared_bytes(M, N, 0, _STAGES)
     stage = min(_STAGE_BYTES, room // _STAGES // 128 * 128)
-    R = max(0, min(M, stage // (N * 4)))
+    R = max(0, min(M, stage // (N * elem)))
     if warps < R < M:
         R -= R % warps
     return R
 
 
-def step_plan(B, M, N, sms, limit):
+def step_plan(B, M, N, sms, limit, elem=4):
     """``(threads, R, S, shared bytes)``, the launch plan of ``fb_step`` and
-    ``fista_step`` for a batch of B lanes of (M, N) on a device of ``sms``
-    SMs and ``limit`` bytes of shared memory per block.
+    ``fista_step`` for a batch of B lanes of (M, N), A of ``elem`` bytes an
+    entry (4: float32, 2: bfloat16), on a device of ``sms`` SMs and
+    ``limit`` bytes of shared memory per block.
 
     A lane that fits a quarter of an SM's shared memory takes one stage
     that holds it (``S == 1``, ``R == M``, no refill) and 256 threads, so
@@ -206,19 +230,21 @@ def step_plan(B, M, N, sms, limit):
     ``_MIN_SHARED_ROWS`` rows or more; a smaller batch gives a block the
     whole SM.  Where not even three one-row stages fit a whole SM, 256
     threads read the lane in place (``S == 0``), which takes rows as wide as
-    ``(N + M) * 4 <= limit`` allows."""
+    ``(N + M) * 4 <= limit`` allows.  Rows of bfloat16 are half as wide, so
+    a shape may take another branch at ``elem = 2``."""
     per_sm = limit + 1024
-    one = step_shared_bytes(M, N, M, 1)
+    one = step_shared_bytes(M, N, M, 1, elem)
     if one <= per_sm // 4 - _BLOCK_OVERHEAD:
         return STEP_THREADS[0], M, 1, one
     threads = step_threads(N)
     budgets = [per_sm // k - _BLOCK_OVERHEAD
                for k in ((2, 1) if B > sms else (1,))]
     for budget in budgets:
-        R = _ring_rows(M, N, threads // 32, budget)
+        R = _ring_rows(M, N, threads // 32, budget, elem)
         if R >= min(M, _MIN_SHARED_ROWS) or (R and budget == budgets[-1]):
             R = -(-M // -(-M // R))  # the M rows spread evenly over the tiles
-            return threads, R, _STAGES, step_shared_bytes(M, N, R, _STAGES)
+            return (threads, R, _STAGES,
+                    step_shared_bytes(M, N, R, _STAGES, elem))
     return STEP_THREADS[0], M, 0, step_shared_bytes(M, N, M, 0)
 
 
@@ -231,8 +257,12 @@ _entries = {}
 
 def _launch_step(name, A, args, flags):
     """Launch the one-step kernel ``name`` at A's cached plan on the current
-    stream of A's device; ``args`` are the tensors (None for an absent one)
-    and ``flags`` the integers between the shape and the plan."""
+    stream of A's device, its float32 or its bfloat16 instance by A's type;
+    ``args`` are the tensors (None for an absent one) and ``flags`` the
+    integers between the shape and the plan."""
+    elem = A.element_size()
+    if elem == 2:
+        name += "_bf16"
     entry = _entries.get(name)
     if entry is None:
         entry = _entries[name] = getattr(_build.library(), "proxtpu_" + name)
@@ -240,7 +270,7 @@ def _launch_step(name, A, args, flags):
     B, M, N = A.shape
     limit = _build.max_shared_bytes(index)
     threads, R, S, smem = cached_step_plan(B, M, N, _build.sm_count(index),
-                                           limit)
+                                           limit, elem)
     if smem > limit:
         _build.check_shared_bytes(smem, A.device)
     ptrs = [None if t is None else t.data_ptr() for t in args]
@@ -259,28 +289,37 @@ def _launch_step(name, A, args, flags):
 def fused_fb_prox_grad(A, b, x, gamma, thr, shrink=None):
     """One FB step for the batch (see :func:`reference_fb_prox_grad`),
     through the ``fb_step`` kernel for CUDA tensors, at the launch plan of
-    :func:`step_plan`.  Returns ``(z (B, N), res_inf (B,))``."""
+    :func:`step_plan`.  A may be float32 or bfloat16 (the kernel's bf16
+    instance, counted in ``launches_bf16``; the float32 one in
+    ``launches``).  Returns ``(z (B, N), res_inf (B,))``."""
     if A.device.type == "cpu":
         return reference_fb_prox_grad(A, b, x, gamma, thr, shrink)
     scalars = (gamma, thr) if shrink is None else (gamma, thr, shrink)
     if not _operands_ok(A, b, (x,), scalars):
         _check_operands(A, b, [("x", x)],
-                        zip(("gamma", "thr", "shrink"), scalars), 0)
+                        zip(("gamma", "thr", "shrink"), scalars), 0,
+                        STEP_A_DTYPES)
     z = torch.empty_like(x)
     res = x.new_empty(A.shape[0])
     _launch_step("fb_step", A, (A, b, x, gamma, thr, shrink, z, res), ())
-    fused_fb_prox_grad.launches += 1
+    if A.dtype is torch.bfloat16:
+        fused_fb_prox_grad.launches_bf16 += 1
+    else:
+        fused_fb_prox_grad.launches += 1
     return z, res
 
 
 fused_fb_prox_grad.launches = 0
+fused_fb_prox_grad.launches_bf16 = 0
 
 
 def fused_fista_full_step(A, b, x, z_prev, beta, gamma, thr, done_mask,
                           shrink=None, restart=False):
     """One full FISTA iteration for the batch (see
     :func:`reference_fista_full_step`), through the ``fista_step`` kernel
-    for CUDA tensors, at the launch plan of :func:`step_plan`.
+    for CUDA tensors, at the launch plan of :func:`step_plan`.  A may be
+    float32 or bfloat16, as for :func:`fused_fb_prox_grad` (launches of the
+    bf16 instance are counted in ``launches_bf16``).
 
     ``x`` and ``z_prev`` are updated IN PLACE to ``(x_new, z)`` and returned
     (the JAX kernel aliases them to its outputs); they must be separate
@@ -301,17 +340,22 @@ def fused_fista_full_step(A, b, x, z_prev, beta, gamma, thr, done_mask,
     if not _operands_ok(A, b, (x, z_prev), scalars):
         _check_operands(
             A, b, [("x", x), ("z_prev", z_prev)],
-            zip(("beta", "gamma", "thr", "done_mask", "shrink"), scalars), 0)
+            zip(("beta", "gamma", "thr", "done_mask", "shrink"), scalars), 0,
+            STEP_A_DTYPES)
     res = x.new_empty(A.shape[0])
     rs = torch.empty_like(res)
     _launch_step("fista_step", A, (A, b, x, z_prev, beta, gamma, thr,
                                    done_mask, shrink, res, rs),
                  (int(restart),))
-    fused_fista_full_step.launches += 1
+    if A.dtype is torch.bfloat16:
+        fused_fista_full_step.launches_bf16 += 1
+    else:
+        fused_fista_full_step.launches += 1
     return x, z_prev, res, rs
 
 
 fused_fista_full_step.launches = 0
+fused_fista_full_step.launches_bf16 = 0
 
 
 def reference_fista_k_steps(A, b, x, z_prev, t, gamma, thr, done_mask, K=8,
@@ -466,22 +510,42 @@ def _per_lane(v, B, like):
     return t.expand(B).contiguous()
 
 
-def _check_not_ported(step_mult):
-    if step_mult != 1.0:
-        raise NotImplementedError(
-            "step_mult != 1 (over-relaxed FISTA) is not ported yet: "
-            "ROADMAP.md queue 1, item 2(a), 'step_mult'")
+def _validate_step_mult(step_mult, restart, mf):
+    if step_mult == 1.0:
+        return
+    if not (0.0 < step_mult < 2.0):
+        raise ValueError(
+            f"step_mult={step_mult} outside (0, 2): forward-backward on the "
+            f"L-smooth quadratic diverges at gamma >= 2/L")
+    if step_mult > 1.0 and not restart:
+        raise ValueError(
+            "step_mult > 1 requires restart=True: Nesterov momentum at "
+            "gamma > 1/L is unstable without the gradient-scheme restart "
+            "(measured: divergence on the flagship workload)")
+    if mf is not None:
+        raise ValueError("step_mult is not supported with mf (the "
+                         "strongly-convex constant-beta variant)")
 
 
-def _check_mf(mf, restart, lam2):
+def _check_options(mf, restart, lam2, step_mult):
+    """The reference's ``ValueError`` for options that do not compose."""
+    _validate_step_mult(step_mult, restart, mf)
+    if lam2 is not None and (mf is not None or step_mult != 1.0):
+        raise ValueError(
+            "lam2 (elastic net) composes with restart only; the mf and "
+            "step_mult analyses were validated for the pure-l1 prox")
     if mf is not None and restart:
         raise ValueError(
             "restart needs the t-recursion; mf>0 uses a constant "
             "extrapolation coefficient (restart would be a no-op)")
-    if mf is not None and lam2 is not None:
-        raise ValueError(
-            "lam2 (elastic net) composes with restart only; the mf "
-            "analysis was validated for the pure-l1 prox")
+
+
+def _x0_or_zeros(x0, B, N, like):
+    """``x0`` as a (B, N) tensor of ``like``'s dtype and device, or zeros."""
+    if x0 is None:
+        return torch.zeros((B, N), dtype=like.dtype, device=like.device)
+    return torch.as_tensor(x0, dtype=like.dtype,
+                           device=like.device).reshape(B, N)
 
 
 def _mf_beta_pair(gamma, mf, dtype):
@@ -503,7 +567,7 @@ def _mf_beta_pair(gamma, mf, dtype):
 
 def solve_lasso_batch(A, b, lam, Lf, tol, maxit=1000, use_kernel=True,
                       restart=False, x0=None, mf=None, step_mult=1.0,
-                      lam2=None):
+                      stall_patience=100, lam2=None):
     """Batched FISTA lasso / elastic-net solver.
 
     Same contract as ``proxtpu.kernels.lasso.solve_lasso_batch``: per-lane
@@ -516,21 +580,32 @@ def solve_lasso_batch(A, b, lam, Lf, tol, maxit=1000, use_kernel=True,
     modulus) replaces the t-recursion by the constant coefficient of the
     generic driver's ``AdaptiveNesterovSequence(m=mf)``: its first
     coefficient beta1 applies to the first extrapolation, a constant one
-    after that; it excludes ``restart`` and ``lam2``.  ``step_mult != 1``
-    is not ported yet and raises :class:`NotImplementedError`.
+    after that; it excludes ``restart`` and ``lam2``.
+
+    ``step_mult`` in (0, 2) over-relaxes the step to ``step_mult / Lf``
+    (above 1 only with ``restart``; not with ``mf`` or ``lam2``).  The
+    stopping rule is then the canonical ``||x - z||_inf * Lf <= tol``,
+    which certifies the ``step_mult == 1`` criterion by the monotonicity of
+    the gradient mapping in the step.  A lane whose criterion runs away
+    (above 10x its best) or does not improve by 0.1% for ``stall_patience``
+    iterations cold-restarts from ``x0`` at ``1 / Lf`` with fresh momentum.
+    ``step_mult == 1`` takes the textbook path unchanged.
 
     Returns ``(xs (B, N), iters (B,) int32, done (B,) bool)``."""
-    _check_not_ported(step_mult)
-    _check_mf(mf, restart, lam2)
+    _check_options(mf, restart, lam2, step_mult)
     B, M, N = A.shape
     dtype = A.dtype
     lam = _per_lane(lam, B, A)
+    x0 = _x0_or_zeros(x0, B, N, A)
+    if step_mult != 1.0:
+        return _solve_overrelaxed(A, b, lam, Lf, step_mult, tol, x0,
+                                  maxit=maxit, use_kernel=use_kernel,
+                                  stall_patience=stall_patience,
+                                  full_step_init=False)
     gamma = 1.0 / _per_lane(Lf, B, A)
     thr = gamma * lam
     shrink = None if lam2 is None else 1.0 + gamma * _per_lane(lam2, B, A)
     step = fused_fb_prox_grad if use_kernel else reference_fb_prox_grad
-    x0 = (torch.zeros((B, N), dtype=dtype, device=A.device) if x0 is None
-          else torch.as_tensor(x0, dtype=dtype, device=A.device).reshape(B, N))
     z0, res0 = step(A, b, x0, gamma, thr, shrink)
     # the init FB step counts as iteration 1; its extrapolation coefficient
     # is 0 (t = 1), so the next point is z0 itself, with t advanced once
@@ -559,8 +634,9 @@ def _make_fista_body(A, b, gamma, thr, tol, *, use_kernel, restart,
     """One iteration ``body(k, (x, z_prev, t, done, iters))`` -> the next
     state, where ``k`` is the new iteration number.  ``beta_const`` (B,)
     replaces the t-recursion by a constant per-lane coefficient (the
-    mf > 0 variant)."""
-    dtype = A.dtype
+    mf > 0 variant).  A may be stored in bfloat16; the state is in
+    gamma's dtype."""
+    dtype = gamma.dtype
 
     if use_kernel:
         def body(k, state):
@@ -611,13 +687,82 @@ def _run_loop(body, state, maxit):
     """Run ``body`` from iteration 1 until every lane is done or ``maxit``
     (see :func:`run_host_loop`).  Returns ``(z, iters, done)``."""
     state, k = run_host_loop(body, state, lambda s: s[3], maxit)
-    _, z, _, done, iters = state
+    _, z, _, done, iters = state[:5]
     return z, torch.where(done, iters, k), done
+
+
+def _solve_overrelaxed(A, b, lam, Lf, step_mult, tol, x0, *, maxit,
+                       use_kernel, stall_patience, full_step_init):
+    """Over-relaxed restart-FISTA with the per-lane stall safeguard (see
+    :func:`solve_lasso_batch`, ``step_mult``): the reference's
+    ``_solve_lasso_batch_overrelaxed`` and, with ``full_step_init``,
+    ``_solve_packed_overrelaxed``, whose init is the full step at beta = 0
+    from ``z_prev = x0`` instead of the FB step.  A lane's step ``gam``
+    lives in the loop's state, so that a stalling lane falls back to
+    ``1 / Lf`` mid-solve; the kernels take the per-lane step and threshold
+    as operands of every call.  ``lam`` is (B,); ``x0`` is not modified."""
+    B = A.shape[0]
+    dtype = A.dtype
+    Lf = _per_lane(Lf, B, A)
+    gamma0 = 1.0 / Lf                # canonical 1/L (the criterion)
+    gamma_init = step_mult / Lf      # the step
+    step = fused_fista_full_step if use_kernel else reference_fista_full_step
+
+    def full_step(x, zp, beta, gam, dm):
+        return step(A, b, x, zp, beta, gam, gam * lam, dm, restart=True)
+
+    if full_step_init:
+        zeros = torch.zeros((B,), dtype=dtype, device=A.device)
+        x, z_prev, res0, _ = full_step(x0.clone(), x0.clone(), zeros,
+                                       gamma_init, zeros)
+    else:
+        fb = fused_fb_prox_grad if use_kernel else reference_fb_prox_grad
+        z0, res0 = fb(A, b, x0, gamma_init, gamma_init * lam)
+        x, z_prev = z0.clone(), z0
+    crit0 = res0 / gamma0
+    t0 = torch.ones((B,), dtype=dtype, device=A.device)
+    state = (x, z_prev, (1 + torch.sqrt(1 + 4 * t0 * t0)) / 2,
+             crit0 <= tol, torch.ones((B,), dtype=torch.int32,
+                                      device=A.device),
+             gamma_init,                    # per-lane step (may back off)
+             crit0,                         # best criterion seen
+             torch.zeros((B,), dtype=torch.int32, device=A.device))
+
+    def body(k, state):
+        x, z_prev, t, done, iters, gam, best, since = state
+        t_new = (1 + torch.sqrt(1 + 4 * t * t)) / 2
+        beta = (t - 1) / t_new
+        x_new, z, res, rs = full_step(x, z_prev, beta, gam, done.to(dtype))
+        # immediate restart: rs > 0 lanes had beta zeroed in the step
+        t_new = torch.where(rs > 0, _PHI, t_new)
+        crit = res / gamma0              # canonical ||G_{1/L}|| certificate
+        # The safeguard.  An over-relaxed lane fails by diverging, so two
+        # triggers: a runaway (crit 10x past its best) and stall_patience
+        # iterations without a 0.1% improvement.  A triggered lane
+        # cold-restarts the textbook solve (step 1/L, fresh momentum, back
+        # to x0); `gam > gamma0` makes the trigger one-shot.  Every update
+        # keeps done lanes frozen: the host tests all-done only now and
+        # then.
+        improved = crit < best * 0.999
+        runaway = crit > best * 10.0
+        best = torch.where(~done & improved, crit, best)
+        since = torch.where(done | improved, 0, since + 1)
+        stall = ~done & ((since >= stall_patience) | runaway) & (gam > gamma0)
+        gam = torch.where(stall, gamma0, gam)
+        t_new = torch.where(stall, 1.0, t_new)
+        since = torch.where(stall, 0, since)
+        x_new = torch.where(stall[:, None], x0, x_new)
+        z = torch.where(stall[:, None], x0, z)
+        iters = torch.where(done, iters, k)
+        return (x_new, z, torch.where(done, t, t_new), done | (crit <= tol),
+                iters, gam, best, since)
+
+    return _run_loop(body, state, maxit)
 
 
 def solve_lasso_batch_packed(A, b, lam, Lf, tol, maxit=1000, restart=False,
                              x0=None, pack=None, mf=None, step_mult=1.0,
-                             lam2=None, use_kernel=True):
+                             stall_patience=100, lam2=None, use_kernel=True):
     """Batched FISTA, the bulk solver of the main path.
 
     Same signature and results as
@@ -625,10 +770,10 @@ def solve_lasso_batch_packed(A, b, lam, Lf, tol, maxit=1000, restart=False,
     (it must divide B) but selects no layout: the packing exists only to
     strip the TPU's lane padding, so the natural layout runs through the
     full-step kernel.  ``use_kernel=False`` runs the plain route (it takes
-    the place of the JAX ``interpret`` flag).  ``mf`` as in
-    :func:`solve_lasso_batch`."""
-    _check_mf(mf, restart, lam2)
-    _check_not_ported(step_mult)
+    the place of the JAX ``interpret`` flag).  ``mf``, ``step_mult`` and
+    ``stall_patience`` as in :func:`solve_lasso_batch`; the over-relaxed
+    solve starts, as every solve here, with the full step at beta = 0."""
+    _check_options(mf, restart, lam2, step_mult)
     B, M, N = A.shape
     if pack is not None and not (pack >= 1 and B % pack == 0):
         raise ValueError(f"pack must be a positive divisor of B={B}, "
@@ -637,9 +782,12 @@ def solve_lasso_batch_packed(A, b, lam, Lf, tol, maxit=1000, restart=False,
         return solve_lasso_batch(A, b, lam, Lf, tol, maxit=maxit,
                                  use_kernel=use_kernel, restart=restart,
                                  x0=x0, lam2=lam2)
-    x0 = (torch.zeros((B, N), dtype=A.dtype, device=A.device) if x0 is None
-          else torch.as_tensor(x0, dtype=A.dtype, device=A.device)
-          .reshape(B, N))
+    x0 = _x0_or_zeros(x0, B, N, A)
+    if step_mult != 1.0:
+        return _solve_overrelaxed(A, b, _per_lane(lam, B, A), Lf, step_mult,
+                                  tol, x0, maxit=maxit, use_kernel=use_kernel,
+                                  stall_patience=stall_patience,
+                                  full_step_init=True)
     return _solve_packed_core(A, b, lam, Lf, tol, x0, maxit=maxit,
                               restart=restart, use_kernel=use_kernel, mf=mf)
 
@@ -743,9 +891,7 @@ def solve_lasso_batch_blocked(A, b, lam, Lf, tol, maxit=2000, iter_block=8,
     gamma = 1.0 / _per_lane(Lf, B, A)
     thr = gamma * _per_lane(lam, B, A)
     K = int(iter_block)
-    x0 = (torch.zeros((B, N), dtype=dtype, device=A.device) if x0 is None
-          else torch.as_tensor(x0, dtype=dtype, device=A.device)
-          .reshape(B, N))
+    x0 = _x0_or_zeros(x0, B, N, A)
     fb = fused_fb_prox_grad if use_kernel else reference_fb_prox_grad
     z0, res0 = fb(A, b, x0, gamma, thr)
     t1 = torch.full((B,), _PHI, dtype=dtype, device=A.device)
@@ -772,3 +918,215 @@ def solve_lasso_batch_blocked(A, b, lam, Lf, tol, maxit=2000, iter_block=8,
     # the loop moves K iterations at a time from k = 1, so an unconverged
     # lane may run up to maxit + K - 1 steps; its report is clamped
     return z, torch.clamp(torch.where(done, iters, k), max=maxit), done
+
+
+def solve_lasso_batch_compacting(A, b, lam, Lf, tol, maxit=1000,
+                                 use_kernel=True, restart=False, segment=64,
+                                 min_batch=32, x0=None):
+    """Batched FISTA with lane compaction of the convergence tail.
+
+    Same contract as ``proxtpu.kernels.lasso.solve_lasso_batch_compacting``:
+    the per-lane trajectory, stopping rule and counts of
+    :func:`solve_lasso_batch` (the loop body is shared); solutions are
+    equal to the last bit wherever a lane's sums do not depend on the batch
+    size, as the kernels' do not.  Every ``segment`` iterations the host
+    reads the done flags once; where at most half the batch is live, the
+    live lanes are gathered on the device (``index_select``) down to the
+    next power of two, at least ``min_batch``, padded with copies of lane 0
+    marked done (frozen), so that the tail reads only the live lanes' A.
+    The finished lanes' results go into buffers on A's device.  Returns
+    ``(xs (B, N), iters (B,) int32, done (B,) bool)``."""
+    B, M, N = A.shape
+    dtype, dev = A.dtype, A.device
+    segment = max(1, int(segment))  # segment <= 0 would spin forever
+    gamma = 1.0 / _per_lane(Lf, B, A)
+    thr = gamma * _per_lane(lam, B, A)
+    step = fused_fb_prox_grad if use_kernel else reference_fb_prox_grad
+    z0, res0 = step(A, b, _x0_or_zeros(x0, B, N, A), gamma, thr)
+    t0 = torch.ones((B,), dtype=dtype, device=dev)
+    ops = (A, b, gamma, thr)         # the live lanes' operands
+    # x and z_prev start equal but are separate buffers: the kernel updates
+    # both in place
+    state = (z0.clone(), z0, (1 + torch.sqrt(1 + 4 * t0 * t0)) / 2,
+             res0 / gamma <= tol,
+             torch.ones((B,), dtype=torch.int32, device=dev))
+    idx = torch.arange(B)            # live lane -> original lane, on the host
+    live = B                         # real lanes among the first `live`
+    out_z = torch.zeros((B, N), dtype=dtype, device=dev)
+    out_it = torch.zeros((B,), dtype=torch.int32, device=dev)
+    out_done = torch.zeros((B,), dtype=torch.bool, device=dev)
+
+    def flush(lanes, done):
+        """Copy the results of the live lanes ``lanes`` (host indices) out."""
+        orig = idx[lanes].to(dev)
+        lanes = lanes.to(dev)
+        out_z.index_copy_(0, orig, state[1].index_select(0, lanes))
+        out_it.index_copy_(0, orig, state[4].index_select(0, lanes))
+        out_done.index_copy_(0, orig, done)
+
+    k = 1
+    while k < maxit:
+        body = _make_fista_body(*ops, tol, use_kernel=use_kernel,
+                                restart=restart)
+        state, k = run_host_loop(body, state, lambda s: s[3],
+                                 min(k + segment, maxit), k=k)
+        done_h = state[3][:live].cpu()   # the host's one sync a segment
+        active = torch.nonzero(~done_h).squeeze(1)
+        if active.numel() == 0:
+            break
+        target = max(min_batch, 1 << (active.numel() - 1).bit_length())
+        if target < ops[0].shape[0]:
+            finished = torch.nonzero(done_h).squeeze(1)
+            flush(finished, torch.ones(finished.numel(), dtype=torch.bool,
+                                       device=dev))
+            pad = target - active.numel()
+            sel = torch.cat([active, torch.zeros(pad, dtype=torch.long)]
+                            ).to(dev)
+            ops = tuple(t.index_select(0, sel) for t in ops)
+            x, z_prev, t, _, iters = state
+            done = torch.cat([torch.zeros(active.numel(), dtype=torch.bool),
+                              torch.ones(pad, dtype=torch.bool)]).to(dev)
+            state = (x.index_select(0, sel), z_prev.index_select(0, sel),
+                     t.index_select(0, sel), done,
+                     iters.index_select(0, sel))
+            idx = idx[active]
+            live = active.numel()
+    # everything still live, converged or stopped at maxit
+    flush(torch.arange(live), state[3][:live])
+    # solve_lasso_batch's report: unconverged lanes ran to min(maxit, k)
+    return out_z, torch.where(out_done, out_it, min(maxit, k)), out_done
+
+
+def solve_lasso_multirhs(A, Bmat, lam, Lf, tol, maxit=2000, iter_block=1,
+                         restart=False, x0=None, lam2=None):
+    """Batched FISTA for many lasso instances sharing one design matrix,
+
+        min_x  ||A x_i - b_i||^2 / 2 + lam_i ||x_i||_1,   i = 1..B,
+
+    as ``proxtpu.kernels.lasso.solve_lasso_multirhs``: A (M, N), ``Bmat``
+    (B, M), ``lam`` scalar or (B,), ``Lf`` a scalar; ``lam2`` (scalar or
+    (B,)) the elastic-net ridge, divided in the prox as
+    ``ElasticNet.prox`` does; ``x0`` warm-starts.  A step is two matrix
+    products, ``X A^T`` and ``R A``, through ``torch.matmul`` in full
+    float32 (it raises where TF32 is allowed); the reference computes them
+    outside any kernel too.  ``iter_block`` K runs K steps between the
+    convergence tests, which are then sampled every K iterations (counts
+    are upper bounds, clamped to ``maxit``), and tests the restart only on
+    a block's last step; K = 1 is the textbook per-step solve.  Same
+    stopping rule and freezing as :func:`solve_lasso_batch`.  Returns
+    ``(xs (B, N), iters (B,) int32, done (B,) bool)``."""
+    require_full_f32_matmul()
+    M, N = A.shape
+    B = Bmat.shape[0]
+    dtype = A.dtype
+    gamma = 1.0 / torch.as_tensor(Lf, dtype=dtype, device=A.device)
+    thr = gamma * _per_lane(lam, B, A)
+    shrink = None if lam2 is None else 1.0 + gamma * _per_lane(lam2, B, A)
+    K = int(iter_block)
+    if K < 1:
+        raise ValueError(f"iter_block must be >= 1, got {iter_block}")
+
+    def step(X):
+        R = torch.matmul(X, A.t()) - Bmat
+        Z = _soft_threshold(X - gamma * torch.matmul(R, A), thr[:, None])
+        if shrink is not None:
+            Z = Z / shrink[:, None]
+        return Z, torch.amax(torch.abs(X - Z), dim=1)
+
+    def body(k, state):
+        x, z_prev, t, done, iters = state
+        xn, zn, tn = x, z_prev, t
+        for j in range(K):
+            z, res = step(xn)
+            if restart and j == K - 1:
+                # reset t before the coefficient is drawn (immediate
+                # restart), on the block's last step only
+                rs = torch.sum((xn - z) * (z - zn), dim=1)
+                tn = torch.where(rs > 0, torch.ones_like(tn), tn)
+            t_new = (1 + torch.sqrt(1 + 4 * tn * tn)) / 2
+            beta = ((tn - 1) / t_new)[:, None]
+            xn, zn, tn = z + beta * (z - zn), z, t_new
+        keep = done[:, None]
+        return (torch.where(keep, x, xn), torch.where(keep, z_prev, zn),
+                torch.where(done, t, tn), done | (res / gamma <= tol),
+                torch.where(done, iters, k))
+
+    z0, res0 = step(_x0_or_zeros(x0, B, N, A))
+    t0 = torch.ones((B,), dtype=dtype, device=A.device)
+    state, k = run_host_loop(
+        body, (z0, z0, (1 + torch.sqrt(1 + 4 * t0 * t0)) / 2,
+               res0 / gamma <= tol,
+               torch.ones((B,), dtype=torch.int32, device=A.device)),
+        lambda s: s[3], maxit, k_step=K)
+    _, z, _, done, iters = state
+    return z, torch.clamp(torch.where(done, iters, k), max=maxit), done
+
+
+def solve_lasso_batch_mixed(A, b, lam, Lf, tol, maxit=1000, warm_tol=None,
+                            warm_maxit=None, use_kernel=True,
+                            warm_dtype=torch.bfloat16, restart=False):
+    """Two-stage batched FISTA: a warm start on A stored in ``warm_dtype``,
+    then the float32 polish, as
+    ``proxtpu.kernels.lasso.solve_lasso_batch_mixed``.
+
+    Stage 1 iterates on ``A.to(warm_dtype)`` (float32 arithmetic on each
+    entry cast up: only the storage narrows, and the one-step kernels'
+    bfloat16 instances read half the bytes) until ``res / gamma <=
+    warm_tol`` (default ``max(30 tol, 1e-2)``; the bf16 operator moves the
+    fixed point by about its relative error), at most ``warm_maxit - 1``
+    steps after the init step.  Stage 2 takes an FB step at the float32 A
+    from the last prox point, then FISTA from a fresh momentum to ``tol``:
+    the stopping criterion of :func:`solve_lasso_batch`.  Counts add both
+    stages.  The kernels take A in bfloat16 or float32 only, so
+    ``use_kernel`` with another ``warm_dtype`` raises; the plain route
+    (``use_kernel=False``) computes at ``A.to(warm_dtype).to(A.dtype)``.
+    Returns ``(xs (B, N), iters (B,) int32, done (B,) bool)``."""
+    B, M, N = A.shape
+    dtype, dev = A.dtype, A.device
+    if use_kernel and warm_dtype not in STEP_A_DTYPES:
+        raise TypeError(f"warm_dtype {warm_dtype}: the kernels take A in "
+                        f"float32 or bfloat16")
+    if warm_tol is None:
+        warm_tol = max(tol * 30.0, 1e-2)
+    if warm_maxit is None:
+        warm_maxit = maxit
+    gamma = 1.0 / _per_lane(Lf, B, A)
+    thr = gamma * _per_lane(lam, B, A)
+    A_warm = A.to(warm_dtype)
+    if not use_kernel:
+        A_warm = A_warm.to(dtype)  # the operator the plain route steps on
+    step = fused_fb_prox_grad if use_kernel else reference_fb_prox_grad
+
+    def stage(A_, x_init, stop_tol, stage_maxit, k0, iters0, done0):
+        """FISTA from x = z_prev = ``x_init``, t = 1, iterations ``k0 + 1``
+        to at most ``k0 + stage_maxit``.  Returns ``(k, z, iters, done)``
+        with ``k`` the reference's: its loop stops at the iteration that
+        leaves every lane done."""
+        body = _make_fista_body(A_, b, gamma, thr, stop_tol,
+                                use_kernel=use_kernel, restart=restart)
+        state, k = run_host_loop(
+            body, (x_init.clone(), x_init,
+                   torch.ones((B,), dtype=dtype, device=dev), done0, iters0),
+            lambda s: s[3], k0 + stage_maxit, k=k0)
+        _, z, _, done, iters = state
+        if bool(done.all()):
+            # the host tests all-done every few iterations; the last lane
+            # to finish set its count to the iteration that ended the loop
+            k = max(k0, int(iters.max()))
+        return k, z, torch.where(done, iters, k), done
+
+    # stage 1: the warm operator to warm_tol; the init FB step counts as
+    # iteration 1, as in solve_lasso_batch
+    z0, res0 = step(A_warm, b, torch.zeros((B, N), dtype=dtype, device=dev),
+                    gamma, thr)
+    k1, z1, it1, _ = stage(A_warm, z0, warm_tol, warm_maxit - 1, 1,
+                           torch.ones((B,), dtype=torch.int32, device=dev),
+                           res0 / gamma <= warm_tol)
+    # stage 2: the float32 polish from z1, the last prox point; lanes
+    # already under tol at the float32 operator finish in this one step
+    z2, res2 = step(A, b, z1, gamma, thr)
+    done2 = res2 / gamma <= tol
+    k2 = k1 + 1
+    _, z, iters, done = stage(A, z2, tol, maxit, k2,
+                              torch.where(done2, k2, it1), done2)
+    return z, torch.clamp(iters, max=maxit + warm_maxit), done

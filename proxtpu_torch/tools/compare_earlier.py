@@ -11,21 +11,21 @@ bits, and the time of both in one call.
         COMMIT:proxtpu_torch/csrc/$f > build/parent_csrc/$f; done
 
 whose entries ``proxtpu_fista_step``, ``proxtpu_fb_step``,
-``proxtpu_fista_k_steps`` and ``proxtpu_read_reduce`` take the arguments
-they take in this tree, ``proxtpu_pg_step`` and ``proxtpu_pg_k_steps`` no
-launch plan (one block per lane), and ``proxtpu_cp_k_steps`` a zeroed
-scratch and the tile of ``tile_plan`` (a halo around every tile of an image
-larger than one block's shared memory).
+``proxtpu_fista_k_steps``, ``proxtpu_read_reduce``, ``proxtpu_pg_k_steps``
+and ``proxtpu_cp_k_steps`` take the arguments they take in this tree (the
+sources of commit 266b08f and later).
 
 ``fista_step`` and ``fb_step``: at every shape a path gives them, a ragged
 one, one whose rows take ordinary loads through the ring, one read in place
 and one that fits a single stage, the two kernels run on the same inputs,
 restart off and on, shrink off and on, with and without frozen lanes: x,
-z_prev (= z), ``res`` and ``rs`` must be equal to the last bit.  Then both
-are timed, earlier, this, this, earlier, in an eager loop (CUDA events around
-the C entries) and at the device's pace (CUDA graph).  ``--plans`` also times
-this tree's ``fista_step`` over a grid of threads per block, rows per tile
-and stages, with the blocks one SM holds at each plan.
+z_prev (= z), ``res`` and ``rs`` must be equal to the last bit; so must this
+tree's bfloat16-A instance of each against the earlier float32 kernel on
+``A16.float()``, at its own plan.  Then both are timed, earlier, this, this,
+earlier, in an eager loop (CUDA events around the C entries) and at the
+device's pace (CUDA graph), and the bfloat16 instance beside them.
+``--plans`` also times this tree's ``fista_step`` over a grid of threads per
+block, rows per tile and stages, with the blocks one SM holds at each plan.
 
 ``fista_k_steps``: the two kernels at the wrapper's plan must be equal to the
 last bit, restart off and on, and are timed the same way.
@@ -39,10 +39,11 @@ times this tree's kernel over blocks per lane, rows per tile and stages
 ``cp_k_steps``: at routes (e) and (f)'s shapes, a ragged one, the
 reference's test shape and an image no cluster holds, K = 1 and 8, lam
 uniform and per image, from zero and from a warm state, with and without
-frozen images, x, yx, yy and ``res`` equal to the last bit; both timed at
-the routes' shapes (the earlier call with the zeroing of its scratch, as
-its wrapper made it).  ``--plans`` also times this tree's cluster variant
-over blocks per image and threads per block (each plan's bits held too).
+frozen images, x, yx, yy and ``res`` equal to the last bit (this tree
+through its wrapper; the earlier entry at the same plan, or its halo
+variant where no cluster holds an image); both timed at the routes'
+shapes.  ``--plans`` also times this tree's cluster variant over blocks per
+image and threads per block (each plan's bits held too).
 
 ``read_reduce``: at every shape the read floor is taken at, the two sums
 must be equal to the last bit, and both C entries are timed at the device's
@@ -98,25 +99,22 @@ TV_TIMED = TV_SHAPES[:2]
 # --plans: blocks per image and threads per block
 TV_PLAN_C = {(64, 64, 64): (1, 2, 4), (64, 256, 256): (6, 8, 16)}
 TV_PLAN_THREADS = tv.CP_THREADS
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SOURCES = ("lasso_step.cu", "probe.cu", "box_qp_step.cu", "tv_step.cu")
 
 
 def build_other(csrc):
-    """Compile the earlier sources into a library of their own, with the
-    earlier entries' signatures."""
+    """Compile the earlier sources into a library of their own; the entries
+    compared take this tree's signatures."""
     out = Path(tempfile.mkdtemp()) / "libother.so"
     subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
                     str(out), *(str(Path(csrc) / f) for f in _SOURCES)],
                    check=True, capture_output=True, text=True)
     lib = ctypes.CDLL(str(out))
-    lib.proxtpu_fista_step.argtypes = [_P] * 11 + [_I] * 8 + [_P]
-    lib.proxtpu_fb_step.argtypes = [_P] * 8 + [_I] * 7 + [_P]
-    lib.proxtpu_fista_k_steps.argtypes = [_P] * 9 + [_I] * 9 + [_P]
-    lib.proxtpu_read_reduce.argtypes = [_P] * 4 + [_I, _L, _I, _L, _P]
-    lib.proxtpu_pg_step.argtypes = [_P] * 8 + [_I] * 2 + [_P]
-    lib.proxtpu_pg_k_steps.argtypes = [_P] * 8 + [_I] * 3 + [_P]
-    lib.proxtpu_cp_k_steps.argtypes = [_P] * 13 + [_I] * 6 + [_P]
+    for name in ("proxtpu_fista_step", "proxtpu_fb_step",
+                 "proxtpu_fista_k_steps", "proxtpu_read_reduce",
+                 "proxtpu_pg_k_steps", "proxtpu_cp_k_steps",
+                 "proxtpu_cp_k_steps_halo"):
+        getattr(lib, name).argtypes = _build._SIGNATURES[name]
     return lib
 
 
@@ -174,19 +172,22 @@ def inputs(B, M, N, seed, frozen=0.3):
     return {k: torch.tensor(v, device="cuda") for k, v in arrays.items()}
 
 
-def step_plan(B, M, N):
+def step_plan(B, M, N, elem=4):
     return tl.step_plan(B, M, N, _build.sm_count(0),
-                        _build.max_shared_bytes(0))
+                        _build.max_shared_bytes(0), elem)
 
 
-def call_fista_step(lib, d, state, restart, shrink, done, plan):
+def call_fista_step(lib, d, state, restart, shrink, done, plan, A=None):
     """Launch ``proxtpu_fista_step`` of ``lib`` on ``state`` = (x, z_prev,
     res, rs), x and z_prev updated in place, at ``plan`` = ``(threads, R,
-    S, bytes)``."""
-    B, M, N = d["A"].shape
+    S, bytes)``; an ``A`` in bfloat16 takes ``proxtpu_fista_step_bf16``."""
+    A = d["A"] if A is None else A
+    B, M, N = A.shape
     x, zp, res, rs = state
-    err = lib.proxtpu_fista_step(
-        d["A"].data_ptr(), d["b"].data_ptr(), x.data_ptr(), zp.data_ptr(),
+    entry = (lib.proxtpu_fista_step_bf16 if A.dtype == torch.bfloat16
+             else lib.proxtpu_fista_step)
+    err = entry(
+        A.data_ptr(), d["b"].data_ptr(), x.data_ptr(), zp.data_ptr(),
         d["beta"].data_ptr(), d["gamma"].data_ptr(), d["thr"].data_ptr(),
         done.data_ptr(), shrink.data_ptr() if shrink is not None else None,
         res.data_ptr(), rs.data_ptr(), B, M, N, int(restart), *plan,
@@ -194,12 +195,16 @@ def call_fista_step(lib, d, state, restart, shrink, done, plan):
     _build.check(err, "fista_step")
 
 
-def call_fb_step(lib, d, out, shrink, plan):
-    """Launch ``proxtpu_fb_step`` of ``lib``; ``out`` = (z, res)."""
-    B, M, N = d["A"].shape
+def call_fb_step(lib, d, out, shrink, plan, A=None):
+    """Launch ``proxtpu_fb_step`` of ``lib``, or ``proxtpu_fb_step_bf16``
+    for an ``A`` in bfloat16; ``out`` = (z, res)."""
+    A = d["A"] if A is None else A
+    B, M, N = A.shape
     z, res = out
-    err = lib.proxtpu_fb_step(
-        d["A"].data_ptr(), d["b"].data_ptr(), d["x"].data_ptr(),
+    entry = (lib.proxtpu_fb_step_bf16 if A.dtype == torch.bfloat16
+             else lib.proxtpu_fb_step)
+    err = entry(
+        A.data_ptr(), d["b"].data_ptr(), d["x"].data_ptr(),
         d["gamma"].data_ptr(), d["thr"].data_ptr(),
         shrink.data_ptr() if shrink is not None else None, z.data_ptr(),
         res.data_ptr(), B, M, N, *plan, stream())
@@ -243,6 +248,7 @@ def compare_steps(other, this, card, plans):
         print(f"fista_step, fb_step {(B, M, N)} plan (threads, R, S, bytes) "
               f"= {plan}: x, z_prev, res, rs equal to the earlier kernels' "
               f"bits in {cases} + 2 cases")
+        compare_bf16(other, this, d, plan)
 
     for B, M, N in STEP_TIMED:
         d = inputs(B, M, N, seed=1, frozen=0.0)
@@ -268,14 +274,69 @@ def compare_steps(other, this, card, plans):
                   f"per SM: eager earlier {o1:.1f} / {o2:.1f} us, this "
                   f"{n1:.1f} / {n2:.1f} us; device pace earlier {g[0]:.1f} / "
                   f"{g[3]:.1f} us, this {g[1]:.1f} / {g[2]:.1f} us  [{card}]")
+        # the bfloat16 instances at their own plan, between two runs of
+        # the float32 kernel of this tree
+        A16 = d["A"].to(torch.bfloat16)
+        plan16 = step_plan(B, M, N, 2)
+        pairs16 = {
+            "fista_step": (
+                lambda: call_fista_step(this, d, state, True, None,
+                                        d["done"], plan),
+                lambda: call_fista_step(this, d, state, True, None,
+                                        d["done"], plan16, A=A16)),
+            "fb_step": (lambda: call_fb_step(this, d, out, None, plan),
+                        lambda: call_fb_step(this, d, out, None, plan16,
+                                             A=A16)),
+        }
+        for name, (f32_fn, bf16_fn) in pairs16.items():
+            g = (graph_us(f32_fn), graph_us(bf16_fn), graph_us(bf16_fn),
+                 graph_us(f32_fn))
+            print(f"{name}_bf16 {(B, M, N)} plan {plan16}, "
+                  f"{blocks_per_sm(name == 'fista_step', M, N, plan16, 2)} "
+                  f"blocks per SM: device pace {g[1]:.1f} / {g[2]:.1f} us, "
+                  f"float32 instance {g[0]:.1f} / {g[3]:.1f} us  [{card}]")
         if plans and (B, M, N) in PLAN_SHAPES:
             plan_grid(this, d, state, card)
 
 
-def blocks_per_sm(fista, M, N, plan):
+def compare_bf16(other, this, d, plan):
+    """This tree's bfloat16-A instances against the earlier float32 kernels
+    on ``A16.float()`` (at the float32 plan ``plan``), shrink, restart,
+    frozen lanes: equal to the last bit."""
+    B, M, N = d["A"].shape
+    A16 = d["A"].to(torch.bfloat16)
+    d32 = dict(d, A=A16.float())
+    plan16 = step_plan(B, M, N, 2)
+    live = torch.zeros_like(d["done"])
+    cases = 0
+    for shrink in (None, d["shrink"]):
+        old = (torch.empty_like(d["x"]), torch.empty_like(d["t"]))
+        new = (torch.empty_like(d["x"]), torch.empty_like(d["t"]))
+        call_fb_step(other, d32, old, shrink, plan)
+        call_fb_step(this, d, new, shrink, plan16, A=A16)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(old, new)), (
+            "fb_step_bf16", B, M, N, shrink is not None)
+        for restart in (False, True):
+            for done in (live, d["done"]):
+                old, new = fresh_step(d), fresh_step(d)
+                call_fista_step(other, d32, old, restart, shrink, done, plan)
+                call_fista_step(this, d, new, restart, shrink, done, plan16,
+                                A=A16)
+                torch.cuda.synchronize()
+                assert all(torch.equal(a, b) for a, b in zip(old, new)), (
+                    "fista_step_bf16", B, M, N, restart, shrink is not None)
+                cases += 1
+    print(f"fista_step_bf16, fb_step_bf16 {(B, M, N)} plan {plan16}: equal "
+          f"to the earlier float32 kernels' bits on A16.float() in {cases} + "
+          f"2 cases")
+
+
+def blocks_per_sm(fista, M, N, plan, elem=4):
     out = ctypes.c_int()
     _build.check(_build.library().proxtpu_step_blocks_per_sm(
-        int(fista), M, N, *plan, ctypes.byref(out)), "step_blocks_per_sm")
+        int(fista), elem, M, N, *plan, ctypes.byref(out)),
+        "step_blocks_per_sm")
     return out.value
 
 
@@ -368,22 +429,15 @@ def pg_inputs(B, n, seed, frozen=0.3):
     return {k: torch.tensor(v, device="cuda") for k, v in arrays.items()}
 
 
-def call_pg(lib, d, x, res, K, done, plan=None):
-    """K steps of ``lib``'s box-QP kernel on x (in place): the earlier
-    entries (``plan`` None, ``pg_step`` at K = 1) or this tree's
-    ``pg_k_steps`` at ``plan`` = (C, R, S)."""
+def call_pg(lib, d, x, res, K, done, plan):
+    """K steps of ``lib``'s ``pg_k_steps`` on x (in place) at ``plan`` =
+    (C, R, S)."""
     B, n = d["q"].shape
     ptrs = (d["Q"].data_ptr(), d["q"].data_ptr(), x.data_ptr(),
             d["gamma"].data_ptr(), d["lo"].data_ptr(), d["hi"].data_ptr(),
             None if done is None else done.data_ptr(), res.data_ptr())
-    if plan is not None:
-        err = lib.proxtpu_pg_k_steps(*ptrs, B, n, K, *plan,
-                                     tb.pg_shared_bytes(n, n, *plan),
-                                     stream())
-    elif K == 1:
-        err = lib.proxtpu_pg_step(*ptrs, B, n, stream())
-    else:
-        err = lib.proxtpu_pg_k_steps(*ptrs, B, n, K, stream())
+    err = lib.proxtpu_pg_k_steps(*ptrs, B, n, K, *plan,
+                                 tb.pg_shared_bytes(n, n, *plan), stream())
     _build.check(err, "pg_k_steps")
 
 
@@ -395,7 +449,7 @@ def compare_pg(other, this, card, plans):
         B, n = d["q"].shape
         old = (d["x"].clone(), torch.empty(B, device="cuda"))
         new = (d["x"].clone(), torch.empty(B, device="cuda"))
-        call_pg(other, d, *old, K, done)
+        call_pg(other, d, *old, K, done, tb.pg_plan(B, n, sms, limit))
         call_pg(this, d, *new, K, done, plan)
         torch.cuda.synchronize()
         return all(torch.equal(a, b) for a, b in zip(old, new))
@@ -415,7 +469,8 @@ def compare_pg(other, this, card, plans):
     x, res = d["x"].clone(), torch.empty(B, device="cuda")
     live = d["done"]
     for K_ in (1, K):
-        old_fn = lambda: call_pg(other, d, x, res, K_, live)  # noqa: E731
+        old_fn = lambda: call_pg(other, d, x, res, K_, live,  # noqa: E731
+                                 plan)
         new_fn = lambda: call_pg(this, d, x, res, K_, live,  # noqa: E731
                                  plan)
         o1, n1, n2, o2 = (event_us(old_fn), event_us(new_fn),
@@ -459,23 +514,21 @@ def tv_inputs(B, H, W, seed, frozen=0.5):
     return {k: torch.tensor(v, device="cuda") for k, v in arrays.items()}
 
 
-def call_cp(lib, ops, out, res, K, done, plan=None, scratch=None):
+def call_cp(lib, ops, out, res, K, done, plan):
     """K steps of ``lib``'s ``cp_k_steps`` from ``ops`` = (b, x, yx, yy, g1,
-    g2, lam) into ``out`` and ``res``: the earlier entry (``plan`` None; its
-    scratch is zeroed first, as its wrapper did, and its tile is
-    ``tile_plan``'s) or this tree's cluster variant at ``plan`` = (C,
-    threads)."""
+    g2, lam) into ``out`` and ``res``: the cluster variant at ``plan`` =
+    (C, threads), or the halo variant where ``plan`` is ``cp_plan``'s halo
+    plan (a scratch of its own, zeroed)."""
     B, H, W = ops[0].shape
     ptrs = [t.data_ptr() for t in ops]
     ptrs += [None if done is None else done.data_ptr()]
     ptrs += [t.data_ptr() for t in out] + [res.data_ptr()]
-    if plan is None:
-        scratch.zero_()
-        TH, TW = tv.tile_plan(H, W, K, _build.max_shared_bytes(0))
-        err = lib.proxtpu_cp_k_steps(*ptrs, scratch.data_ptr(), B, H, W, K,
-                                     TH, TW, stream())
+    if getattr(plan, "variant", "cluster") == "halo":
+        scratch = torch.zeros((B, 4), dtype=torch.int32, device="cuda")
+        err = lib.proxtpu_cp_k_steps_halo(*ptrs, scratch.data_ptr(), B, H, W,
+                                          K, plan.TH, plan.TW, stream())
     else:
-        C, threads = plan
+        C, threads = plan[1:3] if hasattr(plan, "variant") else plan
         err = lib.proxtpu_cp_k_steps(*ptrs, B, H, W, K, C, threads,
                                      tv.cp_band_bytes(H, W, C), stream())
     _build.check(err, "cp_k_steps")
@@ -495,12 +548,11 @@ def compare_tv(other, card, plans):
     sms, limit = _build.sm_count(0), _build.max_shared_bytes(0)
 
     def run_old(d, ops, K_, done):
-        B = ops[0].shape[0]
+        B, H, W = ops[0].shape
         out = tuple(torch.empty_like(ops[0]) for _ in range(3))
         res = torch.empty(B, device="cuda")
         call_cp(other, ops, out, res, K_, done,
-                scratch=torch.empty((B, 4), dtype=torch.int32,
-                                    device="cuda"))
+                tv.cp_plan(B, H, W, K_, sms, limit))
         return (*out, res)
 
     for B, H, W in TV_SHAPES:
@@ -527,10 +579,9 @@ def compare_tv(other, card, plans):
         ops = (d["b"], d["x"], d["yx"], d["yy"], d["g1"], d["g2"], d["lam"])
         out = tuple(torch.empty_like(d["b"]) for _ in range(3))
         res = torch.empty(B, device="cuda")
-        scratch = torch.empty((B, 4), dtype=torch.int32, device="cuda")
         plan = tv.cp_plan(B, H, W, K, sms, limit)
         old_fn = lambda: call_cp(other, ops, out, res, K,  # noqa: E731
-                                 None, scratch=scratch)
+                                 None, plan)
         new_fn = lambda: call_cp(_build.library(), ops, out,  # noqa: E731
                                  res, K, None, (plan.C, plan.threads))
         o1, n1, n2, o2 = (event_us(old_fn), event_us(new_fn),

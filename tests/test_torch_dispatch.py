@@ -2,10 +2,9 @@
 
 ``match_kernel_solver`` of both packages gets the same problems (the JAX
 objects, and the port's made from them by ``prox_from_jax``).  Both return
-``None`` or both return a runner, except for shared A, whose leg the port
-does not have; and the solver a runner calls is the one the JAX matcher
-calls on a TPU (solvers patched in both modules to record the call), with
-the kernel route for every float32 problem in the port.  Then
+``None`` or both return a runner, and the solver a runner calls is the one
+the JAX matcher calls on a TPU (solvers patched in both modules to record
+the call), with the kernel route for every float32 problem in the port.  Then
 ``BatchedAlgorithm`` is driven through its routes and held to the JAX
 package's results: counts within +-1 (+-K blocked) and solutions within
 1e-4 in float32.
@@ -186,7 +185,7 @@ def recorded(monkeypatch):
     for mod, names in ((jlasso, _LASSO), (jbox, _BOX)):
         for name in names:
             monkeypatch.setattr(mod, name, recorder("jax", name))
-    for mod, names in ((tlasso, _LASSO[:3]), (tbox, _BOX)):
+    for mod, names in ((tlasso, _LASSO), (tbox, _BOX)):
         for name in names:
             monkeypatch.setattr(mod, name, recorder("port", name))
     monkeypatch.setattr(jd, "_is_default_backend_tpu", lambda: True)
@@ -200,10 +199,6 @@ def test_match_kernel_solver_decision_table(recorded, case):
     run_j = jd.match_kernel_solver(j_fac, kw, tol=TOL, maxit=100, **opts)
     run_t = td.match_kernel_solver(t_fac, _port_kw(kw), tol=TOL, maxit=100,
                                    **opts)
-    if case == "shared_a":
-        # the port leaves the shared-A (multirhs) leg to the generic driver
-        assert run_j is not None and run_t is None
-        return
     assert (run_j is None) == (run_t is None)
     if run_j is None:
         return
@@ -212,8 +207,11 @@ def test_match_kernel_solver_decision_table(recorded, case):
     (j_name, _), = recorded["jax"]
     (t_name, use_kernel), = recorded["port"]
     assert t_name == j_name
+    if case == "shared_a":
+        assert t_name == "solve_lasso_multirhs"
     f32 = np.asarray(kw["x0"]).dtype == np.float32
-    assert use_kernel in (None, f32)  # None: the packed/blocked kernels
+    # None: the packed, blocked and multirhs solvers, which take no flag
+    assert use_kernel in (None, f32)
 
 
 def test_unknown_kwarg_skips_kernels_and_raises():
@@ -275,13 +273,38 @@ def test_batched_algorithm_blocked_routes(monkeypatch):
     assert tlasso.fused_fista_k_steps.launches == before
 
 
-def test_shared_a_takes_the_generic_driver():
+def _shared_a_kw():
     A, b, lam, Lf = _lasso_arrays(B, M, N, 5)
-    kw = dict(x0=jnp.zeros((B, N), jnp.float32),
-              f=LeastSquaresLoss(jnp.asarray(A[0]), jnp.asarray(b)),
-              g=NormL1(jnp.asarray(lam)), Lf=float(Lf[0]))
+    return dict(x0=jnp.zeros((B, N), jnp.float32),
+                f=LeastSquaresLoss(jnp.asarray(A[0]), jnp.asarray(b)),
+                g=NormL1(jnp.asarray(lam)), Lf=float(Lf[0]))
+
+
+def test_shared_a_takes_the_generic_driver():
+    """With the kernels off, the port's generic driver solves a shared A as
+    JAX's does."""
+    kw = _shared_a_kw()
+    ref = JBatched(j_ffb, maxit=3000, tol=TOL, use_kernels=False)(**kw)
+    port = pt.BatchedAlgorithm(t_ffb, maxit=3000, tol=TOL,
+                               use_kernels=False)(**_port_kw(kw))
+    _check(port, ref)
+
+
+def test_shared_a_takes_multirhs(monkeypatch):
+    """By default the port's ``BatchedAlgorithm`` sends a shared A to
+    ``solve_lasso_multirhs`` and matches JAX's generic driver."""
+    calls = []
+    real = tlasso.solve_lasso_multirhs
+
+    def spy(*args, **kw):
+        calls.append(kw["iter_block"])
+        return real(*args, **kw)
+
+    monkeypatch.setattr(tlasso, "solve_lasso_multirhs", spy)
+    kw = _shared_a_kw()
     ref = JBatched(j_ffb, maxit=3000, tol=TOL, use_kernels=False)(**kw)
     port = pt.BatchedAlgorithm(t_ffb, maxit=3000, tol=TOL)(**_port_kw(kw))
+    assert calls == [1]
     _check(port, ref)
 
 

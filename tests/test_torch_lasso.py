@@ -313,7 +313,9 @@ def test_packed_tail_plain_route_matches_kernel_route(packed_problems,
                                     tl.solve_lasso_batch_packed])
 @pytest.mark.parametrize("kw", [{"step_mult": 1.5}])
 def test_unported_options_raise(small, solver, kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """Every option is ported; one that does not compose (over-relaxation
+    without restart) raises the reference's ValueError."""
+    with pytest.raises(ValueError, match="requires restart"):
         solver(*map(_t, small), TOL, **kw)
 
 

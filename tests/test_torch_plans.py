@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from proxtpu_torch.kernels import box_qp as tb
+from proxtpu_torch.kernels import lasso as tl
 from proxtpu_torch.kernels import tv
 
 LIMIT = 232448  # bytes of shared memory a block may use on an H100
@@ -231,3 +232,61 @@ def test_slabs_reproduce_the_pg_steps(C, K):
     got = _replay_slabs(Q, q, x, gamma, lo, hi, done, K, C)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), w.numpy())
+
+
+# The plan of the bfloat16-A instance of fb_step and fista_step on an H100:
+# (threads, rows per tile, stages, shared bytes) at 2 bytes an entry of A,
+# one shape per branch, and the way the kernel fills the ring (bulk copy
+# where N * 2 is a multiple of 16).
+_BF16_PLANS = {
+    (256, 200, 400): ((512, 29, 3, 74008), "bulk"),    # route (h): 2 per SM
+    (64, 200, 400): ((512, 67, 3, 165016), "bulk"),    # one block per SM
+    (5, 300, 250): ((512, 100, 3, 153496), "loads"),   # a ring, N * 2 % 16
+    (1024, 64, 128): ((256, 64, 1, 17672), "bulk"),    # one stage
+    (7, 33, 161): ((256, 33, 1, 12296), "loads"),      # one stage, ragged
+    (2, 24, 12000): ((1024, 1, 3, 168344), "bulk"),    # in place at float32
+    (2, 24, 20000): ((256, 24, 0, 80096), "none"),     # in place
+}
+
+
+@pytest.mark.parametrize("shape", list(_BF16_PLANS))
+def test_step_plan_bf16_branches(shape):
+    plan, fill = _BF16_PLANS[shape]
+    assert tl.step_plan(*shape, SMS, LIMIT, elem=2) == plan
+    assert tl.cached_step_plan(*shape, SMS, LIMIT, 2) == plan
+    threads, R, S, nbytes = plan
+    assert tl.step_shared_bytes(*shape[1:], R, S, 2) == nbytes
+    N = shape[2]
+    assert fill == ("none" if S == 0 else
+                    "bulk" if N * 2 % 16 == 0 else "loads")
+
+
+def _step_layout_bytes(M, N, R, S, elem):
+    """StepLayout of csrc/lasso_step.cu at ``elem`` bytes an entry of A,
+    written out once more."""
+    if S == 0:
+        return 4 * (N + M)
+    fixed = 4 * (2 * (-(-N // 4) * 4) + -(-M // 4) * 4)
+    return (-(-fixed // 128) * 128 + S * (-(-elem * R * N // 128) * 128)
+            + 8 * S)
+
+
+def test_step_plan_bf16_fits_and_halves_the_stages():
+    """At 2 bytes an entry every plan's bytes are the layout's sum and fit
+    a block; a tile of the bf16 plan holds at least as many rows as the
+    float32 plan's, and a float32 lane in place may take a ring."""
+    for N in (24, 128, 161, 250, 400, 1024, 4096, 12000, 20000):
+        for M in (1, 16, 33, 200, 400):
+            if M * N * 4 >= 1 << 20:
+                continue
+            for B in (1, 64, 256):
+                f32 = tl.step_plan(B, M, N, SMS, LIMIT)
+                bf16 = tl.step_plan(B, M, N, SMS, LIMIT, elem=2)
+                threads, R, S, used = bf16
+                assert used == _step_layout_bytes(M, N, R, S, 2)
+                assert used + 512 <= LIMIT and 1 <= R <= M
+                assert S == 0 or R * N * 2 < 1 << 20
+                if f32[2] == 3 and S == 3:
+                    assert R >= f32[1]
+                if f32[2] == 0:
+                    assert S in (0, 3)
