@@ -6,12 +6,14 @@ name.  It imports ``torch`` and never ``jax``.  Its hot steps are CUDA
 kernels written by hand for ``sm_90a`` (``proxtpu_torch/csrc``), built with
 ``nvcc`` at first use; importing the package builds and loads nothing.
 
-* :mod:`proxtpu_torch.algorithms` — FB, FISTA and the primal-dual family
-  (AFBA, Vu-Condat, Chambolle-Pock) with the generic driver
+* :mod:`proxtpu_torch.algorithms` — the reference's solver suite (FB,
+  FISTA, ZeroFPR, PANOC, PANOCplus, Douglas-Rachford, DRLS, Davis-Yin,
+  Li-Lin, SFISTA, AFBA, Vu-Condat, Chambolle-Pock) with the generic driver
 * :mod:`proxtpu_torch.prox`       — the oracle protocol and prox functions
-* :mod:`proxtpu_torch.accel`      — Nesterov coefficient sequences
-* :mod:`proxtpu_torch.ops`        — identity, zero, dense and 2-D gradient
-  operators
+* :mod:`proxtpu_torch.accel`      — L-BFGS, Anderson, Broyden and the
+  Nesterov coefficient sequences
+* :mod:`proxtpu_torch.ops`        — identity, zero, dense, stacked and 2-D
+  gradient operators
 * :mod:`proxtpu_torch.kernels`    — batched lasso, box-QP and TV-denoising
   solvers, their kernels, the read-floor probe and the kernel-route dispatch
 * :mod:`proxtpu_torch.parallel`   — ``BatchedAlgorithm``, the batched
@@ -24,50 +26,45 @@ kernels written by hand for ``sm_90a`` (``proxtpu_torch/csrc``), built with
 
 from . import accel, algorithms, convert, kernels, ops, parallel, prox, utils
 from .accel import (
+    LBFGS,
     AdaptiveNesterovSequence,
     AdaptiveRestartSequence,
+    AndersonAcceleration,
+    Broyden,
     ConstantNesterovSequence,
     FixedNesterovSequence,
     NesterovExtrapolation,
+    NoAcceleration,
     SimpleNesterovSequence,
 )
-from .algorithms import (
-    AFBA,
-    AFBAIteration,
-    ChambollePock,
-    FastForwardBackward,
-    ForwardBackward,
-    IterativeAlgorithm,
-    VuCondat,
-    afba_default_stepsizes,
-    make_afba_iteration,
-    make_chambolle_pock_iteration,
-    make_fast_forward_backward_iteration,
-    make_forward_backward_iteration,
-    make_vu_condat_iteration,
-)
+from .algorithms import *  # noqa: F401,F403
+from .algorithms import __all__ as _algorithms
 from .convert import (
     box_qp_from_numpy,
+    direction_from_jax,
     linop_from_jax,
     problems_from_numpy,
     prox_from_jax,
     tv_from_numpy,
 )
-from .prox.base import convex_conjugate
+from .prox.base import (
+    AutoDifferentiable,
+    IndZero,
+    Zero,
+    convex_conjugate,
+    value_and_gradient,
+)
 from .parallel import BatchedAlgorithm
 from .utils.shared import Shared
 
 __all__ = [
     "accel", "algorithms", "convert", "kernels", "ops", "parallel", "prox",
-    "utils", "AdaptiveNesterovSequence", "AdaptiveRestartSequence",
-    "ConstantNesterovSequence", "FixedNesterovSequence",
-    "NesterovExtrapolation", "SimpleNesterovSequence", "FastForwardBackward",
-    "ForwardBackward", "IterativeAlgorithm",
-    "make_fast_forward_backward_iteration",
-    "make_forward_backward_iteration", "AFBA", "AFBAIteration",
-    "ChambollePock", "VuCondat", "afba_default_stepsizes",
-    "make_afba_iteration", "make_chambolle_pock_iteration",
-    "make_vu_condat_iteration", "convex_conjugate", "box_qp_from_numpy",
-    "linop_from_jax", "problems_from_numpy", "prox_from_jax",
-    "tv_from_numpy", "BatchedAlgorithm", "Shared",
+    "utils", "LBFGS", "AdaptiveNesterovSequence", "AdaptiveRestartSequence",
+    "AndersonAcceleration", "Broyden", "ConstantNesterovSequence",
+    "FixedNesterovSequence", "NesterovExtrapolation", "NoAcceleration",
+    "SimpleNesterovSequence", *_algorithms, "AutoDifferentiable", "IndZero",
+    "Zero", "convex_conjugate", "value_and_gradient",
+    "box_qp_from_numpy", "direction_from_jax", "linop_from_jax",
+    "problems_from_numpy", "prox_from_jax", "tv_from_numpy",
+    "BatchedAlgorithm", "Shared",
 ]

@@ -1,6 +1,11 @@
 """Acceleration strategies of the port (counterpart of ``proxtpu.accel``):
-the Nesterov coefficient sequences."""
+L-BFGS, Anderson, Broyden, no acceleration and the Nesterov coefficient
+sequences."""
 
+from .anderson import AndersonAcceleration
+from .base import NESTEROV, NO_ACCELERATION, QUASI_NEWTON, acceleration_style
+from .broyden import Broyden
+from .lbfgs import LBFGS
 from .nesterov import (
     AdaptiveNesterovSequence,
     AdaptiveRestartSequence,
@@ -9,9 +14,12 @@ from .nesterov import (
     NesterovExtrapolation,
     SimpleNesterovSequence,
 )
+from .noaccel import NoAcceleration
 
 __all__ = [
+    "LBFGS", "AndersonAcceleration", "Broyden", "NoAcceleration",
+    "NesterovExtrapolation", "FixedNesterovSequence",
+    "SimpleNesterovSequence", "ConstantNesterovSequence",
     "AdaptiveNesterovSequence", "AdaptiveRestartSequence",
-    "ConstantNesterovSequence", "FixedNesterovSequence",
-    "NesterovExtrapolation", "SimpleNesterovSequence",
+    "acceleration_style", "QUASI_NEWTON", "NESTEROV", "NO_ACCELERATION",
 ]

@@ -16,8 +16,7 @@ from dataclasses import dataclass
 import torch
 
 from ..utils.tree import real_dtype_of, tree_leaves, tree_map
-
-NESTEROV = "nesterov"
+from .base import NESTEROV
 
 
 def _scalar(x, value):

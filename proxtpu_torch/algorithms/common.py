@@ -6,7 +6,7 @@ from __future__ import annotations
 
 import torch
 
-from ..utils.tree import real_dtype_of, tree_map
+from ..utils.tree import real_dtype_of, tree_leaves, tree_map
 
 
 def astree(x0):
@@ -23,3 +23,26 @@ def rscalar(v, R, device):
 
 def real_dtype(x0):
     return real_dtype_of(x0)
+
+
+def device_of(x0):
+    return tree_leaves(x0)[0].device
+
+
+def ls_scalars(x0, alpha, beta, Lf, gamma, adaptive, minimum_gamma,
+               max_backtracks, backtrack_limit):
+    """The scalar fields of the ZeroFPR / PANOC / PANOCplus iterations:
+    ``gamma = alpha / Lf`` when only ``Lf`` is given (in the iterate's real
+    dtype), ``adaptive`` when gamma is left to be estimated."""
+    R, dev = real_dtype(x0), device_of(x0)
+    if gamma is None and Lf is not None:
+        gamma = rscalar(alpha, R, dev) / rscalar(Lf, R, dev)
+    if adaptive is None:
+        adaptive = gamma is None
+    return dict(
+        alpha=rscalar(alpha, R, dev), beta=rscalar(beta, R, dev),
+        gamma=rscalar(gamma, R, dev),
+        minimum_gamma=rscalar(minimum_gamma, R, dev),
+        adaptive=bool(adaptive), max_backtracks=int(max_backtracks),
+        backtrack_limit=(None if backtrack_limit is None
+                         else int(backtrack_limit)))

@@ -80,25 +80,38 @@ _PROX_FIELDS = {
     "SqrDistance": ("b",),
     "NormL21": ("lam", "axis"),
     "Translate": ("f", "t"),
+    "Linear": ("c",),
+    "IndPoint": ("p",),
+    "IndAffine": ("A", "b", "chol"),
+    "SlicedSeparableSum": ("fs", "slices"),
 }
 _LINOP_FIELDS = {
     "IdentityOperator": (),
     "ZeroOperator": (),
     "MatrixOperator": ("A",),
     "Grad2DOperator": ("shape",),
+    "VStackOperator": ("ops",),
+}
+_DIRECTION_FIELDS = {
+    "LBFGS": ("mem",),
+    "AndersonAcceleration": ("mem",),
+    "Broyden": ("theta_bar",),
+    "NoAcceleration": (),
 }
 
 
 def _field(v, device):
-    """Python scalars, flags and shapes stay as they are; a nested function
-    object is carried over; arrays become tensors of the same dtype on
-    ``device``."""
+    """Python scalars, flags and shapes stay as they are; a tuple is carried
+    entry by entry; a nested function object or operator is carried over;
+    arrays become tensors of the same dtype on ``device``."""
     if v is None or isinstance(v, (bool, int, float)):
         return v
-    if isinstance(v, tuple) and all(isinstance(n, int) for n in v):
-        return v
+    if isinstance(v, tuple):
+        return tuple(_field(e, device) for e in v)
     if type(v).__name__ in _PROX_FIELDS:
         return prox_from_jax(v, device)
+    if type(v).__name__ in _LINOP_FIELDS:
+        return linop_from_jax(v, device)
     return torch.tensor(np.array(v), device=device)
 
 
@@ -106,21 +119,27 @@ def prox_from_jax(obj, device):
     """The port's counterpart of one of the JAX package's function objects
     (``Zero``, ``IndZero``, ``LeastSquaresLoss``, ``LeastSquares``,
     ``NormL1``, ``ElasticNet``, ``Quadratic``, ``IndBox``, ``SqrNormL2``,
-    ``SqrDistance``, ``NormL21``, ``Translate`` around one of them, or any of
-    them inside ``Shared``),
-    its arrays on ``device`` in their own dtype.  Stacked (batched) objects
-    carry over as they are."""
-    from .prox import base, functions
+    ``SqrDistance``, ``NormL21``, ``Linear``, ``IndPoint``, ``IndAffine``,
+    ``SlicedSeparableSum``, ``Translate`` around one of them, or any of them
+    inside ``Shared``), its arrays on ``device`` in their own dtype.
+    Stacked (batched) objects carry over as they are.  An
+    ``AutoDifferentiable`` raises: its callable computes in JAX."""
+    from .prox import base, combinators, functions
     from .utils.shared import Shared
 
     name = type(obj).__name__
     if name == "Shared":
         return Shared(prox_from_jax(object.__getattribute__(obj, "value"),
                                     device))
+    if name == "AutoDifferentiable":
+        raise TypeError("an AutoDifferentiable wraps a JAX callable, which "
+                        "cannot be carried: wrap a torch callable in "
+                        "proxtpu_torch.prox.AutoDifferentiable instead")
     if name not in _PROX_FIELDS:
         raise TypeError(f"no port counterpart for {type(obj).__module__}."
                         f"{name}; carried: {sorted(_PROX_FIELDS)}")
-    cls = getattr(functions, name, None) or getattr(base, name)
+    cls = next(getattr(m, name) for m in (functions, combinators, base)
+               if hasattr(m, name))
     return cls(*(_field(getattr(obj, k), device)
                  for k in _PROX_FIELDS[name]))
 
@@ -128,9 +147,9 @@ def prox_from_jax(obj, device):
 def linop_from_jax(obj, device):
     """The port's counterpart of one of the JAX package's operators
     (``IdentityOperator``, ``ZeroOperator``, ``MatrixOperator``,
-    ``Grad2DOperator``, or one inside ``Shared``), read by class name and
-    fields; a bare array becomes a tensor on ``device``, which
-    ``as_linop`` turns into a ``MatrixOperator``."""
+    ``Grad2DOperator``, ``VStackOperator``, or one inside ``Shared``),
+    read by class name and fields; a bare array becomes a tensor on
+    ``device``, which ``as_linop`` turns into a ``MatrixOperator``."""
     from .ops import linops
     from .utils.shared import Shared
 
@@ -145,3 +164,18 @@ def linop_from_jax(obj, device):
         raise TypeError(f"no port counterpart for {type(obj).__module__}."
                         f"{name}; carried: {sorted(_LINOP_FIELDS)}")
     return torch.tensor(np.array(obj), device=device)
+
+
+def direction_from_jax(obj):
+    """The port's counterpart of one of the JAX package's quasi-Newton
+    strategies (``LBFGS``, ``AndersonAcceleration``, ``Broyden``,
+    ``NoAcceleration``), read by class name: only their sizes and constants
+    are carried, a strategy holds no data."""
+    from . import accel
+
+    name = type(obj).__name__
+    if name not in _DIRECTION_FIELDS:
+        raise TypeError(f"no port counterpart for {type(obj).__module__}."
+                        f"{name}; carried: {sorted(_DIRECTION_FIELDS)}")
+    return getattr(accel, name)(*(np.asarray(getattr(obj, k)).item()
+                                  for k in _DIRECTION_FIELDS[name]))

@@ -4,9 +4,12 @@ from .linops import (
     Grad2DOperator,
     IdentityOperator,
     MatrixOperator,
+    VStackOperator,
     ZeroOperator,
     as_linop,
+    power_iteration_opnorm,
 )
 
-__all__ = ["Grad2DOperator", "IdentityOperator", "MatrixOperator",
-           "ZeroOperator", "as_linop"]
+__all__ = ["IdentityOperator", "ZeroOperator", "MatrixOperator",
+           "VStackOperator", "Grad2DOperator", "as_linop",
+           "power_iteration_opnorm"]

@@ -1,6 +1,7 @@
-"""Linear operators (counterpart of the identity, zero, dense and 2-D
-gradient operators of ``proxtpu/ops/linops.py``): ``matvec(x)`` is A x,
-``rmatvec(y)`` is A^H y, ``opnorm()`` is ||A||_2."""
+"""Linear operators (counterpart of ``proxtpu/ops/linops.py``): identity,
+zero, dense, stacked dense and 2-D gradient operators, and the power
+iteration for ||A||_2.  ``matvec(x)`` is A x, ``rmatvec(y)`` is A^H y,
+``opnorm()`` is ||A||_2."""
 
 from __future__ import annotations
 
@@ -10,7 +11,8 @@ from dataclasses import dataclass
 import torch
 
 from ..utils.precision import pdot
-from ..utils.tree import tree_zeros_like
+from ..utils.tree import tree_leaves, tree_map, tree_norm, tree_scale, \
+    tree_zeros_like
 
 
 @dataclass(frozen=True)
@@ -58,6 +60,33 @@ class MatrixOperator:
 
 
 @dataclass(frozen=True)
+class VStackOperator:
+    """A = vcat(ops...): x -> concat([op x for op in ops]), for dense
+    blocks (the L = [A; I] of a linear program by Chambolle-Pock)."""
+
+    ops: tuple
+
+    def matvec(self, x):
+        return torch.cat([op.matvec(x) for op in self.ops])
+
+    def rmatvec(self, y):
+        out, start = None, 0
+        for op in self.ops:
+            if not hasattr(op, "A"):
+                raise ValueError("VStackOperator.rmatvec requires sized "
+                                 "blocks")
+            m = op.A.shape[0]
+            part = op.rmatvec(y[start:start + m])
+            out = part if out is None else out + part
+            start += m
+        return out
+
+    def opnorm(self):
+        return torch.linalg.matrix_norm(
+            torch.cat([op.A for op in self.ops]), 2)
+
+
+@dataclass(frozen=True)
 class Grad2DOperator:
     """Discrete 2-D gradient (forward differences, Neumann boundary).
 
@@ -101,3 +130,21 @@ def as_linop(A):
     if hasattr(A, "shape"):
         return MatrixOperator(torch.as_tensor(A))
     return A
+
+
+def power_iteration_opnorm(op, x_like, iters=50, generator=None):
+    """Estimate ||A||_2 by power iteration on A^H A, from a normal start
+    drawn by ``generator`` (a ``torch.Generator`` on the iterate's device;
+    default: seeded with 0)."""
+    dev = tree_leaves(x_like)[0].device
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    v = tree_map(
+        lambda l: torch.randn(l.shape, dtype=l.real.dtype, device=dev,
+                              generator=generator).to(l.dtype), x_like)
+    for _ in range(iters):
+        w = op.rmatvec(op.matvec(v))
+        nrm = tree_norm(w)
+        v = tree_scale(1 / torch.where(nrm == 0, torch.ones_like(nrm), nrm),
+                       w)
+    return tree_norm(op.matvec(v)) / torch.clamp(tree_norm(v), min=1e-30)

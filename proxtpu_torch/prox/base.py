@@ -34,6 +34,10 @@ def is_generalized_quadratic(f) -> bool:
     return bool(getattr(f, "is_generalized_quadratic", False))
 
 
+def is_smooth(f) -> bool:
+    return hasattr(f, "value_and_gradient") or callable(f)
+
+
 def prox(g, x, gamma):
     """Proximal mapping argmin_z g(z) + ||z - x||^2 / (2 gamma); returns
     ``(z, g_z)``."""
@@ -88,6 +92,22 @@ class IndZero:
 
     def prox(self, x, gamma):
         return tree_zeros_like(x), _rzero(x)
+
+
+@dataclass(frozen=True)
+class AutoDifferentiable:
+    """A plain callable as a smooth term, differentiated by
+    ``torch.func.grad_and_value`` (its gradient already has the reference's
+    convention for complex inputs: no conjugation)."""
+
+    fn: object
+
+    def __call__(self, x):
+        return self.fn(x)
+
+    def value_and_gradient(self, x):
+        grad, val = torch.func.grad_and_value(self.fn)(x)
+        return val, grad
 
 
 def convex_conjugate(f):

@@ -13,8 +13,8 @@ from dataclasses import dataclass
 import torch
 
 from ..utils.precision import pdot, pmatvec
-from ..utils.tree import real_dtype_of, tree_leaves, tree_map, tree_sub, \
-    tree_vdot_real
+from ..utils.tree import real_dtype_of, tree_inf_norm, tree_leaves, \
+    tree_map, tree_sub, tree_vdot_real
 from .base import _rzero, value_and_gradient
 
 
@@ -150,12 +150,86 @@ class IndBox:
                         device=tree_leaves(x)[0].device)
         for l in tree_leaves(x):
             ok = ok & torch.all(l >= self.low) & torch.all(l <= self.high)
-        zero = _rzero(x)
-        return torch.where(ok, zero, torch.full_like(zero, float("inf")))
+        return _indicator(ok, x)
 
     def prox(self, x, gamma):
         z = tree_map(lambda l: torch.clamp(l, self.low, self.high), x)
         return z, _rzero(x)
+
+
+@dataclass(frozen=True)
+class Linear:
+    """f(x) = <c, x>."""
+
+    c: object
+
+    is_convex = True
+    is_generalized_quadratic = True
+
+    def __call__(self, x):
+        return tree_vdot_real(self.c, x)
+
+    def value_and_gradient(self, x):
+        return self(x), self.c
+
+    def prox(self, x, gamma):
+        z = tree_map(lambda xl, cl: xl - gamma * cl, x, self.c)
+        return z, self(z)
+
+
+def IndNonnegative():
+    """Indicator of the nonnegative orthant."""
+    return IndBox(0.0, float("inf"))
+
+
+def _indicator(ok, x):
+    zero = _rzero(x)
+    return torch.where(ok, zero, torch.full_like(zero, float("inf")))
+
+
+@dataclass(frozen=True)
+class IndPoint:
+    """Indicator of the singleton {p}."""
+
+    p: object
+
+    is_convex = True
+    is_generalized_quadratic = True
+
+    def __call__(self, x):
+        return _indicator(tree_inf_norm(tree_sub(x, self.p)) == 0, x)
+
+    def prox(self, x, gamma):
+        return self.p, _rzero(x)
+
+
+@dataclass(frozen=True)
+class IndAffine:
+    """Indicator of {x : Ax = b}; its prox is the affine projection through
+    the Cholesky factor of A A^H, made once by :func:`make_ind_affine`."""
+
+    A: object
+    b: object
+    chol: object
+
+    is_convex = True
+    is_generalized_quadratic = True
+
+    def __call__(self, x):
+        eps = torch.finfo(real_dtype_of(x)).eps
+        feas = torch.amax(torch.abs(pdot(self.A, x) - self.b)) <= 1e3 * eps
+        return _indicator(feas, x)
+
+    def prox(self, x, gamma):
+        resid = pdot(self.A, x) - self.b
+        w = torch.cholesky_solve(resid.unsqueeze(-1), self.chol).squeeze(-1)
+        return x - pdot(self.A.mH, w), _rzero(x)
+
+
+def make_ind_affine(A, b):
+    A = torch.as_tensor(A)
+    b = torch.as_tensor(b)
+    return IndAffine(A, b, torch.linalg.cholesky(pdot(A, A.mH)))
 
 
 @dataclass(frozen=True)
@@ -203,13 +277,20 @@ class LeastSquares:
 
 
 def make_least_squares(A, b, lam=1.0):
+    """The Gram matrix is factored in double precision and the factors are
+    kept in A's dtype: the prox is only as exact as the eigen-pairs.  With
+    single-precision factors, DRLS's float32 answer on ``lasso_medium``
+    rechecked at 5.6e-3 on an H100, against the JAX package's 2.8e-4 on
+    the CPU."""
     A = torch.as_tensor(A)
     b = torch.as_tensor(b)
     m, n = A.shape
     wide = m < n
-    gram = pdot(A, A.mH) if wide else pdot(A.mH, A)
+    Ad = A.to(torch.complex128 if A.is_complex() else torch.float64)
+    gram = pdot(Ad, Ad.mH) if wide else pdot(Ad.mH, Ad)
     s, U = torch.linalg.eigh(gram)
-    return LeastSquares(A, b, lam, U, s, pdot(A.mH, b), wide)
+    return LeastSquares(A, b, lam, U.to(A.dtype), s.to(real_dtype_of(A)),
+                        pdot(A.mH, b), wide)
 
 
 @dataclass(frozen=True)

@@ -60,13 +60,26 @@ def tree_map(fn, tree, *rest):
                     for i, c in enumerate(children)])
 
 
+def tree_add(a, b):
+    return tree_map(torch.add, a, b)
+
+
 def tree_sub(a, b):
     return tree_map(torch.sub, a, b)
+
+
+def tree_neg(a):
+    return tree_map(torch.neg, a)
 
 
 def tree_scale(alpha, a):
     """alpha * a for a scalar ``alpha`` (a number or a rank-0 tensor)."""
     return tree_map(lambda l: alpha * l, a)
+
+
+def tree_lincomb(alpha, a, beta, b):
+    """alpha*a + beta*b."""
+    return tree_map(lambda al, bl: alpha * al + beta * bl, a, b)
 
 
 def tree_zeros_like(a):
@@ -82,14 +95,27 @@ def _vdot(x, y):
     return torch.sum(x.conj() * y)
 
 
+def _leaf_sum(tree):
+    leaves = tree_leaves(tree)
+    return sum(leaves[1:], leaves[0])
+
+
 def tree_vdot_real(a, b):
     """real(<a, b>) with ``a`` conjugated: the reference's inner product."""
-    leaves = tree_leaves(tree_map(_vdot, a, b))
-    return torch.real(sum(leaves[1:], leaves[0]))
+    return torch.real(_leaf_sum(tree_map(_vdot, a, b)))
+
+
+def tree_dot(a, b):
+    """<a, b> without conjugation (the Douglas-Rachford envelope's)."""
+    return _leaf_sum(tree_map(lambda x, y: torch.sum(x * y), a, b))
 
 
 def tree_norm_sq(a):
     return tree_vdot_real(a, a)
+
+
+def tree_norm(a):
+    return torch.sqrt(tree_norm_sq(a))
 
 
 def tree_inf_norm(a):

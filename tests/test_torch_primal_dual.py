@@ -344,6 +344,9 @@ def test_linop_from_jax(name):
         np.testing.assert_array_equal(got.A.numpy(), M)
     else:
         assert type(got).__name__ == name
+    # VStackOperator has a counterpart now; the sharded operator has none
+    from proxtpu.parallel.sharded_ops import ShardedMatrixOperator
+
     with pytest.raises(TypeError, match="no port counterpart"):
-        pt.linop_from_jax(jops.VStackOperator((jops.IdentityOperator(),)),
-                          device="cpu")
+        pt.linop_from_jax(ShardedMatrixOperator(jnp.asarray(M), None, None,
+                                                None), device="cpu")
