@@ -67,23 +67,74 @@ def tv_from_numpy(b, lam, device):
 
 
 # the fields each carried class is rebuilt from, in constructor order
+# (IndGraph carries A alone: the port makes its own Cholesky factor)
 _PROX_FIELDS = {
+    # base
     "Zero": (),
     "IndZero": (),
-    "LeastSquaresLoss": ("A", "b", "lam"),
-    "LeastSquares": ("A", "b", "lam", "U", "s", "Atb", "wide"),
+    # combinators
+    "Conjugate": ("f",),
+    "SeparableSum": ("fs",),
+    "SlicedSeparableSum": ("fs", "slices"),
+    "Postcompose": ("f", "a", "b"),
+    "Precompose": ("f", "L", "mu", "b"),
+    "MoreauEnvelope": ("f", "gamma"),
+    "Tilt": ("f", "a", "b"),
+    "Regularize": ("f", "rho", "a"),
+    "PointwiseMinimum": ("fs",),
+    "PrecomposeDiagonal": ("f", "a", "b"),
+    "Sum": ("fs",),
+    # functions
     "NormL1": ("lam",),
-    "ElasticNet": ("mu", "lam"),
-    "Quadratic": ("Q", "q"),
-    "IndBox": ("low", "high"),
-    "SqrNormL2": ("lam",),
-    "SqrDistance": ("b",),
+    "NormL2": ("lam",),
     "NormL21": ("lam", "axis"),
-    "Translate": ("f", "t"),
+    "NuclearNorm": ("lam",),
+    "SqrNormL2": ("lam",),
+    "ElasticNet": ("mu", "lam"),
     "Linear": ("c",),
+    "IndBox": ("low", "high"),
     "IndPoint": ("p",),
     "IndAffine": ("A", "b", "chol"),
-    "SlicedSeparableSum": ("fs", "slices"),
+    "LeastSquares": ("A", "b", "lam", "U", "s", "Atb", "wide"),
+    "LeastSquaresLoss": ("A", "b", "lam"),
+    "Translate": ("f", "t"),
+    "Quadratic": ("Q", "q"),
+    "LogisticLoss": ("scale",),
+    "HuberLoss": ("rho", "mu"),
+    "IndSimplex": ("a",),
+    "IndBallL2": ("r",),
+    "IndBallL1": ("r",),
+    "SumPositive": (),
+    "SqrDistance": ("b",),
+    "NormL0": ("lam",),
+    "HingeLoss": ("y", "mu"),
+    "IndBallLinf": ("r",),
+    "NormLinf": ("lam",),
+    "IndHalfspace": ("a", "b"),
+    "IndPSD": (),
+    "IndSphereL2": ("r",),
+    "LogBarrier": ("mu",),
+    "IndSOC": (),
+    "NormL1plusL2": ("lam1", "lam2"),
+    "IndBallL0": ("k",),
+    "DistL2": ("ind", "lam"),
+    "SqrHingeLoss": ("y", "mu"),
+    "IndCappedSimplex": ("k", "cap"),
+    "SumLargest": ("k", "lam"),
+    "NegLogDet": ("mu",),
+    "CubeNormL2": ("lam",),
+    "IndBinary": ("low", "high"),
+    "IndStiefel": (),
+    "CrossEntropy": ("b",),
+    "IndExpPrimal": (),
+    "IndExpDual": (),
+    "IndGraph": ("A",),
+    "IndRank": ("k",),
+    "NegEntropy": ("lam",),
+    "IndFree": (),
+    "IndHyperslab": ("a", "lo", "hi"),
+    "IndPolyhedral": ("A", "lo", "hi", "tol", "maxit"),
+    "TotalVariation1D": ("lam", "tol", "maxit", "restart"),
 }
 _LINOP_FIELDS = {
     "IdentityOperator": (),
@@ -116,14 +167,13 @@ def _field(v, device):
 
 
 def prox_from_jax(obj, device):
-    """The port's counterpart of one of the JAX package's function objects
-    (``Zero``, ``IndZero``, ``LeastSquaresLoss``, ``LeastSquares``,
-    ``NormL1``, ``ElasticNet``, ``Quadratic``, ``IndBox``, ``SqrNormL2``,
-    ``SqrDistance``, ``NormL21``, ``Linear``, ``IndPoint``, ``IndAffine``,
-    ``SlicedSeparableSum``, ``Translate`` around one of them, or any of them
-    inside ``Shared``), its arrays on ``device`` in their own dtype.
-    Stacked (batched) objects carry over as they are.  An
-    ``AutoDifferentiable`` raises: its callable computes in JAX."""
+    """The port's counterpart of any of the JAX package's function objects
+    (every class of ``proxtpu.prox`` and the results of its factories;
+    nested ones, such as ``Tilt(NegLogDet(1.0), S)``, ``SeparableSum``,
+    ``PointwiseMinimum`` or ``Precompose`` around an operator, are carried
+    whole; any of them inside ``Shared``), its arrays on ``device`` in
+    their own dtype.  Stacked (batched) objects carry over as they are.
+    An ``AutoDifferentiable`` raises: its callable computes in JAX."""
     from .prox import base, combinators, functions
     from .utils.shared import Shared
 

@@ -12,7 +12,9 @@ forms give the same result whenever the search ends within the bound.
 
 from __future__ import annotations
 
-from .tree import tree_where
+import torch
+
+from .tree import tree_leaves, tree_where
 
 
 def bounded_while(cond, body, init, max_trips):
@@ -30,3 +32,19 @@ def bounded_while(cond, body, init, max_trips):
     for _ in range(int(max_trips)):
         c = tree_where(cond(c), body(c), c)
     return c
+
+
+def vmap_while(cond, body, init, maxit, inputs):
+    """A ``lax.while_loop`` whose ``cond`` also tests ``k < maxit`` (the
+    inner loops of the prox functions).
+
+    Which form runs is decided once, by the loop's ``inputs`` (the tensors
+    its result depends on): plain tensors (one problem) loop on the host
+    and pay no trip after the condition fails; if any is a batched tensor
+    of ``torch.func.vmap``, the loop runs ``maxit`` masked trips, which
+    gives what JAX's ``while_loop`` gives under ``vmap`` (every lane's
+    result as if alone, finished lanes frozen) and pays ``maxit`` trips
+    whatever the lanes need."""
+    mapped = any(torch._C._functorch.is_batchedtensor(t)
+                 for t in tree_leaves(inputs) if isinstance(t, torch.Tensor))
+    return bounded_while(cond, body, init, maxit if mapped else None)

@@ -100,9 +100,14 @@ def _leaf_sum(tree):
     return sum(leaves[1:], leaves[0])
 
 
+def tree_vdot(a, b):
+    """<a, b> with ``a`` conjugated (``LinearAlgebra.dot``)."""
+    return _leaf_sum(tree_map(_vdot, a, b))
+
+
 def tree_vdot_real(a, b):
     """real(<a, b>) with ``a`` conjugated: the reference's inner product."""
-    return torch.real(_leaf_sum(tree_map(_vdot, a, b)))
+    return torch.real(tree_vdot(a, b))
 
 
 def tree_dot(a, b):
