@@ -90,9 +90,33 @@ Phases, in order; any failure raises and exits non-zero:
    published size in float32 through ``BatchedAlgorithm``'s generic driver,
    timed after a short warm-up and held to its script's gate; no kernel
    lies on this path, and the phase fails past its 90 s budget;
-10. print the kernels' JSON line (time, plain version's time, bound and,
+10. run the flat machines and the warm start (phase "flat machines",
+    ``proxtpu_torch/parallel/flat_ls.py``, ``adaptive_batch.py``,
+    ``warm.py``), each route timed after a short warm-up with its trips
+    and PyTorch operations a trip, every lane done and rechecked in
+    float64 on the host; the phase fails past its 60 s budget:
+    (m) ``benchmarks/flat_ls_bench.py``'s flagship problems
+        (``bench.gen_problems(256)``, tol 1e-5, Lf per lane) through the
+        default ``BatchedAlgorithm``: PANOC, ZeroFPR and PANOCplus on the
+        flat machines, each rechecked under twice the JAX package's own
+        float32 recheck and its first lanes (0-7 of PANOC, 0-3 of the
+        others) against their single solves on the card; PANOC once more on the bounded route (``use_kernels=False``)
+        with the ratio of operations an iteration;
+    (n) ``benchmarks/logistic_bench.py``'s three flat variants
+        (``flat_zerofpr_shared``, ``flat_zerofpr_stacked``,
+        ``flat_panoc_shared``) on the families' logistic data, under the
+        families' float64 recheck, beside that phase's bounded PANOC;
+    (o) the adaptive machines on (m)'s problems: FISTA with no step
+        (``batched_adaptive_fista``) and adaptive PANOC from a gamma ten
+        times too large;
+    (p) ``WarmStartedBatchedAlgorithm(FastForwardBackward)`` in float64 at
+        tol 1e-6: the float32 stage on the kernel route (``fista_step``;
+        its launches join the kernels' line), the polish on the float64
+        plain step, every lane's float64 residual <= 1.05 tol, beside the
+        cold float64 solve on the generic driver;
+11. print the kernels' JSON line (time, plain version's time, bound and,
     where one PyTorch call computes the same function, that call's time),
-    then the result line.
+    the seconds of every phase, then the result line.
 
 Imports no JAX.  Needs one card, ``nvcc`` (CUDA_HOME) and a few minutes.
 """
@@ -2144,6 +2168,7 @@ def families_logistic(card):
                 f"float64 FB recheck max {r:.3e} (<= {2 * fam.LOG_TOL:.0e})")
     assert bool(done.all()) and r <= 2 * fam.LOG_TOL, (
         int((~done).sum()), r)
+    return wall, iters
 
 
 def phase_families(card):
@@ -2161,14 +2186,14 @@ def phase_families(card):
     counters = launch_counters()
     for w, a in counters.values():
         setattr(w, a, 0)
-    seconds = {}
+    seconds, out = {}, {}
     for name, fn in (("SVM", families_svm), ("CVaR", families_cvar),
                      ("matrix completion", families_mc),
                      ("graphical lasso", families_glasso),
                      ("1-D TV", families_tv1d),
                      ("logistic", families_logistic)):
         t0 = time.perf_counter()
-        fn(card)
+        out[name] = fn(card)
         seconds[name] = time.perf_counter() - t0
     launched = {k: getattr(w, a) for k, (w, a) in counters.items()}
     assert not any(launched.values()), launched
@@ -2177,7 +2202,365 @@ def phase_families(card):
           f"{FAMILY_BUDGET_S:.0f} s); by family: " + ", ".join(
               f"{k} {v:.1f}" for k, v in seconds.items()) + f"  [{card}]")
     assert dt <= FAMILY_BUDGET_S, (dt, FAMILY_BUDGET_S)
+    return out["logistic"]
 
+
+
+# the flat machines (proxtpu_torch/parallel/flat_ls.py, adaptive_batch.py)
+# and the float32 -> float64 warm start (parallel/warm.py), routes (m)-(p)
+FLAT_BUDGET_S = 60.0
+# the JAX package's flat machines in float32 on bench.gen_problems(256)
+# (CPU): the worst float64 recheck at gamma = 1 / Lf over the 256 lanes
+# (`PYTHONPATH=. JAX_PLATFORMS=cpu python tests/test_torch_flat_ls.py`);
+# the port is held to twice each
+FLAT_JAX_RECHECK = {"panoc": 9.447911e-06, "zerofpr": 1.010437e-05,
+                    "panocplus": 1.015201e-05,
+                    "adaptive_fista": 1.053983e-05,
+                    "adaptive_panoc": 9.844179e-06}
+# lanes of route (m) held against their single solves: 0-7 of PANOC,
+# 0-3 of ZeroFPR and PANOCplus (a single solve on the card takes 5-10 ms
+# an iteration of host: 24 of them took 19 s of the phase's 60)
+FLAT_CHECKED = {"PANOC": 8, "ZeroFPR": 4, "PANOCplus": 4}
+# the distance of a flat lane from its single solve: two certified float32
+# answers at 200 x 400 (the main path's kernel and plain routes sit up to
+# 9.838e-4 apart, route (c)), held under twice that
+FLAT_DX = 2e-3
+WARM_TOL = 1e-6  # route (p), tests/test_warm.py's oracle: <= 1.05 tol
+
+
+class counting_trips:
+    """Within ``with``: count the trips of the flat machines and of the
+    host loops of the generic driver and of the lasso solvers (the calls of
+    their bodies), and with ``ops=True`` the PyTorch operations inside
+    those trips (a ``TorchDispatchMode``: slow, for a short run)."""
+
+    def __init__(self, ops=False):
+        self.ops, self.trips, self.n_ops = ops, 0, 0
+
+    def _counted(self, body):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        outer = self
+
+        class Ops(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                outer.n_ops += 1
+                return func(*args, **(kwargs or {}))
+
+        def trip(*args):
+            self.trips += 1
+            if not self.ops:
+                return body(*args)
+            with Ops():
+                return body(*args)
+        return trip
+
+    def __enter__(self):
+        import proxtpu_torch.kernels.lasso as tl
+        import proxtpu_torch.parallel.adaptive_batch as ab
+        import proxtpu_torch.parallel.batch as bt
+        import proxtpu_torch.parallel.flat_ls as fl
+
+        self.modules = fl, ab, bt, tl
+        self.saved = (fl._host_while, ab._host_while, bt.run_host_loop,
+                      tl.run_host_loop)
+        real_while, real_loop = self.saved[0], self.saved[2]
+
+        def host_while(active_of, body, s, every, cap):
+            return real_while(active_of, self._counted(body), s, every, cap)
+
+        def host_loop(body, state, *args, **kw):
+            return real_loop(self._counted(body), state, *args, **kw)
+
+        fl._host_while = ab._host_while = host_while
+        bt.run_host_loop = tl.run_host_loop = host_loop
+        return self
+
+    def __exit__(self, *exc):
+        fl, ab, bt, tl = self.modules
+        (fl._host_while, ab._host_while, bt.run_host_loop,
+         tl.run_host_loop) = self.saved
+        return False
+
+
+def flat_route(name, solve, maxit, card, gate=None, recheck_fn=None,
+               launched=None):
+    """Warm ``solve(cap)`` up at FAMILY_WARM iterations, time one solve at
+    ``maxit`` counting its trips (and, into the dict ``launched``, the
+    kernel launches of that solve alone: every counter set to 0 just
+    before it and read just after), then count the operations of a trip
+    in a short run.  Every lane must be done and its float64 recheck under
+    ``gate``.  Returns ``(xs, iters, wall, trips, ops per trip)``."""
+    timed_solve(lambda: solve(FAMILY_WARM))
+    counters = launch_counters()
+    for w, a in counters.values():
+        setattr(w, a, 0)
+    with counting_trips() as count:
+        (xs, iters, done), wall = timed_solve(lambda: solve(maxit))
+    if launched is not None:
+        launched.update({k: getattr(w, a) for k, (w, a) in counters.items()})
+    with counting_trips(ops=True) as ops:
+        solve(FAMILY_WARM)
+        torch.cuda.synchronize()
+    per_trip = ops.n_ops / max(ops.trips, 1)
+    assert xs.device.type == torch.device(DEVICE).type, \
+        f"{name}: the solve left the card"
+    assert bool(done.all()), f"{name}: {int((~done).sum())} lanes left"
+    assert bool(torch.isfinite(xs).all()), name
+    r = None
+    if recheck_fn is not None:
+        r = float(np.max(recheck_fn(xs.cpu().numpy())))
+        assert r <= gate, (name, r, gate)
+    print(f"  {name}: {wall:.3f} s, iterations mean "
+          f"{iters.float().mean():.2f} max {int(iters.max())}, trips "
+          f"{count.trips}, operations per trip {per_trip:.1f}"
+          + ("" if r is None else f", float64 recheck {r:.3e} <= "
+             f"{gate:.3e}") + f"  [{card}]")
+    return xs, iters, wall, count.trips, per_trip
+
+
+def per_iteration(trips, per_trip, iters):
+    """Operations per iteration of a batched run: its trips' operations
+    over the iterations of its slowest lane (the generic driver makes one
+    trip an iteration)."""
+    return trips * per_trip / int(iters.max())
+
+
+def flat_pair(name, flat, bounded):
+    """Print a flat route beside its bounded (masked-trial) counterpart:
+    walls, iterations and operations per iteration."""
+    f_ops, b_ops = per_iteration(*flat[3:], flat[1]), bounded[2]
+    print(f"  {name}: flat {flat[2]:.3f} s, {f_ops:.1f} operations an "
+          f"iteration; bounded {bounded[0]:.3f} s, {b_ops:.1f}; operations "
+          f"an iteration bounded / flat {b_ops / f_ops:.2f}, wall "
+          f"{bounded[0] / flat[2]:.2f}")
+
+
+def bounded_ops(solve):
+    """Operations per iteration of a generic-driver run (one trip an
+    iteration), from a short run."""
+    with counting_trips(ops=True) as ops:
+        solve(FAMILY_WARM)
+        torch.cuda.synchronize()
+    return ops.n_ops / max(ops.trips, 1)
+
+
+def flat_flagship(card, As, bs, lams, Lfs):
+    """Route (m): benchmarks/flat_ls_bench.py's flagship problems through
+    the default BatchedAlgorithm (PANOC, ZeroFPR, PANOCplus with Lf per
+    lane: the flat machines), PANOC once more on the bounded route, and
+    the first lanes of each (FLAT_CHECKED) against their single solves on
+    the card."""
+    import proxtpu_torch as pt
+    from proxtpu_torch.kernels.dispatch import match_flat_linesearch
+    from proxtpu_torch.prox import NormL1, SqrDistance
+
+    A, b, lam, Lf = (torch.tensor(v, device=DEVICE)
+                     for v in (As, bs, lams, Lfs))
+    kw = dict(x0=torch.zeros(A.shape[0], A.shape[2], device=DEVICE),
+              f=SqrDistance(b), A=A, g=NormL1(lam), Lf=Lf)
+
+    def check(xs):
+        return recheck64(As, bs, lams, Lfs, xs)
+
+    out = {}
+    for name in ("PANOC", "ZeroFPR", "PANOCplus"):
+        factory = getattr(pt, f"make_{name.lower()}_iteration")
+        assert match_flat_linesearch(factory, kw, tol=TOL,
+                                     maxit=MAXIT) is not None, name
+        key = name.lower()
+        out[key] = flat_route(
+            f"(m) {name} flat", lambda cap, fac=factory: pt.BatchedAlgorithm(
+                fac, maxit=cap, tol=TOL)(**kw), MAXIT, card,
+            2 * FLAT_JAX_RECHECK[key], check)
+        xs, iters = out[key][:2]
+        exact, d_it, d_x = 0, 0, 0.0
+        for i in range(FLAT_CHECKED[name]):
+            x, it = getattr(pt, name)(tol=TOL, maxit=MAXIT)(
+                x0=kw["x0"][i], f=SqrDistance(b[i]), A=A[i],
+                g=NormL1(float(lam[i])), Lf=float(Lf[i]))
+            assert it < MAXIT, (name, i, it)
+            exact += int(iters[i]) == it
+            d_it = max(d_it, abs(int(iters[i]) - it))
+            d_x = max(d_x, max_err(xs[i], x))
+        print(f"    lanes 0-{FLAT_CHECKED[name] - 1} against single solves: "
+              f"{exact}/{FLAT_CHECKED[name]} counts equal, max|d iters| "
+              f"{d_it}, "
+              f"max|d x| {d_x:.3e} <= {FLAT_DX:.0e}")
+        assert d_x <= FLAT_DX, (name, d_x)
+
+    def bounded(cap):
+        return pt.BatchedAlgorithm(pt.make_panoc_iteration, maxit=cap,
+                                   tol=TOL, use_kernels=False)(**kw)
+
+    xs_b, it_b, wall_b, _, per_b = flat_route(
+        "(m) PANOC bounded (use_kernels=False)", bounded, MAXIT, card,
+        2 * FLAT_JAX_RECHECK["panoc"], check)
+    flat_pair("(m) PANOC", out["panoc"], (wall_b, it_b, per_b))
+
+
+def flat_logistic(card, family_line_):
+    """Route (n): benchmarks/logistic_bench.py's three flat variants on
+    tools/families.py's logistic data, gated by the families' float64
+    recheck, beside the families phase's bounded PANOC."""
+    from proxtpu_torch.ops.linops import MatrixOperator
+    from proxtpu_torch.parallel import batched_panoc, batched_zerofpr
+    from proxtpu_torch.prox import LogisticLoss, NormL1, Translate
+    from proxtpu_torch.tools import families as fam
+    from proxtpu_torch.utils.shared import Shared
+
+    data = fam.logistic_data()
+    A, b, lams = (torch.tensor(data[k], device=DEVICE)
+                  for k in ("A", "b", "lams"))
+    B, (m, n) = lams.shape[0], A.shape
+    x0 = A.new_zeros(B, n)
+    gamma = torch.full((B,), 0.95 / data["Lf"], device=DEVICE)
+    g = NormL1(lams)
+    f_log = Translate(LogisticLoss(1.0), -b)
+    f_st = Translate(LogisticLoss(A.new_ones(B)),
+                     (-b).expand(B, m).contiguous())
+    A_st = MatrixOperator(A.expand(B, m, n).contiguous())
+    variants = {
+        "flat_zerofpr_shared": lambda cap: batched_zerofpr(
+            Shared(f_log), Shared(MatrixOperator(A)), g, x0, gamma,
+            fam.LOG_TOL, maxit=cap),
+        "flat_zerofpr_stacked": lambda cap: batched_zerofpr(
+            f_st, A_st, g, x0, gamma, fam.LOG_TOL, maxit=cap),
+        "flat_panoc_shared": lambda cap: batched_panoc(
+            Shared(f_log), Shared(MatrixOperator(A)), g, x0, gamma,
+            fam.LOG_TOL, maxit=cap),
+    }
+    out = {name: flat_route(
+        f"(n) {name}", run, fam.LOG_MAXIT, card, 2 * fam.LOG_TOL,
+        lambda xs: fam.logistic_recheck(data, xs))
+        for name, run in variants.items()}
+    wall_b, it_b = family_line_
+    per_b = bounded_ops(lambda cap: fam.logistic_solve(data, DEVICE,
+                                                       maxit=cap))
+    print(f"  (n) bounded PANOC of the families phase: {wall_b:.3f} s, "
+          f"iterations mean {it_b.float().mean():.2f} max "
+          f"{int(it_b.max())}, operations an iteration {per_b:.1f}")
+    flat_pair("(n) flat_panoc_shared", out["flat_panoc_shared"],
+              (wall_b, it_b, per_b))
+
+
+def flat_adaptive(card, As, bs, lams, Lfs):
+    """Route (o): the adaptive machines on route (m)'s problems:
+    BatchedAlgorithm(FastForwardBackward) with no step (the adaptive FISTA
+    machine) and adaptive PANOC from a gamma ten times too large
+    (flat_ls_bench.py --adaptive)."""
+    import proxtpu_torch as pt
+    from proxtpu_torch.kernels.dispatch import (
+        match_flat_adaptive,
+        match_flat_linesearch,
+    )
+    from proxtpu_torch.prox import LeastSquaresLoss, NormL1, SqrDistance
+
+    A, b, lam, Lf = (torch.tensor(v, device=DEVICE)
+                     for v in (As, bs, lams, Lfs))
+    x0 = torch.zeros(A.shape[0], A.shape[2], device=DEVICE)
+
+    def check(xs):
+        return recheck64(As, bs, lams, Lfs, xs)
+
+    kw_fista = dict(x0=x0, f=LeastSquaresLoss(A, b), g=NormL1(lam))
+    assert match_flat_adaptive(pt.make_fast_forward_backward_iteration,
+                               kw_fista, tol=TOL, maxit=4 * MAXIT)
+    flat_route("(o) adaptive FISTA flat", lambda cap: pt.BatchedAlgorithm(
+        pt.make_fast_forward_backward_iteration, maxit=cap, tol=TOL)(
+            **kw_fista), 4 * MAXIT, card,
+        2 * FLAT_JAX_RECHECK["adaptive_fista"], check)
+    kw_panoc = dict(x0=x0, f=SqrDistance(b), A=A, g=NormL1(lam),
+                    adaptive=True, gamma=10 * 0.95 / Lf)
+    assert match_flat_linesearch(pt.make_panoc_iteration, kw_panoc,
+                                 tol=TOL, maxit=MAXIT)
+    flat_route("(o) adaptive PANOC flat, gamma 10x", lambda cap:
+               pt.BatchedAlgorithm(pt.make_panoc_iteration, maxit=cap,
+                                   tol=TOL)(**kw_panoc), MAXIT, card,
+               2 * FLAT_JAX_RECHECK["adaptive_panoc"], check)
+
+
+def flat_warm(card, As, bs, lams, Lfs):
+    """Route (p): WarmStartedBatchedAlgorithm(FastForwardBackward) in
+    float64 at tol 1e-6 on stacked A: stage 1 on the float32 kernel route
+    (its launches counted), the polish on the float64 plain step; each
+    lane's float64 FB residual <= 1.05 tol, beside the cold float64
+    solve on the generic driver.  Returns the launches of stage 1."""
+    import proxtpu_torch as pt
+    from proxtpu_torch.parallel import (
+        WarmStartedBatchedAlgorithm,
+        cast_problem,
+    )
+    from proxtpu_torch.prox import LeastSquaresLoss, NormL1
+
+    A, b, lam, Lf = (torch.tensor(v, dtype=torch.float64, device=DEVICE)
+                     for v in (As, bs, lams, Lfs))
+    kw = dict(x0=torch.zeros(A.shape[0], A.shape[2], dtype=torch.float64,
+                             device=DEVICE),
+              f=LeastSquaresLoss(A, b), g=NormL1(lam), Lf=Lf)
+
+    def check(xs):
+        return recheck64(As, bs, lams, Lfs, xs)
+
+    launches = {}
+    xs, iters, wall, _, _ = flat_route(
+        "(p) warm start float32 -> float64, tol 1e-6",
+        lambda cap: WarmStartedBatchedAlgorithm(
+            pt.make_fast_forward_backward_iteration, maxit=cap,
+            tol=WARM_TOL)(**kw), 20_000, card, 1.05 * WARM_TOL, check,
+        launched=launches)
+    moved = {k for k, v in launches.items() if v}
+    assert launches["fista_step"] > 0 and moved <= {"fb_step", "fista_step"}, \
+        launches
+    solver = WarmStartedBatchedAlgorithm(
+        pt.make_fast_forward_backward_iteration, maxit=20_000, tol=WARM_TOL)
+    (_, it1, _), wall1 = timed_solve(lambda: solver.warm(
+        **cast_problem(kw, solver.warm_dtype)))
+    print(f"    stage 1 launches (the kernels' JSON line counts them): "
+          f"{ {k: launches[k] for k in sorted(moved)} }; stage 1 alone "
+          f"{wall1:.3f} s, iterations max {int(it1.max())}")
+    xs_c, it_c, wall_c, _, _ = flat_route(
+        "(p) cold float64, generic driver", lambda cap: pt.BatchedAlgorithm(
+            pt.make_fast_forward_backward_iteration, maxit=cap,
+            tol=WARM_TOL, use_kernels=False)(**kw), 20_000, card,
+        1.05 * WARM_TOL, check)
+    print(f"    warm / cold wall {wall / wall_c:.3f}, iterations max "
+          f"{int(iters.max())} / {int(it_c.max())}, max|x_warm - x_cold| "
+          f"{max_err(xs, xs_c):.3e}")
+    return launches
+
+
+def recheck64(As, bs, lams, Lfs, xs):
+    """:func:`recheck` in float64 (the flat routes' gate)."""
+    return recheck(*(np.asarray(v, np.float64)
+                     for v in (As, bs, lams, Lfs, xs)))
+
+
+def phase_flat(card, family_logistic):
+    """Routes (m)-(p): the flat machines and the warm start at full width
+    on the card; the phase must end within FLAT_BUDGET_S.  Returns the
+    kernel launches of route (p)'s float32 stage."""
+    import bench
+    from proxtpu_torch.utils.precision import require_full_f32_matmul
+
+    require_full_f32_matmul()
+    t_phase = time.perf_counter()
+    problems = bench.gen_problems(bench.BATCH)
+    seconds, out = {}, {}
+    for name, fn, args in (
+            ("(m)", flat_flagship, problems),
+            ("(n)", flat_logistic, (family_logistic,)),
+            ("(o)", flat_adaptive, problems),
+            ("(p)", flat_warm, problems)):
+        t0 = time.perf_counter()
+        out[name] = fn(card, *args)
+        seconds[name] = time.perf_counter() - t0
+    dt = time.perf_counter() - t_phase
+    print(f"  flat machines: {dt:.1f} s (budget {FLAT_BUDGET_S:.0f} s); by "
+          "route: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
+          + f"  [{card}]")
+    assert dt <= FLAT_BUDGET_S, (dt, FLAT_BUDGET_S)
+    return out["(p)"]
 
 
 def kernel_bounds():
@@ -2265,7 +2648,10 @@ def main():
     phase("reference suite", phase_reference_suite, card)
     print("application families, the benchmark scripts' six families at "
           "their published sizes:")
-    phase("application families", phase_families, card)
+    logistic = phase("application families", phase_families, card)
+    print("flat machines and the warm start, routes (m)-(p):")
+    for k, n in phase("flat machines", phase_flat, card, logistic).items():
+        launches[k] = launches.get(k, 0) + n
     launches["read_reduce"] = floor_launches
     kernels = {
         "fista_step": ("lasso_step.cu", "proxtpu/kernels/lasso.py:156"),

@@ -33,6 +33,8 @@ import math
 
 import torch
 
+from ..utils.tree import real_dtype_of
+
 # the blocked routes' threshold: bytes of A (or Q) per lane
 BLOCKED_LANE_BYTES = 1 << 20
 # packed route: at most this many bytes of A per group of `pack` lanes
@@ -392,3 +394,279 @@ def match_kernel_solver(factory, kwargs, *, tol, maxit, stop=None,
         return run
 
     return None
+
+
+def _lanes_ok(tree, B):
+    """Every tensor of ``tree`` not under a ``Shared`` marker carries the
+    batch axis B first."""
+    from ..utils.shared import lane_arrays
+
+    return all(l.dim() > 0 and l.shape[0] == B for l in lane_arrays(tree))
+
+
+def match_flat_adaptive(factory, kwargs, *, tol, maxit, stop=None,
+                        solution=None, check_every=1):
+    """``run() -> (z, iters, done)`` for batched *adaptive* FB / FISTA on
+    the flattened trial/commit machine
+    (:mod:`proxtpu_torch.parallel.adaptive_batch`: one oracle evaluation
+    per trip instead of ``backtrack_limit`` masked trials per iteration),
+    or ``None``.  ``check_every`` trips run between the host's tests
+    (``BatchedAlgorithm`` passes 8 unless it was given one); the counts do
+    not depend on it."""
+    if stop is not None or solution is not None:
+        return None
+    name = getattr(factory, "__name__", "")
+    accel = name == "make_fast_forward_backward_iteration"
+    if not accel and name != "make_forward_backward_iteration":
+        return None
+    gamma, Lf = kwargs.get("gamma"), kwargs.get("Lf")
+    adaptive = kwargs.get("adaptive")
+    if adaptive is None:
+        adaptive = gamma is None and Lf is None
+    if not adaptive:
+        return None
+    if "backtrack_limit" in kwargs:
+        # a gamma search the caller cut short: only the generic driver
+        # honours it
+        return None
+    if kwargs.get("extrapolation_sequence") is not None:
+        return None
+    x0 = kwargs.get("x0")
+    f, g = kwargs.get("f"), kwargs.get("g")
+    if x0 is None or f is None or g is None:
+        return None
+    x0 = torch.as_tensor(x0)
+    if x0.dim() != 2:
+        return None
+    B = x0.shape[0]
+    if not _lanes_ok((f, g), B):
+        return None
+
+    # the steps in the real dtype of x0 (complex iterates keep real
+    # gammas); a mis-shaped gamma or Lf takes the generic driver
+    R = real_dtype_of(x0)
+    gamma0 = None
+    if gamma is not None:
+        gamma0 = _scalar_or_vec(gamma, B, R, x0.device)
+        if gamma0 is None:
+            return None
+    elif Lf is not None:
+        Lfv = _scalar_or_vec(Lf, B, R, x0.device)
+        if Lfv is None:
+            return None
+        gamma0 = 1.0 / Lfv
+
+    from ..parallel import adaptive_batch
+
+    run_fn = (adaptive_batch.batched_adaptive_fista if accel
+              else adaptive_batch.batched_adaptive_fb)
+    opts = dict(
+        maxit=maxit, gamma0=gamma0,
+        minimum_gamma=float(kwargs.get("minimum_gamma", 1e-7)),
+        reduce_gamma=float(kwargs.get("reduce_gamma", 0.5)),
+        increase_gamma=float(kwargs.get("increase_gamma", 1.0)),
+        check_every=int(check_every))
+    if accel:
+        # a per-lane mf has no flat route
+        mf_val = kwargs.get("mf", 0.0)
+        if mf_val is not None and torch.as_tensor(mf_val).dim() != 0:
+            return None
+        opts["mf"] = float(mf_val or 0.0)
+
+    return lambda: run_fn(f, g, x0, tol, **opts)
+
+
+_FLAT_LS = {
+    "make_panoc_iteration": "batched_panoc",
+    "make_zerofpr_iteration": "batched_zerofpr",
+    "make_drls_iteration": "batched_drls",
+    "make_panocplus_iteration": "batched_panocplus",
+}
+
+
+def _directions(kwargs):
+    """The quasi-Newton or null direction of ``kwargs`` (L-BFGS(5) by
+    default), or ``None`` for any other style."""
+    from ..accel.base import NO_ACCELERATION, QUASI_NEWTON
+    from ..accel.lbfgs import LBFGS
+
+    directions = kwargs.get("directions")
+    if directions is None:
+        directions = LBFGS(5)
+    if getattr(directions, "style", None) not in (QUASI_NEWTON,
+                                                  NO_ACCELERATION):
+        return None
+    return directions
+
+
+def match_flat_linesearch(factory, kwargs, *, tol, maxit, stop=None,
+                          solution=None, check_every=None):
+    """``run() -> (z, iters, done)`` for batched PANOC, ZeroFPR, PANOCplus
+    (fixed or adaptive step) and DRLS on the flattened trial/commit
+    machines (:mod:`proxtpu_torch.parallel.flat_ls`: one oracle evaluation
+    per trip instead of ``max_backtracks`` masked trials per iteration),
+    or ``None``.  ``check_every=None`` picks 8 for adaptive PANOC and 1
+    elsewhere, as the JAX package; the counts do not depend on it."""
+    if stop is not None or solution is not None:
+        return None
+    name = getattr(factory, "__name__", "")
+    if name not in _FLAT_LS:
+        return None
+    gamma, Lf = kwargs.get("gamma"), kwargs.get("Lf")
+    if name == "make_drls_iteration":
+        return _match_flat_drls(kwargs, tol=tol, maxit=maxit,
+                                check_every=check_every or 1)
+    panocplus = name == "make_panocplus_iteration"
+    adaptive = kwargs.get("adaptive")
+    if adaptive is None:
+        # the factory's rule: gamma from Lf first, then adaptive when no
+        # gamma is left
+        adaptive = gamma is None and Lf is None
+    adaptive = bool(adaptive)
+    if not panocplus and not adaptive and gamma is None and Lf is None:
+        # adaptive=False with no step: the driver runs a FIXED gamma at
+        # the initial Lipschitz estimate, which only the generic driver does
+        return None
+    if adaptive and "backtrack_limit" in kwargs:
+        # a gamma search the caller cut short commits steps that may not
+        # be accepted; the flat machines always search to acceptance
+        return None
+    x0 = kwargs.get("x0")
+    f, g = kwargs.get("f"), kwargs.get("g")
+    if x0 is None or f is None or g is None:
+        return None
+    x0 = torch.as_tensor(x0)
+    if x0.dim() != 2:
+        return None
+    B = x0.shape[0]
+    if not _lanes_ok((f, g), B):
+        return None
+    directions = _directions(kwargs)
+    if directions is None:
+        return None
+
+    # the operator: None -> identity; a (B, m, n) tensor or a
+    # MatrixOperator holding one -> stacked products; a Shared operator or
+    # an (m, n) tensor -> one product shared by the lanes; else out
+    from ..ops.linops import IdentityOperator, MatrixOperator, as_linop
+    from ..utils.shared import Shared
+
+    A = kwargs.get("A")
+    if A is None:
+        Aop = IdentityOperator()
+    elif isinstance(A, Shared):
+        inner = as_linop(A).value
+        if not hasattr(inner, "matvec"):
+            return None
+        Aop = Shared(inner)
+    else:
+        arr = A.A if isinstance(A, MatrixOperator) else A
+        if not isinstance(arr, torch.Tensor):
+            return None
+        if arr.dim() == 2:
+            # a 2-D matrix is lane-invariant (a lane's A is 2-D here)
+            Aop = Shared(MatrixOperator(arr))
+        elif arr.dim() == 3 and arr.shape[0] == B:
+            Aop = MatrixOperator(arr)
+        else:
+            return None
+
+    alpha = float(kwargs.get("alpha", 0.95))
+    beta = float(kwargs.get("beta", 0.5))
+    # the factory's gamma = alpha / Lf, per lane, in x0's real dtype
+    R = real_dtype_of(x0)
+    if gamma is not None:
+        gamma_v = torch.as_tensor(gamma, dtype=R, device=x0.device).expand(B)
+    elif Lf is not None:
+        gamma_v = torch.as_tensor(alpha, dtype=R, device=x0.device) / (
+            torch.as_tensor(Lf, dtype=R, device=x0.device).expand(B))
+    else:
+        gamma_v = None  # PANOCplus only: estimated per lane in the run
+
+    from .. import parallel as _par
+
+    runner = getattr(_par, _FLAT_LS[name])
+    max_backtracks = int(kwargs.get("max_backtracks", 20))
+    extra = {}
+    if panocplus:
+        extra = dict(adaptive=adaptive or gamma_v is None,
+                     minimum_gamma=float(kwargs.get("minimum_gamma", 1e-7)))
+    elif adaptive:
+        extra = dict(adaptive=True,
+                     minimum_gamma=float(kwargs.get("minimum_gamma", 1e-7)))
+        if gamma_v is None:
+            # the driver's cold start: a per-lane Lipschitz lower bound
+            extra["estimate_gamma"] = True
+            gamma_v = torch.ones(B, dtype=R, device=x0.device)
+
+    if check_every is None:
+        check_every = 8 if (name == "make_panoc_iteration"
+                            and extra.get("adaptive")) else 1
+    return lambda: runner(
+        f, Aop, g, x0, gamma_v, tol, maxit=maxit, alpha=alpha, beta=beta,
+        max_backtracks=max_backtracks, directions=directions,
+        check_every=int(check_every), **extra)
+
+
+def _match_flat_drls(kwargs, *, tol, maxit, check_every=1):
+    """The DRLS leg of :func:`match_flat_linesearch` (no operator; f has a
+    prox; gamma and c per lane by the factory's own helpers,
+    ``drls.jl:11-22``)."""
+    x0, f, g = kwargs.get("x0"), kwargs.get("f"), kwargs.get("g")
+    if x0 is None or f is None or g is None:
+        return None
+    x0 = torch.as_tensor(x0)
+    if x0.dim() != 2:
+        return None
+    B = x0.shape[0]
+    if not _lanes_ok((f, g), B):
+        return None
+    directions = _directions(kwargs)
+    if directions is None:
+        return None
+
+    mf = kwargs.get("mf")
+    if mf is not None and torch.as_tensor(mf).dim() != 0:
+        return None  # per-lane strong convexity: the generic driver
+    mf = None if mf is None else float(mf)
+    gamma, Lf, c = kwargs.get("gamma"), kwargs.get("Lf"), kwargs.get("c")
+    if gamma is None and Lf is None and (mf is None or mf <= 0):
+        return None
+    alpha = float(kwargs.get("alpha", 0.95))
+    beta = float(kwargs.get("beta", 0.5))
+    lam = kwargs.get("lambda_")
+    if lam is None:
+        lam = kwargs.get("lam", 1.0)
+
+    R, dev = real_dtype_of(x0), x0.device
+
+    def vec(v):
+        return torch.as_tensor(v, dtype=R, device=dev).expand(B)
+
+    lam_v = vec(lam)
+    # the factory's helpers, so that the formulas cannot drift
+    from ..algorithms.drls import drls_C, drls_default_gamma
+
+    needs_lf = Lf is None and (mf is None or mf <= 0)
+    Lf_v = None if Lf is None else vec(Lf)
+    if gamma is None:
+        if needs_lf:
+            return None  # the factory could not derive gamma without Lf
+        gamma_v = vec(drls_default_gamma(f, mf, Lf_v, alpha, lam_v))
+    else:
+        gamma_v = vec(gamma)
+    if c is None:
+        if needs_lf:
+            return None  # the factory could not derive c without Lf
+        c_v = beta * drls_C(f, mf, Lf_v, gamma_v, lam_v)
+    else:
+        c_v = vec(c)
+    dre_sign = 1 if (mf is None or mf <= 0) else -1
+    max_backtracks = int(kwargs.get("max_backtracks", 20))
+
+    from .. import parallel as _par
+
+    return lambda: _par.batched_drls(
+        f, g, x0, gamma_v, lam_v, c_v, tol, maxit=maxit,
+        max_backtracks=max_backtracks, directions=directions,
+        dre_sign=dre_sign, check_every=int(check_every))

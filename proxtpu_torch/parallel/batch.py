@@ -151,10 +151,14 @@ class BatchedAlgorithm:
     :func:`~proxtpu_torch.kernels.dispatch.match_tv_solver` recognise
     (batched lasso FISTA, batched box-QP projected gradient, batched TV
     denoising by Chambolle-Pock, options at their defaults) to the kernel
-    solvers; anything else runs the generic
-    driver, :func:`batched_run_loop`.  ``use_kernels=False`` forces the
-    generic driver.  ``verbose`` and ``halt_nonfinite`` also force it (the
-    kernel routes have neither)."""
+    solvers; then adaptive FB / FISTA
+    (:func:`~proxtpu_torch.kernels.dispatch.match_flat_adaptive`) and
+    PANOC, ZeroFPR, PANOCplus, DRLS
+    (:func:`~proxtpu_torch.kernels.dispatch.match_flat_linesearch`) to the
+    flat trial/commit machines; anything else runs the generic driver,
+    :func:`batched_run_loop`.  ``use_kernels=False`` forces the generic
+    driver.  ``verbose`` and ``halt_nonfinite`` also force it (the other
+    routes have neither)."""
 
     def __init__(self, iteration_factory, *, maxit, tol, stop=None,
                  solution=None, use_kernels="auto", check_every=None,
@@ -195,14 +199,25 @@ class BatchedAlgorithm:
         if (self.use_kernels and not unknown and not self.verbose
                 and not self.halt_nonfinite):
             from ..kernels.dispatch import (
+                match_flat_adaptive,
+                match_flat_linesearch,
                 match_kernel_solver,
                 match_tv_solver,
             )
 
-            for match in (match_kernel_solver, match_tv_solver):
+            for match, extra in (
+                    (match_kernel_solver, {}), (match_tv_solver, {}),
+                    # the flat machines' counts do not depend on the block
+                    # of trips between host tests; 8 for the adaptive
+                    # FB / FISTA machine, the matcher's choice otherwise
+                    (match_flat_adaptive,
+                     dict(check_every=self.check_every or 8)),
+                    (match_flat_linesearch,
+                     dict(check_every=self.check_every))):
                 run = match(
                     self.iteration_factory, merged, tol=self.tol,
-                    maxit=self.maxit, stop=self.stop, solution=self.solution)
+                    maxit=self.maxit, stop=self.stop, solution=self.solution,
+                    **extra)
                 if run is not None:
                     return run()
         # injected after the match, so that a matcher sees backtrack_limit
