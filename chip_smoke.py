@@ -114,15 +114,44 @@ Phases, in order; any failure raises and exits non-zero:
         its launches join the kernels' line), the polish on the float64
         plain step, every lane's float64 residual <= 1.05 tol, beside the
         cold float64 solve on the generic driver;
-11. print the kernels' JSON line (time, plain version's time, bound and,
+11. drive the drivers' remaining surface (phase "drivers", routes
+    (q)-(v)); the phase fails past its 90 s budget:
+    (q) ``ForwardBackward`` and ``FastForwardBackward`` on cell (k)'s
+        ``lasso_medium`` in float64 at ``check_every`` 1 and 16: the
+        suite's counts (2811, 3912) at both, bit-equal solutions, the wall
+        and the host's waits on the card (PyTorch's sync debug mode) of
+        each;
+    (r) 1000 ``states`` of FISTA there, ``save_state`` on the card,
+        ``load_state(like=...)`` (also onto the CPU and back), the solve
+        resumed with ``resume_iters=1000``: 3912 in all and the unbroken
+        run's bits; ``run_recorded`` of FB's residual every 10 iterations:
+        ``count == it // 10`` and NaN after it;
+    (s) FISTA on the flagship problems (``bench.gen_problems`` seed 0) on
+        the generic driver through ``batched_run_segments(segment=128)``,
+        the second snapshot saved and the run resumed from disk: counts
+        and bits of ``batched_run_loop``;
+    (t) ``compacting_batched_run`` against ``batched_run_loop`` on route
+        (j)'s lambda-spread problems: the lanes that differ in count or
+        bits, both rechecks <= 2 tol, both walls;
+    (u) ``BatchedAlgorithm(use_kernels=False).run_recorded`` of the
+        per-lane residual every 8 iterations: the unrecorded iterations,
+        NaN after ``count``, the wall against the unrecorded run;
+    (v) one main-path solve inside ``utils.profiling.trace``: the trace's
+        ``fista_step`` and ``fb_step`` kernel events equal the launch
+        counters; ``compiled_stats`` of the same solve: the kernels' flops
+        and bytes by the JAX package's ``CostEstimate`` formulas at each
+        launch's width;
+12. print the kernels' JSON line (time, plain version's time, bound and,
     where one PyTorch call computes the same function, that call's time),
     the seconds of every phase, then the result line.
 
 Imports no JAX.  Needs one card, ``nvcc`` (CUDA_HOME) and a few minutes.
 """
 
+import contextlib
 import functools
 import json
+import os
 import statistics
 import subprocess
 import time
@@ -2563,6 +2592,442 @@ def phase_flat(card, family_logistic):
     return out["(p)"]
 
 
+# the drivers' remaining surface (routes (q)-(v)): the phase's budget
+DRIVERS_BUDGET_S = 90.0
+# where the phase writes its checkpoints and its trace, inside the checkout
+# (build/ is listed in .gitignore); removed at the end of the phase
+DRIVERS_DIR = os.path.join("build", "chip_smoke_drivers")
+DRIVERS_K = 16  # route (q)'s check_every
+SEGMENT = 128  # route (s)
+RECORD_EVERY = 8  # route (u)
+
+
+def lane_residual(it, k, s):
+    """The FB / FISTA stopping residual ||x - z||_inf / gamma of a state
+    (per lane under the batched driver)."""
+    from proxtpu_torch.utils.tree import tree_inf_norm
+
+    return tree_inf_norm(s.res) / s.gamma
+
+
+@contextlib.contextmanager
+def counting_syncs():
+    """Count the host's waits on the card inside the block: PyTorch's sync
+    debug mode warns at every synchronizing operation (``.item()``,
+    ``bool`` of a tensor, a copy to the host), and the warnings are
+    counted.  Yields an object whose ``n`` is set on exit."""
+    import types
+    import warnings
+
+    counter = types.SimpleNamespace(n=0)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield counter
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    counter.n = sum("synchroniz" in str(w.message) for w in caught)
+
+
+def drivers_blocking(card):
+    """Route (q): ForwardBackward and FastForwardBackward on cell (k)'s
+    lasso_medium in float64 (the reference suite's configurations) at
+    check_every 1 and DRIVERS_K: the suite's counts at both, bit-equal
+    solutions, the wall and host syncs of each (syncs counted in the
+    timed run).  Returns ``{name: {K: (x, it, wall, syncs)}}``."""
+    import copy
+
+    from proxtpu_torch.tools.reference_suite import primal
+
+    configs = suite_on_card("lasso_medium", torch.float64)
+    out = {}
+    for name in ("ForwardBackward", "FastForwardBackward"):
+        solver, kw = configs[name]
+        runs = {}
+        for K in (1, DRIVERS_K):
+            blocked = copy.copy(solver)
+            blocked.check_every = K
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with counting_syncs() as syncs:
+                sol, it = blocked(**kw)
+            torch.cuda.synchronize()
+            runs[K] = (primal(sol), it, time.perf_counter() - t0, syncs.n)
+        (x1, it1, dt1, s1), (xk, itk, dtk, sk) = runs[1], runs[DRIVERS_K]
+        print(f"  (q) {name} lasso_medium float64: check_every=1 {it1} "
+              f"iterations, {dt1:.4f} s, {s1} host syncs; check_every="
+              f"{DRIVERS_K} {itk} iterations, {dtk:.4f} s, {sk} host syncs; "
+              f"wall K={DRIVERS_K} / K=1 {dtk / dt1:.3f}, bit-equal "
+              f"{bool(torch.equal(x1, xk))}  [{card}]")
+        assert it1 == itk == SUITE[name][0], (name, it1, itk)
+        assert torch.equal(x1, xk), f"route (q): {name} bits differ"
+        out[name] = runs
+    return out
+
+
+def drivers_resume(card, blocking):
+    """Route (r): 1000 ``states`` of FISTA on lasso_medium, ``save_state``
+    on the card, ``load_state(like=...)``, then the solve resumed with
+    ``resume_iters=1000``: the total count and the bits of one unbroken
+    run (route (q)'s).  The checkpoint also loads onto the CPU, and a CPU
+    copy back onto the card.  Then ``run_recorded`` of FB's residual every
+    10 iterations: the unbroken run's count and bits, ``count == it //
+    10`` and NaN after it."""
+    import proxtpu_torch as pt
+    from proxtpu_torch.utils.checkpoint import load_state, save_state
+    from proxtpu_torch.utils.iteration_tools import loop
+    from proxtpu_torch.utils.tree import tree_leaves, tree_map
+
+    configs = suite_on_card("lasso_medium", torch.float64)
+    solver, kw = configs["FastForwardBackward"]
+    iteration = solver.make_iteration(**kw)
+    t0 = time.perf_counter()
+    snap = loop(pt.states(iteration, max_states=1000))
+    path = os.path.join(DRIVERS_DIR, "fista_1000.pt")
+    save_state(path, snap)
+    like = iteration.init()
+    restored = load_state(path, like=like)
+    x, it = solver(resume_from=restored, resume_iters=1000, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    x_full, it_full = blocking["FastForwardBackward"][1][:2]
+    on_cpu = load_state(path, like=tree_map(lambda v: v.cpu(), like))
+    cpu_path = os.path.join(DRIVERS_DIR, "fista_1000_cpu.pt")
+    save_state(cpu_path, on_cpu)
+    back = load_state(cpu_path, like=like)
+    leaves = [tree_leaves(t) for t in (snap, on_cpu, back)]
+    moved = (all(v.device.type == "cpu" for v in leaves[1])
+             and all(v.device == u.device for u, v in zip(*leaves[::2]))
+             and all(torch.equal(u.cpu(), v) for u, v in zip(*leaves[:2]))
+             and all(torch.equal(u, v) for u, v in zip(*leaves[::2])))
+    print(f"  (r) FISTA lasso_medium: 1000 states, save_state on the card "
+          f"({os.path.getsize(path)} bytes), load_state(like=...), resumed "
+          f"with resume_iters=1000: {it} iterations in all (unbroken "
+          f"{it_full}), bit-equal {bool(torch.equal(x, x_full))}, "
+          f"{wall:.4f} s; card -> CPU -> card round trip exact {moved}  "
+          f"[{card}]")
+    assert it == it_full == SUITE["FastForwardBackward"][0], (it, it_full)
+    assert torch.equal(x, x_full), "route (r): the resumed solve differs"
+    assert moved, "route (r): a checkpoint did not move between devices"
+
+    solver, kw = configs["ForwardBackward"]
+    x_fb, it_fb = blocking["ForwardBackward"][1][:2]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x, it, tr = solver.run_recorded(lane_residual, record_every=10, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    vals = tr.values.cpu().numpy()
+    count = int(tr.count)
+    last = float(vals[count - 1])
+    print(f"  (r) ForwardBackward run_recorded(residual, record_every=10): "
+          f"{it} iterations, count {count}, {vals.shape[0]} slots, NaN after "
+          f"count {bool(np.isnan(vals[count:]).all())}, last residual "
+          f"{last:.3e}, {wall:.4f} s (unrecorded "
+          f"{blocking['ForwardBackward'][1][2]:.4f} s)  [{card}]")
+    assert it == it_fb and torch.equal(x, x_fb), "route (r): recording moved"
+    assert count == it // 10, (count, it)
+    assert np.isfinite(vals[:count]).all() and np.isnan(vals[count:]).all()
+
+
+def flagship_iteration(As, bs, lams, Lfs):
+    """FISTA on the flagship problems (bench.gen_problems seed 0, 256 x
+    200 x 400 float32) with the given lambdas, as one batched iteration
+    for the generic driver, and its kwargs."""
+    from proxtpu_torch import problems_from_numpy
+    from proxtpu_torch.algorithms import make_fast_forward_backward_iteration
+    from proxtpu_torch.prox import LeastSquaresLoss, NormL1
+
+    A, b, lam, Lf = problems_from_numpy(As, bs, lams, Lfs, device=DEVICE)
+    kw = dict(x0=torch.zeros((A.shape[0], A.shape[2]), device=DEVICE),
+              f=LeastSquaresLoss(A, b), g=NormL1(lam), Lf=Lf)
+    return make_fast_forward_backward_iteration(**kw), kw
+
+
+def timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def drivers_segments(card, As, bs, lams, Lfs):
+    """Route (s): FISTA on the flagship problems through the generic
+    driver's ``batched_run_segments(segment=SEGMENT)``; the second snapshot
+    saved with ``save_state`` and the run resumed from disk; counts and
+    bits equal to ``batched_run_loop``'s (one chunk core)."""
+    from proxtpu_torch.parallel import batched_run_loop, batched_run_segments
+    from proxtpu_torch.utils.checkpoint import load_state, save_state
+
+    iteration, _ = flagship_iteration(As, bs, lams, Lfs)
+    (xs0, it0, d0), dt0 = timed(
+        lambda: batched_run_loop(iteration, MAXIT, TOL, check_every=8))
+    snaps = []
+    (xs1, it1, d1), dt1 = timed(lambda: batched_run_segments(
+        iteration, MAXIT, TOL, segment=SEGMENT, callback=snaps.append))
+    path = os.path.join(DRIVERS_DIR, "segment_2.pt")
+    save_state(path, snaps[1])
+    restored = load_state(path, like=snaps[1])
+    (xs2, it2, d2), dt2 = timed(lambda: batched_run_segments(
+        iteration, MAXIT, TOL, segment=SEGMENT, resume=restored))
+    r = recheck(As, bs, lams, Lfs, xs1.cpu().numpy())
+    print(f"  (s) batched_run_segments(segment={SEGMENT}), FISTA on "
+          f"{tuple(iteration.f.A.shape)}: {len(snaps)} segments, "
+          f"{dt1:.4f} s; batched_run_loop {dt0:.4f} s; resumed from the "
+          f"snapshot at k={restored['k']} on disk {dt2:.4f} s; iterations "
+          f"mean {it1.float().mean():.2f} max {int(it1.max())}, recheck "
+          f"{r:.3e}  [{card}]")
+    assert bool(d0.all()) and r <= 2 * TOL, (int((~d0).sum()), r)
+    for name, (xs, it, d) in (("segments", (xs1, it1, d1)),
+                              ("resumed", (xs2, it2, d2))):
+        assert torch.equal(it, it0) and torch.equal(d, d0), name
+        assert torch.equal(xs, xs0), f"route (s): {name} bits differ"
+    return it0
+
+
+def drivers_compaction(card, As, bs, lams, Lfs):
+    """Route (t): route (j)'s lambda-spread flagship problems on the
+    generic driver, ``compacting_batched_run`` against
+    ``batched_run_loop``: counts and done flags, the lanes that differ in
+    count or bits, each run's recheck <= 2 tol, both walls."""
+    from proxtpu_torch.parallel import batched_run_loop, \
+        compacting_batched_run
+
+    rng = np.random.default_rng(5)
+    spread = (lams * (0.2 + 0.8 * rng.random(len(lams)))).astype(np.float32)
+    iteration, _ = flagship_iteration(As, bs, spread, Lfs)
+    maxit = 3000
+    (xs0, it0, d0), dt0 = timed(
+        lambda: batched_run_loop(iteration, maxit, TOL, check_every=8))
+    (xs1, it1, d1), dt1 = timed(
+        lambda: compacting_batched_run(iteration, maxit, TOL))
+    r0 = recheck(As, bs, spread, Lfs, xs0.cpu().numpy())
+    r1 = recheck(As, bs, spread, Lfs, xs1.cpu().numpy())
+    counts = int((it0 != it1).sum())
+    bits = int((xs0 != xs1).any(dim=1).sum())
+    print(f"  (t) compacting_batched_run (chunk 256) vs batched_run_loop, "
+          f"lambda spread: {dt1:.4f} s vs {dt0:.4f} s; iterations mean "
+          f"{it1.float().mean():.2f} max {int(it1.max())}; lanes that "
+          f"differ: {counts} in count, {bits} in bits, done flags equal "
+          f"{bool(torch.equal(d0, d1))}; recheck {r1:.3e} vs {r0:.3e}  "
+          f"[{card}]")
+    assert bool(d0.all()) and bool(d1.all())
+    assert r0 <= 2 * TOL and r1 <= 2 * TOL, (r0, r1)
+
+
+def drivers_recording(card, As, bs, lams, Lfs, it_plain):
+    """Route (u): ``BatchedAlgorithm(use_kernels=False).run_recorded`` of
+    the per-lane residual every RECORD_EVERY iterations on the flagship
+    problems: the unrecorded run's iterations, NaN in every slot after
+    ``count``; the wall recorded against unrecorded."""
+    import proxtpu_torch as pt
+    from proxtpu_torch.algorithms import make_fast_forward_backward_iteration
+
+    _, kw = flagship_iteration(As, bs, lams, Lfs)
+    alg = pt.BatchedAlgorithm(make_fast_forward_backward_iteration,
+                              maxit=MAXIT, tol=TOL, use_kernels=False)
+    (_, it0, _), dt0 = timed(lambda: alg(**kw))
+    (xs, it, done, tr), dt = timed(
+        lambda: alg.run_recorded(lane_residual, record_every=RECORD_EVERY,
+                                 **kw))
+    vals = tr.values.cpu().numpy()
+    count = int(tr.count)
+    print(f"  (u) BatchedAlgorithm.run_recorded(residual, record_every="
+          f"{RECORD_EVERY}): {dt:.4f} s against {dt0:.4f} s unrecorded "
+          f"({dt / dt0:.3f}x), trace {vals.shape}, count {count}, NaN after "
+          f"count {bool(np.isnan(vals[count:]).all())}  [{card}]")
+    assert torch.equal(it, it0) and torch.equal(it, it_plain)
+    assert bool(done.all())
+    assert count == int(it.max()) // RECORD_EVERY, count
+    assert np.isnan(vals[count:]).all() and np.isfinite(vals[:count]).all()
+
+
+def drivers_profiling(card, A, b, lam, Lf):
+    """Route (v): one ``solve_lasso_batch_packed_tail`` solve of the main
+    path inside ``trace()``: the trace's device events of ``fista_step``
+    and ``fb_step`` equal the wrappers' launch counters for that solve,
+    and only warm-up records are lost (a plain profiler session of the
+    same solve printed beside it); then ``compiled_stats`` of the same
+    solve: the kernels' flops and bytes by the JAX package's formulas at
+    each launch's width.  Returns the launches of the traced solve."""
+    import glob
+    import shutil
+
+    from torch.profiler import ProfilerActivity, profile, \
+        tensorboard_trace_handler
+
+    from proxtpu_torch.kernels import lasso as tl
+    from proxtpu_torch.utils import profiling
+    from proxtpu_torch.utils.profiling import compiled_stats, trace
+
+    kw = dict(maxit=MAXIT, k1=192, tail=64, restart=True)
+
+    def solve():
+        return tl.solve_lasso_batch_packed_tail(A, b, lam, Lf, TOL, **kw)
+
+    counters = launch_counters()
+
+    def traced(name, session):
+        """``(kernel events, lost launches, ms from the first launch to the
+        last lost one, warm-up launches, launch counters, seconds, path)``
+        of one solve inside ``session(log_dir)``; a launch is the warm-up's
+        where it precedes the end of trace()'s warm-up range."""
+        for w, a in counters.values():
+            setattr(w, a, 0)
+        log_dir = os.path.join(DRIVERS_DIR, name)
+        shutil.rmtree(log_dir, ignore_errors=True)
+        t0 = time.perf_counter()
+        with session(log_dir):
+            solve()
+            torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = {k: getattr(w, a) for k, (w, a) in counters.items()}
+        (path,) = glob.glob(os.path.join(log_dir, "*.pt.trace.json"))
+        with open(path) as fh:
+            events = json.load(fh)["traceEvents"]
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        names = [e["name"] for e in kernels]
+        kept = {e.get("args", {}).get("correlation") for e in kernels}
+        runtime = sorted((e for e in events if e.get("cat") == "cuda_runtime"
+                          and "Launch" in e["name"]), key=lambda e: e["ts"])
+        # the launches (by their place in the session) whose kernel record
+        # the trace lacks
+        lost = [i for i, e in enumerate(runtime)
+                if e.get("args", {}).get("correlation") not in kept]
+        span = ((runtime[lost[-1]]["ts"] - runtime[0]["ts"]) / 1e3
+                if lost else 0.0)
+        warm_end = max((e["ts"] + e.get("dur", 0) for e in events
+                        if e.get("name") == "proxtpu_torch.trace: warm-up"),
+                       default=None)
+        warm = (0 if warm_end is None
+                else sum(e["ts"] < warm_end for e in runtime))
+        seen = {"fista_step": sum("fista_step_kernel" in n for n in names),
+                "fb_step": sum("fb_step_kernel" in n for n in names),
+                "kernel events": len(kernels), "launches": len(runtime)}
+        return seen, lost, span, warm, launches, dt, path
+
+    def plain_session(log_dir):
+        return profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                       on_trace_ready=tensorboard_trace_handler(log_dir))
+
+    # a plain profiler session first: it may lose the first kernel records
+    # (see utils/profiling.py, WARMUP_SECONDS); trace() must lose none of
+    # the solve's
+    raw, raw_lost, raw_span, _, _, _, _ = traced("plain_session",
+                                                 plain_session)
+    seen, lost, span, warm, launches, t_trace, path = traced("trace", trace)
+    print(f"  (v) trace() of one main-path solve ({t_trace:.2f} s, "
+          f"{os.path.getsize(path)} bytes): device events {seen}, launch "
+          f"counters fista_step {launches['fista_step']} fb_step "
+          f"{launches['fb_step']}; records lost {len(lost)}, at launches "
+          f"{lost[:3]}..{lost[-3:]} ({span:.3f} ms from the first), the "
+          f"warm-up's {warm} launches in {profiling.WARMUP_SECONDS * 1e3:g} "
+          f"ms being 0..{warm - 1}; a plain profiler session of the same "
+          f"solve: {raw}, records lost {len(raw_lost)}, at launches "
+          f"{raw_lost[:3]}..{raw_lost[-3:]} ({raw_span:.3f} ms from the "
+          f"first)  [{card}]")
+    assert {k: seen[k] for k in ("fista_step", "fb_step")} == {
+        k: launches[k] for k in ("fista_step", "fb_step")}, (seen, launches)
+    assert warm > 0 and all(i < warm for i in lost), (warm, lost)
+
+    for w, a in counters.values():
+        setattr(w, a, 0)
+    stats = compiled_stats(tl.solve_lasso_batch_packed_tail, A, b, lam, Lf,
+                           TOL, **kw)
+    again = {k: getattr(w, a) for k, (w, a) in counters.items()}
+    B, M, N = MAIN_SHAPES[0]
+    tail = MAIN_SHAPES[1][0]
+    n_f, n_fb = again["fista_step"], again["fb_step"]
+    # phase 1: 192 fista_step at B = 256; phase 2: fb_step, then fista_step,
+    # at tail = 64
+    lanes_f = 192 * B + (n_f - 192) * tail
+    want = {"fista_step": (4 * lanes_f * M * N,
+                           4 * lanes_f * (M * N + 5 * N)),
+            "fb_step": (4 * n_fb * tail * M * N,
+                        4 * n_fb * tail * (M * N + 3 * N))}
+    got = {k: (v["flops"], v["bytes accessed"])
+           for k, v in stats["kernels"].items()}
+    cost = stats["cost_analysis"]
+    mem = stats["memory_analysis"]
+    print(f"  (v) compiled_stats: flops {cost['flops']:.6e} (kernels "
+          f"{sum(f for f, _ in got.values()):.6e}; 257 x 4 B M N at B = 256 "
+          f"would be {257 * 4 * B * M * N:.6e}), bytes accessed "
+          f"{cost['bytes accessed']:.6e} (kernels "
+          f"{sum(n for _, n in got.values()):.6e}), transcendentals "
+          f"{cost['transcendentals']}; by kernel {stats['kernels']}; peak "
+          f"device bytes {mem['peak_size_in_bytes']}, launches {again}  "
+          f"[{card}]")
+    assert launches == again, (launches, again)
+    assert n_fb == 1 and n_f >= 192, again
+    assert got == want, (got, want)
+    assert cost["flops"] == sum(f for f, _ in got.values()), cost
+
+    # what the kernel_cost hook costs a wrapper call outside
+    # compiled_stats: a no-op under the hook against the bare no-op, the
+    # least of two rounds of 100,000 calls each
+    def noop(*args):
+        return None
+
+    hooked = profiling.kernel_cost("noop", lambda *args: {})(noop)
+    us = {"bare": [], "hooked": []}
+    for name, fn in (("bare", noop), ("hooked", hooked)) * 2:
+        t0 = time.perf_counter()
+        for _ in range(100_000):
+            fn(A, b)
+        us[name].append((time.perf_counter() - t0) * 10)
+    hook_us = min(us["hooked"]) - min(us["bare"])
+    n_launch = sum(launches.values())
+    print(f"  (v) kernel_cost hook: {hook_us:.4f} us a call (hooked "
+          f"{min(us['hooked']):.4f}, bare {min(us['bare']):.4f}), x "
+          f"{n_launch} launches = {hook_us * n_launch / 1e3:.5f} ms a solve"
+          f"  [{card}]")
+    return launches
+
+
+def phase_drivers(card):
+    """Routes (q)-(v): the drivers' remaining surface on the card (check_every
+    and resume on the single-problem driver, checkpoints, segmented,
+    compacting and recorded batched runs, the profiling hooks on the main
+    path); the phase must end within DRIVERS_BUDGET_S.  Returns the kernel
+    launches of route (v)'s traced solve."""
+    import shutil
+
+    import bench
+    from proxtpu_torch import problems_from_numpy
+    from proxtpu_torch.utils.precision import require_full_f32_matmul
+
+    require_full_f32_matmul()
+    os.makedirs(DRIVERS_DIR, exist_ok=True)
+    t_phase = time.perf_counter()
+    As, bs, lams, Lfs = bench.gen_problems(bench.BATCH)
+    seconds = {}
+
+    def route(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(card, *args)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    try:
+        blocking = route("(q)", drivers_blocking)
+        route("(r)", drivers_resume, blocking)
+        it_flagship = route("(s)", drivers_segments, As, bs, lams, Lfs)
+        route("(t)", drivers_compaction, As, bs, lams, Lfs)
+        route("(u)", drivers_recording, As, bs, lams, Lfs, it_flagship)
+        launches = route("(v)", drivers_profiling, *problems_from_numpy(
+            As, bs, lams, Lfs, device=DEVICE))
+    finally:
+        shutil.rmtree(DRIVERS_DIR, ignore_errors=True)
+    dt = time.perf_counter() - t_phase
+    print(f"  drivers: {dt:.1f} s (budget {DRIVERS_BUDGET_S:.0f} s); by "
+          "route: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
+          + f"  [{card}]")
+    assert dt <= DRIVERS_BUDGET_S, (dt, DRIVERS_BUDGET_S)
+    return launches
+
+
 def kernel_bounds():
     """``{kernel: (shape, ms, by)}``: the bound of each kernel at the shape
     its times in the JSON line are taken at.  Bytes: every operand read
@@ -2651,6 +3116,9 @@ def main():
     logistic = phase("application families", phase_families, card)
     print("flat machines and the warm start, routes (m)-(p):")
     for k, n in phase("flat machines", phase_flat, card, logistic).items():
+        launches[k] = launches.get(k, 0) + n
+    print("the drivers' remaining surface, routes (q)-(v):")
+    for k, n in phase("drivers", phase_drivers, card).items():
         launches[k] = launches.get(k, 0) + n
     launches["read_reduce"] = floor_launches
     kernels = {

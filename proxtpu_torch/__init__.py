@@ -8,7 +8,8 @@ kernels written by hand for ``sm_90a`` (``proxtpu_torch/csrc``), built with
 
 * :mod:`proxtpu_torch.algorithms` — the reference's solver suite (FB,
   FISTA, ZeroFPR, PANOC, PANOCplus, Douglas-Rachford, DRLS, Davis-Yin,
-  Li-Lin, SFISTA, AFBA, Vu-Condat, Chambolle-Pock) with the generic driver
+  Li-Lin, SFISTA, AFBA, Vu-Condat, Chambolle-Pock) with the generic driver,
+  its recording, resume and ``states``
 * :mod:`proxtpu_torch.prox`       — the oracle protocol and prox functions
 * :mod:`proxtpu_torch.accel`      — L-BFGS, Anderson, Broyden and the
   Nesterov coefficient sequences
@@ -17,11 +18,13 @@ kernels written by hand for ``sm_90a`` (``proxtpu_torch/csrc``), built with
 * :mod:`proxtpu_torch.kernels`    — batched lasso, box-QP and TV-denoising
   solvers, their kernels, the read-floor probe and the kernel-route dispatch
 * :mod:`proxtpu_torch.parallel`   — ``BatchedAlgorithm``, the batched
-  driver, pipelined dispatch of batched solves
+  drivers (recorded, segmented, compacting), pipelined dispatch of
+  batched solves
 * :mod:`proxtpu_torch.convert`    — problems from numpy and from the JAX
   package's objects into tensors
-* :mod:`proxtpu_torch.utils`      — precision policy, tree operations,
-  shared-lane markers, the FB toolkit
+* :mod:`proxtpu_torch.utils`      — tree operations, iteration tools,
+  checkpoints, profiling, precision policy, shared-lane markers, the FB
+  toolkit
 """
 
 from . import accel, algorithms, convert, kernels, ops, parallel, prox, utils
@@ -55,6 +58,11 @@ from .prox.base import (
     value_and_gradient,
 )
 from .parallel import BatchedAlgorithm
+from .utils.fb_tools import (
+    backtrack_stepsize,
+    f_model,
+    lower_bound_smoothness_constant,
+)
 from .utils.shared import Shared
 
 __all__ = [
@@ -66,5 +74,6 @@ __all__ = [
     "Zero", "convex_conjugate", "value_and_gradient",
     "box_qp_from_numpy", "direction_from_jax", "linop_from_jax",
     "problems_from_numpy", "prox_from_jax", "tv_from_numpy",
-    "BatchedAlgorithm", "Shared",
+    "BatchedAlgorithm", "Shared", "backtrack_stepsize", "f_model",
+    "lower_bound_smoothness_constant",
 ]

@@ -3,7 +3,13 @@ generic driver, the forward-backward family, the line-search family
 (ZeroFPR, PANOC, PANOCplus, DRLS), Douglas-Rachford, Davis-Yin, Li-Lin,
 SFISTA and the primal-dual family."""
 
-from .core import IterativeAlgorithm, run_loop
+from .core import (
+    IterativeAlgorithm,
+    RecordedTrace,
+    run_loop,
+    run_loop_recorded,
+    states,
+)
 from .davis_yin import DavisYin, DavisYinIteration, make_davis_yin_iteration
 from .douglas_rachford import (
     DouglasRachford,
@@ -40,7 +46,8 @@ from .sfista import SFISTA, SFISTAIteration, make_sfista_iteration
 from .zerofpr import ZeroFPR, ZeroFPRIteration, make_zerofpr_iteration
 
 __all__ = [
-    "IterativeAlgorithm", "run_loop",
+    "IterativeAlgorithm", "RecordedTrace", "run_loop", "run_loop_recorded",
+    "states",
     "ForwardBackward", "ForwardBackwardIteration", "ProximalGradient",
     "make_forward_backward_iteration",
     "FastForwardBackward", "FastForwardBackwardIteration",

@@ -29,6 +29,7 @@ import torch
 
 from ..utils.host_loop import run_host_loop
 from ..utils.precision import require_full_f32_matmul
+from ..utils.profiling import estimate, kernel_cost
 from . import _build
 from .lasso import MIN_SLAB_ROWS, _round_up, cluster_plan, ring_plan
 
@@ -144,6 +145,19 @@ def _freeze_in_place(x, z, res, done_mask):
     return torch.where(frozen, torch.zeros_like(res), res)
 
 
+# The JAX package's pl.CostEstimate of each kernel (box_qp.py:98, :255),
+# what the wrappers report to utils.profiling.compiled_stats.
+def _pg_step_cost(Q, q, x, *args, **kwargs):
+    B, n = x.shape
+    return estimate(4 * B * n * n, B * n * n * Q.element_size())
+
+
+def _pg_k_steps_cost(Q, q, x, gamma, lo, hi, done_mask, K=8):
+    B, n = x.shape
+    return estimate(8 * K * B * n * n, B * n * n * Q.element_size())
+
+
+@kernel_cost("pg_step", _pg_step_cost)
 def fused_pg_box_step(Q, q, x, gamma, lo, hi, done_mask=None):
     """One projected-gradient step for the batch through the ``pg_k_steps``
     kernel at K = 1 (see :func:`reference_pg_box_step`).  ``x`` is updated IN PLACE
@@ -166,6 +180,7 @@ def fused_pg_box_step(Q, q, x, gamma, lo, hi, done_mask=None):
 fused_pg_box_step.launches = 0
 
 
+@kernel_cost("pg_k_steps", _pg_k_steps_cost)
 def fused_pg_box_k_steps(Q, q, x, gamma, lo, hi, done_mask, K=8):
     """K projected-gradient steps for the batch in one launch of the
     ``pg_k_steps`` kernel (see :func:`reference_pg_box_k_steps`).  ``x`` is

@@ -45,6 +45,7 @@ import torch
 
 from ..utils.host_loop import run_host_loop
 from ..utils.precision import require_full_f32_matmul
+from ..utils.profiling import estimate, kernel_cost
 from . import _build
 
 # t after a restart: the simple t-sequence one step from t = 1
@@ -286,6 +287,28 @@ def _launch_step(name, A, args, flags):
         _build.check(err, name)
 
 
+# The JAX package's pl.CostEstimate of each kernel (lasso.py:146, :262,
+# :860), what the wrappers report to utils.profiling.compiled_stats; the
+# packed kernel that fista_step serves takes the natural layout's formula.
+def _fb_step_cost(A, b, x, *args, **kwargs):
+    B, M, N = A.shape
+    return estimate(4 * B * M * N, B * M * N * A.element_size()
+                    + 3 * B * N * x.element_size())
+
+
+def _fista_step_cost(A, b, x, *args, **kwargs):
+    B, M, N = A.shape
+    return estimate(4 * B * M * N, B * M * N * A.element_size()
+                    + 5 * B * N * x.element_size())
+
+
+def _fista_k_steps_cost(A, b, x, z_prev, t, gamma, thr, done_mask, K=8,
+                        restart=False):
+    B, M, N = A.shape
+    return estimate(4 * K * B * M * N, B * M * N * x.element_size(), K * B)
+
+
+@kernel_cost("fb_step", _fb_step_cost)
 def fused_fb_prox_grad(A, b, x, gamma, thr, shrink=None):
     """One FB step for the batch (see :func:`reference_fb_prox_grad`),
     through the ``fb_step`` kernel for CUDA tensors, at the launch plan of
@@ -313,6 +336,7 @@ fused_fb_prox_grad.launches = 0
 fused_fb_prox_grad.launches_bf16 = 0
 
 
+@kernel_cost("fista_step", _fista_step_cost)
 def fused_fista_full_step(A, b, x, z_prev, beta, gamma, thr, done_mask,
                           shrink=None, restart=False):
     """One full FISTA iteration for the batch (see
@@ -454,6 +478,7 @@ def k_steps_plan(B, M, N, sms, limit):
     return (C, R, S) if S else (1, R, S)
 
 
+@kernel_cost("fista_k_steps", _fista_k_steps_cost)
 def fused_fista_k_steps(A, b, x, z_prev, t, gamma, thr, done_mask, K=8,
                         restart=False):
     """K FISTA iterations for the batch in one launch of the

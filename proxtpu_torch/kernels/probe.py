@@ -29,6 +29,7 @@ import functools
 
 import torch
 
+from ..utils.profiling import estimate, kernel_cost
 from . import _build
 
 # threads of one block of the kernel (probe.cu: kThreads) and resident
@@ -105,6 +106,14 @@ def _launch(A, out, scratch, B, n, S, chunk):
     return out
 
 
+def _read_reduce_cost(A, out=None, scratch=None):
+    """The JAX probe's pl.CostEstimate (benchmarks/trip_overhead_bench.py:
+    108), what the wrapper reports to utils.profiling.compiled_stats."""
+    B, M, N = A.shape
+    return estimate(B * M * N, B * M * N * A.element_size())
+
+
+@kernel_cost("read_reduce", _read_reduce_cost)
 def read_reduce(A, out=None, scratch=None):
     """Per-lane sum of A (B, M, N) float32 through the ``read_reduce``
     kernel (see :func:`reference_read_reduce`), one launch.  Returns ``out``

@@ -49,6 +49,7 @@ import torch
 
 from ..utils.host_loop import run_host_loop
 from ..utils.precision import require_full_f32_matmul
+from ..utils.profiling import estimate, kernel_cost
 from . import _build
 from .lasso import _round_up
 
@@ -280,6 +281,15 @@ def _check_operands(b, planes, scalars):
             raise ValueError(f"{name} must be contiguous")
 
 
+def _cp_k_steps_cost(b, x, yx, yy, g1, g2, lam, K=8, done=None, out=None):
+    """The JAX package's pl.CostEstimate of the kernel (tv.py:198), what
+    the wrapper reports to utils.profiling.compiled_stats."""
+    B, H, W = b.shape
+    return estimate(40 * K * B * H * W, 10 * B * H * W * b.element_size(),
+                    K * B * H * W)
+
+
+@kernel_cost("cp_k_steps", _cp_k_steps_cost)
 def fused_cp_k_steps(b, x, yx, yy, g1, g2, lam, K=8, done=None, out=None):
     """K Chambolle-Pock iterations for a batch of images in one launch of
     the ``cp_k_steps`` kernel (see :func:`reference_cp_k_steps`).

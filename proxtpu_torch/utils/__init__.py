@@ -1,7 +1,10 @@
-"""Utilities of the port: precision policy, tree operations, shared-lane
-markers and the forward-backward toolkit."""
+"""Utilities of the port: tree operations, iteration tools, checkpoints,
+profiling, the precision policy, shared-lane markers and the
+forward-backward toolkit."""
 
+from . import checkpoint, iteration_tools, profiling, tree
 from .precision import pdot, pmatvec, require_full_f32_matmul
 from .shared import Shared
 
-__all__ = ["pdot", "pmatvec", "require_full_f32_matmul", "Shared"]
+__all__ = ["tree", "iteration_tools", "checkpoint", "profiling", "pdot",
+           "pmatvec", "require_full_f32_matmul", "Shared"]

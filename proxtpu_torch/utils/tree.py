@@ -77,9 +77,18 @@ def tree_scale(alpha, a):
     return tree_map(lambda l: alpha * l, a)
 
 
+def tree_axpy(alpha, x, y):
+    """y + alpha * x."""
+    return tree_map(lambda xl, yl: yl + alpha * xl, x, y)
+
+
 def tree_lincomb(alpha, a, beta, b):
     """alpha*a + beta*b."""
     return tree_map(lambda al, bl: alpha * al + beta * bl, a, b)
+
+
+def tree_conj(a):
+    return tree_map(torch.conj, a)
 
 
 def tree_zeros_like(a):
@@ -134,6 +143,11 @@ def tree_inf_norm(a):
 
 def tree_size(a):
     return sum(l.numel() for l in tree_leaves(a))
+
+
+def tree_add_scalar(a, c):
+    """a .+ c (a scalar added to every leaf)."""
+    return tree_map(lambda l: l + c, a)
 
 
 def real_dtype_of(a):
