@@ -141,7 +141,25 @@ Phases, in order; any failure raises and exits non-zero:
         counters; ``compiled_stats`` of the same solve: the kernels' flops
         and bytes by the JAX package's ``CostEstimate`` formulas at each
         launch's width;
-12. print the kernels' JSON line (time, plain version's time, bound and,
+12. drive the sharding layer (phase "sharding", routes (w) and (x)); the
+    phase fails past its 120 s budget:
+    (w) a one-rank NCCL process group (``tcp://localhost``) and
+        ``default_dp_mesh()``: ``sharded_solve_lasso_batch_packed(restart=
+        True)`` on the flagship problems, every lane done, the recheck <=
+        1.1 tol, bit-equal to ``solve_lasso_batch_packed``; the other five
+        ``sharded_solve_*`` wrappers at routes (a), (b) (with and without
+        ``iter_block``), (f) and (g)'s shapes and on the flagship, each
+        bit-equal to its unsharded solver with its kernels' launches; PANOC
+        on a row-sharded ``ShardedMatrixOperator`` and ``ConsensusADMM`` at
+        ``dryrun_multichip``'s sizes against their unsharded runs;
+        ``dryrun_multichip(1)``;
+    (x) ``python -m proxtpu_torch.tools.spmd_worker --cases card``: two Gloo
+        ranks sharing the card, 128 flagship lanes each, gathered and held
+        against (w) lane for lane (bit for bit where ``step_plan`` at B =
+        128 is the plan at 256; else every lane rechecked and the lanes
+        apart printed); a row-sharded PANOC and a consensus over the two
+        ranks against one rank; each rank's wall and the two-rank wall;
+13. print the kernels' JSON line (time, plain version's time, bound and,
     where one PyTorch call computes the same function, that call's time),
     the seconds of every phase, then the result line.
 
@@ -154,6 +172,7 @@ import json
 import os
 import statistics
 import subprocess
+import sys
 import time
 
 import numpy as np
@@ -3028,6 +3047,237 @@ def phase_drivers(card):
     return launches
 
 
+SHARDING_BUDGET_S = 120.0
+SHARDING_DIR = os.path.join("build", "chip_smoke_sharding")
+SHARDING_RANKS = 2  # route (x): two Gloo ranks sharing the one card
+
+
+def sharded_pair(name, sharded, plain, card, expect, check=None):
+    """Route (w): ``sharded()`` (outputs placed on the one-rank mesh)
+    against the unsharded solver ``plain()`` on the same tensors: both
+    warmed up, then each timed once, every launch counter set to 0 just
+    before the sharded run and read just after.  Every lane done, the
+    gathered outputs bit-equal to the unsharded ones, exactly the kernels
+    ``expect`` launched; ``check`` rechecks the solution on the host.
+    Returns ``(launches, plain outputs)``."""
+    from proxtpu_torch.parallel.sharded_ops import full_tensor
+
+    counters = launch_counters()
+    sharded(), plain()  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = plain()
+    torch.cuda.synchronize()
+    dt_p = time.perf_counter() - t0
+    for w, a in counters.values():
+        setattr(w, a, 0)
+    t0 = time.perf_counter()
+    out = sharded()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {k: getattr(w, a) for k, (w, a) in counters.items()}
+    got = [full_tensor(v) for v in out]
+    assert {k for k, n in launches.items() if n} == set(expect), (
+        name, launches, expect)
+    assert bool(got[2].all()), f"{name}: {int((~got[2]).sum())} lanes left"
+    assert all(torch.equal(g, r) for g, r in zip(got, ref)), (
+        f"{name}: sharded lanes differ from the unsharded solve")
+    r = "" if check is None else f", recheck {check(got[0]):.3e}"
+    print(f"(w) {name}: bit-equal to the unsharded solve{r}; iterations "
+          f"mean {got[1].float().mean():.2f} max {int(got[1].max())}; "
+          f"launches {({k: n for k, n in launches.items() if n})}; "
+          f"sharded {dt:.4f} s a solve, unsharded {dt_p:.4f} s  [{card}]")
+    return launches, ref
+
+
+def sharding_one_rank(card):
+    """Route (w): the sharding layer on a one-rank NCCL group at full width.
+    Returns the kernels' launches and the flagship's unsharded solve."""
+    import bench
+    from benchmarks import kernel_sweep
+    from proxtpu_torch import problems_from_numpy
+    from proxtpu_torch.kernels import box_qp as tb
+    from proxtpu_torch.kernels import lasso as tl
+    from proxtpu_torch.kernels import tv
+    from proxtpu_torch.parallel import (
+        default_dp_mesh,
+        sharded_solve_box_qp_batch,
+        sharded_solve_lasso_batch,
+        sharded_solve_lasso_batch_blocked,
+        sharded_solve_lasso_batch_packed,
+        sharded_solve_lasso_multirhs,
+        sharded_solve_tv_batch,
+    )
+    from proxtpu_torch.tools import graft_entry, spmd_worker
+
+    mesh = default_dp_mesh()
+    total = {}
+
+    def add(launches):
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+
+    # the sharded main path: the flagship through the packed solver
+    flagship = bench.gen_problems(bench.BATCH)
+    assert all(np.array_equal(a, b) for a, b in zip(
+        flagship, spmd_worker.flagship_problems(bench.BATCH)))
+    A, b, lam, Lf = problems_from_numpy(*flagship, device=DEVICE)
+    check = lambda z: recheck(*flagship, z.cpu().numpy())  # noqa: E731
+    launches, packed = sharded_pair(
+        "sharded_solve_lasso_batch_packed(restart=True) "
+        f"{MAIN_SHAPES[0]}",
+        lambda: sharded_solve_lasso_batch_packed(
+            A, b, lam, Lf, TOL, mesh=mesh, maxit=MAXIT, restart=True),
+        lambda: tl.solve_lasso_batch_packed(A, b, lam, Lf, TOL, maxit=MAXIT,
+                                            restart=True),
+        card, ("fista_step",), check)
+    assert check(packed[0]) <= 1.1 * TOL, check(packed[0])
+    add(launches)
+    add(sharded_pair(
+        f"sharded_solve_lasso_batch {MAIN_SHAPES[0]}",
+        lambda: sharded_solve_lasso_batch(A, b, lam, Lf, TOL, mesh=mesh,
+                                          maxit=3000),
+        lambda: tl.solve_lasso_batch(A, b, lam, Lf, TOL, maxit=3000),
+        card, ("fb_step", "fista_step"), check)[0])
+    del A, b, lam, Lf
+    prob = kernel_sweep.gen(*BLOCKED_SHAPES[0])
+    Ak, bk, lk, Lk = problems_from_numpy(*prob, device=DEVICE)
+    add(sharded_pair(
+        f"sharded_solve_lasso_batch_blocked {BLOCKED_SHAPES[0]}",
+        lambda: sharded_solve_lasso_batch_blocked(
+            Ak, bk, lk, Lk, TOL, mesh=mesh, maxit=3000, iter_block=K),
+        lambda: tl.solve_lasso_batch_blocked(Ak, bk, lk, Lk, TOL, maxit=3000,
+                                             iter_block=K),
+        card, ("fb_step", "fista_k_steps"),
+        lambda z: recheck(*prob, z.cpu().numpy()))[0])
+    del prob, Ak, bk, lk, Lk
+    B, n = BOX_SHAPES[0]
+    Qs, qs, gam = box_qp_problems(B, n, seed=7)
+    Q, q = (torch.tensor(v, device=DEVICE) for v in (Qs, qs))
+    Lip = torch.tensor(0.95 / gam, device=DEVICE)
+    for blocks, expect in ((K, ("pg_step", "pg_k_steps")),
+                           (None, ("pg_step",))):
+        solve = tb.solve_box_qp_batch if blocks is None else functools.partial(
+            tb.solve_box_qp_batch_blocked, iter_block=blocks)
+        add(sharded_pair(
+            f"sharded_solve_box_qp_batch {(B, n)} iter_block={blocks}",
+            lambda: sharded_solve_box_qp_batch(
+                Q, q, -1.0, 1.0, Lip, 1e-4, mesh=mesh, maxit=10_000,
+                iter_block=blocks),
+            lambda: solve(Q, q, -1.0, 1.0, Lip, 1e-4, maxit=10_000),
+            card, expect)[0])
+    del Q, q, Lip
+    Bt, H, W = TV_SHAPES[1]
+    noisy = torch.tensor(tv_images(Bt, H, W), device=DEVICE)
+    add(sharded_pair(
+        f"sharded_solve_tv_batch {TV_SHAPES[1]}",
+        lambda: sharded_solve_tv_batch(noisy, TV_LAM, TV_TOL, mesh=mesh,
+                                       maxit=TV_MAXIT, iter_block=K),
+        lambda: tv.solve_tv_batch(noisy, TV_LAM, TV_TOL, maxit=TV_MAXIT,
+                                  iter_block=K),
+        card, ("cp_k_steps",))[0])
+    del noisy
+    As_, b_, lams_, Lf_ = shared_problem()
+    A1 = torch.tensor(As_, device=DEVICE)
+    Bmat = torch.tensor(np.broadcast_to(b_, (len(lams_), len(b_))).copy(),
+                        device=DEVICE)
+    lam1 = torch.tensor(lams_, device=DEVICE)
+    add(sharded_pair(
+        f"sharded_solve_lasso_multirhs {As_.shape}, {len(lams_)} lambdas",
+        lambda: sharded_solve_lasso_multirhs(A1, Bmat, lam1, Lf_, TOL,
+                                             mesh=mesh, maxit=3000),
+        lambda: tl.solve_lasso_multirhs(A1, Bmat, lam1, Lf_, TOL,
+                                        maxit=3000),
+        card, (), lambda z: shared_recheck(As_, b_, lams_, Lf_,
+                                           z.cpu().numpy()))[0])
+    # the row-sharded operator under PANOC and the consensus, at
+    # dryrun_multichip's sizes, against their unsharded runs
+    dev = torch.device(DEVICE, 0)
+    for name, solve in (("PANOC, A row-sharded over dp",
+                         spmd_worker.rows_panoc_solve),
+                        ("ConsensusADMM, blocks over dp",
+                         spmd_worker.consensus_solve)):
+        solve(1, dev, mesh)  # warm-up
+        x_s, it_s, dt = solve(1, dev, mesh)
+        x_1, it_1, dt_1 = solve(1, dev, None)
+        assert it_s == it_1 and torch.equal(x_s, x_1), (name, it_s, it_1)
+        print(f"(w) {name}: {it_s} iterations, bit-equal to the unsharded "
+              f"run; {dt:.4f} s, unsharded {dt_1:.4f} s  [{card}]")
+    graft_entry.dryrun_multichip(1, "cuda")
+    print("(w) dryrun_multichip(1): every layout matches its unsharded run")
+    return total, packed
+
+
+def sharding_two_ranks(card, packed):
+    """Route (x): two Gloo ranks sharing the one card through
+    ``python -m proxtpu_torch.tools.spmd_worker``, the flagship lanes held
+    against route (w)'s unsharded solve."""
+    import shutil
+
+    import bench
+    from proxtpu_torch.kernels import _build
+    from proxtpu_torch.kernels import lasso as tl
+
+    shutil.rmtree(SHARDING_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    subprocess.run(
+        [sys.executable, "-m", "proxtpu_torch.tools.spmd_worker", "--ranks",
+         str(SHARDING_RANKS), "--backend", "gloo", "--device", "cuda",
+         "--cases", "card", "--out", SHARDING_DIR, "--timeout", "90"],
+        check=True, timeout=120)
+    dt = time.perf_counter() - t0
+    with np.load(os.path.join(SHARDING_DIR, "spmd.npz")) as f:
+        out = {k: f[k] for k in f.files}
+    shutil.rmtree(SHARDING_DIR, ignore_errors=True)
+    z, it, done = (out[f"flagship__{k}"] for k in ("z", "it", "done"))
+    assert done.all(), f"(x): {int((~done).sum())} lanes left"
+    z_w, it_w = packed[0].cpu().numpy(), packed[1].cpu().numpy()
+    B, M, N = MAIN_SHAPES[0]
+    sms, limit = _build.sm_count(0), _build.max_shared_bytes(0)
+    plans = {b: tl.step_plan(b, M, N, sms, limit)
+             for b in (B, B // SHARDING_RANKS)}
+    apart = np.flatnonzero((it != it_w) | np.any(z != z_w, axis=1))
+    worst = recheck(*bench.gen_problems(bench.BATCH), z)
+    if plans[B] == plans[B // SHARDING_RANKS]:
+        assert apart.size == 0, f"(x): lanes {apart} differ from (w)"
+    assert worst <= 1.1 * TOL, worst
+    print(f"(x) {SHARDING_RANKS} Gloo ranks on one card: step_plan at B = "
+          f"{B // SHARDING_RANKS} {plans[B // SHARDING_RANKS]}, at {B} "
+          f"{plans[B]}; {apart.size} of {B} lanes apart from (w) "
+          f"{apart.tolist()}; recheck {worst:.3e}; every lane done; ranks' "
+          f"walls {out['flagship__walls'].round(4).tolist()} s, two-rank "
+          f"wall {float(out['flagship__both']):.4f} s, fista_step launches "
+          f"{out['flagship__launches'].astype(int).tolist()}; the worker "
+          f"{dt:.1f} s  [{card}]")
+
+
+def phase_sharding(card):
+    """Routes (w) and (x): the sharding layer on the card; the phase must
+    end within SHARDING_BUDGET_S.  Returns the kernel launches of (w)."""
+    import socket
+
+    import torch.distributed as dist
+
+    from proxtpu_torch.parallel import initialize_distributed
+
+    t_phase = time.perf_counter()
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    assert initialize_distributed(f"localhost:{port}", 1, 0) == 1
+    assert dist.get_backend() == "nccl"
+    try:
+        launches, packed = sharding_one_rank(card)
+    finally:
+        dist.destroy_process_group()
+    sharding_two_ranks(card, packed)
+    dt = time.perf_counter() - t_phase
+    print(f"  sharding: {dt:.1f} s (budget {SHARDING_BUDGET_S:.0f} s)  "
+          f"[{card}]")
+    assert dt <= SHARDING_BUDGET_S, (dt, SHARDING_BUDGET_S)
+    return launches
+
+
 def kernel_bounds():
     """``{kernel: (shape, ms, by)}``: the bound of each kernel at the shape
     its times in the JSON line are taken at.  Bytes: every operand read
@@ -3119,6 +3369,9 @@ def main():
         launches[k] = launches.get(k, 0) + n
     print("the drivers' remaining surface, routes (q)-(v):")
     for k, n in phase("drivers", phase_drivers, card).items():
+        launches[k] = launches.get(k, 0) + n
+    print("the sharding layer, routes (w) and (x):")
+    for k, n in phase("sharding", phase_sharding, card).items():
         launches[k] = launches.get(k, 0) + n
     launches["read_reduce"] = floor_launches
     kernels = {

@@ -239,7 +239,14 @@ class IterativeAlgorithm:
         self.kwargs = kwargs
 
     def make_iteration(self, **kwargs):
-        return self.iteration_factory(**{**self.kwargs, **kwargs})
+        """The iteration of this solver on the problem ``kwargs``.
+        Replicated DTensors (``parallel.replicate``) enter as their local
+        full tensors; sharded ones stay placed for the objects that
+        communicate (``ShardedMatrixOperator``, consensus blocks)."""
+        from ..parallel.sharded_ops import localize
+
+        merged, _ = localize({**self.kwargs, **kwargs}, lanes=False)
+        return self.iteration_factory(**merged)
 
     def run(self, resume_from=None, resume_iters=None, **kwargs):
         """Returns ``(solution, iteration count)``.

@@ -43,6 +43,7 @@ import math
 
 import torch
 
+from ..parallel.sharded_ops import lane_parallel
 from ..utils.host_loop import run_host_loop
 from ..utils.precision import require_full_f32_matmul
 from ..utils.profiling import estimate, kernel_cost
@@ -590,6 +591,7 @@ def _mf_beta_pair(gamma, mf, dtype):
     return beta1, beta2
 
 
+@lane_parallel
 def solve_lasso_batch(A, b, lam, Lf, tol, maxit=1000, use_kernel=True,
                       restart=False, x0=None, mf=None, step_mult=1.0,
                       stall_patience=100, lam2=None):
@@ -785,6 +787,7 @@ def _solve_overrelaxed(A, b, lam, Lf, step_mult, tol, x0, *, maxit,
     return _run_loop(body, state, maxit)
 
 
+@lane_parallel
 def solve_lasso_batch_packed(A, b, lam, Lf, tol, maxit=1000, restart=False,
                              x0=None, pack=None, mf=None, step_mult=1.0,
                              stall_patience=100, lam2=None, use_kernel=True):
@@ -848,6 +851,7 @@ def _solve_packed_core(A, b, lam, Lf, tol, x0, *, maxit, restart,
                      maxit)
 
 
+@lane_parallel
 def solve_lasso_batch_packed_tail(A, b, lam, Lf, tol, maxit=2000, k1=192,
                                   tail=64, restart=True, use_kernel=True):
     """Two-phase batched FISTA, the main path's entry point.
@@ -899,6 +903,7 @@ def solve_lasso_batch_packed_tail(A, b, lam, Lf, tol, maxit=2000, k1=192,
     return xs, iters, done
 
 
+@lane_parallel
 def solve_lasso_batch_blocked(A, b, lam, Lf, tol, maxit=2000, iter_block=8,
                               restart=False, x0=None, use_kernel=True):
     """Batched FISTA with K-step iteration blocking, K = ``iter_block``.
@@ -945,6 +950,7 @@ def solve_lasso_batch_blocked(A, b, lam, Lf, tol, maxit=2000, iter_block=8,
     return z, torch.clamp(torch.where(done, iters, k), max=maxit), done
 
 
+@lane_parallel
 def solve_lasso_batch_compacting(A, b, lam, Lf, tol, maxit=1000,
                                  use_kernel=True, restart=False, segment=64,
                                  min_batch=32, x0=None):
@@ -1087,6 +1093,7 @@ def solve_lasso_multirhs(A, Bmat, lam, Lf, tol, maxit=2000, iter_block=1,
     return z, torch.clamp(torch.where(done, iters, k), max=maxit), done
 
 
+@lane_parallel
 def solve_lasso_batch_mixed(A, b, lam, Lf, tol, maxit=1000, warm_tol=None,
                             warm_maxit=None, use_kernel=True,
                             warm_dtype=torch.bfloat16, restart=False):

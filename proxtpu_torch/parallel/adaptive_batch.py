@@ -37,6 +37,7 @@ from ..prox.base import prox, value_and_gradient
 from ..utils.precision import require_full_f32_matmul
 from ..utils.tree import eps_of, real_dtype_of
 from .flat_ls import _host_while, _lane_map, _live, _rvec
+from .sharded_ops import lane_parallel
 
 
 def _flat_adaptive_run(f, g, x0, gamma0, tol, maxit, accel=False,
@@ -192,6 +193,7 @@ def _flat_adaptive_run(f, g, x0, gamma0, tol, maxit, accel=False,
     return s["z"], s["k"], s["done"]
 
 
+@lane_parallel
 def batched_adaptive_fb(f, g, x0, tol, maxit=10_000, gamma0=None,
                         minimum_gamma=1e-7, reduce_gamma=0.5,
                         increase_gamma=1.0, check_every=1):
@@ -212,6 +214,7 @@ def batched_adaptive_fb(f, g, x0, tol, maxit=10_000, gamma0=None,
         increase_gamma=float(increase_gamma), check_every=int(check_every))
 
 
+@lane_parallel
 def batched_adaptive_fista(f, g, x0, tol, maxit=10_000, gamma0=None,
                            minimum_gamma=1e-7, reduce_gamma=0.5,
                            increase_gamma=1.0, mf=0.0, check_every=1):

@@ -28,6 +28,7 @@ import torch
 from ..utils.host_loop import run_host_loop
 from ..utils.shared import Shared, unwrap_shared
 from ..utils.tree import _children, flatten, tree_leaves, tree_map
+from .sharded_ops import lane_parallel
 
 # steps between the host's all-done tests: the generic driver's default K
 # (the JAX package's) and the K of the drivers that take none (segments,
@@ -63,19 +64,25 @@ def stack_iterations(iterations):
     inside a Shared wrapper would batch data the drivers then treat as
     lane-invariant.  Build the batched iteration through one factory call
     with stacked kwargs (or :class:`BatchedAlgorithm`) instead."""
-    iterations = list(iterations)  # accept generators
-    flat = [flatten(it) for it in iterations]
+    return _stack(iterations, "stack_iterations")
+
+
+def _stack(objs, name):
+    """Stack objects of one structure (``name`` is the caller, for the
+    errors): every tensor gains a leading batch axis."""
+    objs = list(objs)  # accept generators
+    flat = [flatten(o) for o in objs]
     for _, spec in flat:
         if any(spec.shared):
             raise ValueError(
-                "stack_iterations cannot stack Shared-marked problem data; "
+                f"{name} cannot stack Shared-marked problem data; "
                 "call the factory once with stacked kwargs and keep the "
                 "Shared operand outside the stack (see BatchedAlgorithm)")
-    first = _skeleton(iterations[0])
-    for i, it in enumerate(iterations[1:], start=1):
-        if _skeleton(it) != first:
+    first = _skeleton(objs[0])
+    for i, o in enumerate(objs[1:], start=1):
+        if _skeleton(o) != first:
             raise ValueError(
-                f"stack_iterations: iteration {i} differs from iteration 0 "
+                f"{name}: iteration {i} differs from iteration 0 "
                 "in a part that is not a tensor (a number, flag or "
                 "strategy); pass per-problem values as tensors")
     leaves = [torch.stack(ls) for ls in zip(*(lv for lv, _ in flat))]
@@ -254,6 +261,7 @@ def _start(lanes):
                                    device=done.device)
 
 
+@lane_parallel
 def batched_run_loop(iteration, maxit, tol, stop=None, solution=None,
                      check_every=1, verbose=False, freq=100,
                      halt_nonfinite=False):
@@ -500,6 +508,7 @@ class BatchedAlgorithm:
             if "backtrack_limit" in params:
                 merged["backtrack_limit"] = _default_backtrack_limit(merged)
 
+    @lane_parallel
     def __call__(self, **kwargs):
         merged = {**self.kwargs, **kwargs}
         # a kwarg the factory does not take must not be dropped by a

@@ -47,6 +47,7 @@ from ..prox.base import is_generalized_quadratic, prox, value_and_gradient
 from ..utils.precision import require_full_f32_matmul
 from ..utils.shared import batch_axes, unwrap_shared
 from ..utils.tree import eps_of, flatten, real_dtype_of, tree_map
+from .sharded_ops import lane_parallel
 
 
 def _bwhere(pred, new, old):
@@ -1087,6 +1088,7 @@ def _rvec(v, R, B, device):
     return torch.as_tensor(v, dtype=R, device=device).expand(B)
 
 
+@lane_parallel
 def batched_drls(f, g, x0, gamma, lam, c, tol, maxit=1000,
                  max_backtracks=20, directions=None, dre_sign=1,
                  trip_cap=None, check_every=1):
@@ -1270,6 +1272,7 @@ def _flat_panocplus_run(f, A, g, x0, gamma, tol, maxit, alpha, beta,
     return s["z_sol"], s["k"], s["done"]
 
 
+@lane_parallel
 def batched_panocplus(f, A, g, x0, gamma, tol, maxit=1000, alpha=0.95,
                       beta=0.5, max_backtracks=20, directions=None,
                       adaptive=False, minimum_gamma=1e-7,
@@ -1311,6 +1314,7 @@ def batched_panocplus(f, A, g, x0, gamma, tol, maxit=1000, alpha=0.95,
         trip_cap=trip_cap, check_every=int(check_every))
 
 
+@lane_parallel
 def batched_zerofpr(f, A, g, x0, gamma, tol, maxit=1000, alpha=0.95,
                     beta=0.5, max_backtracks=20, directions=None,
                     trip_cap=None, check_every=1, adaptive=False,
@@ -1344,6 +1348,7 @@ def batched_zerofpr(f, A, g, x0, gamma, tol, maxit=1000, alpha=0.95,
         check_every=int(check_every))
 
 
+@lane_parallel
 def batched_panoc(f, A, g, x0, gamma, tol, maxit=1000, alpha=0.95,
                   beta=0.5, max_backtracks=20, directions=None,
                   trip_cap=None, check_every=1, adaptive=False,

@@ -1,1 +1,3 @@
-"""Scripts that measure the port's kernels on one GPU (run with ``-m``)."""
+"""Scripts of the port, run with ``-m``: kernel measurements on one GPU, the
+reference suite and application families, the entry points and the
+multi-rank worker of the sharding layer."""

@@ -1,0 +1,924 @@
+"""Run named cases of the sharding layer on N ranks of one process group.
+
+    python -m proxtpu_torch.tools.spmd_worker --ranks 4 --backend gloo \\
+        --device cpu --cases cpu --out DIR
+
+starts N processes (rank r on ``cuda:r``, or on ``cuda:0`` where the ranks
+share one card; one thread each on the CPU), brings up a process group of
+the named backend over a ``tcp://localhost`` store, runs the cases in
+order on every rank and writes each case's gathered outputs from rank 0 to
+``DIR/spmd.npz`` (keys ``case__name``).  A rank that fails, or a run past
+``--timeout`` seconds, stops every rank and exits non-zero.  With
+``--device cuda`` the kernels are built before the ranks start.
+
+Each data-parallel case asserts that its gathered per-lane outputs are
+``torch.equal`` to the unsharded solve of the same lanes, and that no
+collective ran inside the sharded solve (``torch.distributed``'s
+collectives and the port's collective helper are counted).  The data
+generators are numpy only, so a test can feed the JAX package the same
+inputs.
+
+``--cases cpu`` runs the counterparts of the JAX package's sharding tests
+(``tests/test_sharding.py`` but the dp x tp case, and
+``tests/test_multiprocess.py``) and ``dryrun_multichip``; ``--cases card``
+runs the flagship lanes through ``sharded_solve_lasso_batch_packed``, a
+row-sharded PANOC and a consensus with a block a rank, each against its
+run on one rank.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import os
+import socket
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+# ---------------------------------------------------------------------------
+# data (numpy, seeded as the JAX package's tests)
+
+
+def big_lasso(seed=0, m=64, n=48):
+    """``tests/test_sharding.py::big_lasso``: float64 A, b, lam, Lf."""
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal((m, n))
+    b = rng.standard_normal(m)
+    lam = 0.1 * float(np.max(np.abs(A.T @ b)))
+    Lf = float(np.linalg.norm(A, 2) ** 2)
+    return A, b, lam, Lf
+
+
+def lasso_batch(B=16, M=16, N=24, seed=3, dtype=np.float32):
+    """``tests/test_sharding.py::_lasso_batch``."""
+    rng = np.random.default_rng(seed)
+    A = (rng.standard_normal((B, M, N)) / np.sqrt(M)).astype(dtype)
+    b = rng.standard_normal((B, M)).astype(dtype)
+    lam = (0.1 * np.max(np.abs(np.einsum("bmn,bm->bn", A, b)), axis=1)
+           ).astype(dtype)
+    Lf = np.asarray([np.linalg.norm(A[i], 2) ** 2 for i in range(B)], dtype)
+    return A, b, lam, Lf
+
+
+def dp_problems():
+    """``test_dp_sharded_batch_solve``'s 16 float64 lassos."""
+    out = []
+    for k in range(16):
+        rng = np.random.default_rng(k)
+        A = rng.standard_normal((8, 12))
+        b = rng.standard_normal(8)
+        lam = 0.1 * float(np.max(np.abs(A.T @ b)))
+        out.append((A, b, lam, float(np.linalg.norm(A, 2) ** 2)))
+    return out
+
+
+def global_mesh_batch():
+    """``test_global_mesh_runs_sharded_solve``'s float32 batch."""
+    rng = np.random.default_rng(0)
+    B, M, N = 8, 16, 24
+    A = (rng.standard_normal((B, M, N)) / 4).astype(np.float32)
+    b = rng.standard_normal((B, M)).astype(np.float32)
+    lam = (0.1 * np.max(np.abs(np.einsum("bmn,bm->bn", A, b)), axis=1)
+           ).astype(np.float32)
+    Lf = np.asarray([np.linalg.norm(A[i], 2) ** 2 for i in range(B)],
+                    np.float32)
+    return A, b, lam, Lf
+
+
+def multirhs_data():
+    rng = np.random.default_rng(5)
+    M, N, B = 24, 32, 16
+    A = (rng.standard_normal((M, N)) / np.sqrt(M)).astype(np.float32)
+    Bmat = rng.standard_normal((B, M)).astype(np.float32)
+    lam = (0.1 * np.max(np.abs(Bmat @ A), axis=1)).astype(np.float32)
+    return A, Bmat, lam, float(np.linalg.norm(A, 2) ** 2)
+
+
+def box_qp_data():
+    rng = np.random.default_rng(6)
+    n, B = 16, 16
+    Qs, qs, Lips = [], [], []
+    for _ in range(B):
+        U, _ = np.linalg.qr(rng.standard_normal((n, n)))
+        ev = 2 * rng.random(n) - 1
+        Q0 = (U @ np.diag(ev) @ U.T).astype(np.float32)
+        Qs.append(0.5 * (Q0 + Q0.T))
+        qs.append(rng.standard_normal(n).astype(np.float32))
+        Lips.append(np.max(np.abs(ev)))
+    return np.stack(Qs), np.stack(qs), np.array(Lips, np.float32)
+
+
+def restart_data():
+    rng = np.random.default_rng(7)
+    B, M, N = 16, 12, 20
+    A = (rng.standard_normal((B, M, N)) / np.sqrt(M)).astype(np.float32)
+    b = rng.standard_normal((B, M)).astype(np.float32)
+    lam = (0.1 * np.max(np.abs(np.einsum("bmn,bm->bn", A, b)), axis=1)
+           ).astype(np.float32)
+    Lf = np.asarray([np.linalg.norm(A[i], 2) ** 2 for i in range(B)],
+                    np.float32)
+    return A, b, lam, Lf
+
+
+def tv_data():
+    rng = np.random.default_rng(6)
+    B, H, W = 8, 16, 16
+    b = rng.standard_normal((B, H, W)).astype(np.float32)
+    lam = (0.05 + 0.2 * rng.random(B)).astype(np.float32)
+    return b, lam
+
+
+def shared_operand_data():
+    rng = np.random.default_rng(7)
+    B, M, N = 16, 24, 32
+    A = (rng.standard_normal((M, N)) / np.sqrt(M)).astype(np.float32)
+    b = rng.standard_normal(M).astype(np.float32)
+    lam = (0.1 + 0.2 * rng.random(B)).astype(np.float32)
+    return A, b, lam, float(np.linalg.norm(A, 2) ** 2)
+
+
+def flat_data():
+    rng = np.random.default_rng(21)
+    B, M, N = 16, 24, 40
+    A = rng.standard_normal((B, M, N)) / np.sqrt(M)
+    b = rng.standard_normal((B, M))
+    lam = 0.1 * np.max(np.abs(np.einsum("bmn,bm->bn", A, b)), axis=1)
+    Lf = np.asarray([float(np.linalg.norm(A[i], 2) ** 2) for i in range(B)])
+    return A, b, lam, Lf
+
+
+def multiprocess_batch():
+    """``tests/multiprocess_worker.py``'s batch (2 processes x 4 devices:
+    16 lanes of 12 x 20, float32)."""
+    rng = np.random.default_rng(11)
+    B, M, N = 16, 12, 20
+    A = (rng.standard_normal((B, M, N)) / np.sqrt(M)).astype(np.float32)
+    b = rng.standard_normal((B, M)).astype(np.float32)
+    lam = (0.1 * np.max(np.abs(np.einsum("bmn,bm->bn", A, b)), axis=1)
+           ).astype(np.float32)
+    Lf = np.array([np.linalg.norm(A[i], 2) ** 2 for i in range(B)],
+                  np.float32)
+    return A, b, lam, Lf
+
+
+def flagship_problems(batch=256):
+    """The main path's problems (a copy of ``bench.gen_problems``): 200 x
+    400 float32, seed 0."""
+    M, N = 200, 400
+    rng = np.random.default_rng(0)
+    As = (rng.standard_normal((batch, M, N)) / np.sqrt(M)).astype(np.float32)
+    bs = rng.standard_normal((batch, M)).astype(np.float32)
+    lams = 0.1 * np.max(np.abs(np.einsum("bmn,bm->bn", As, bs)), axis=1)
+    Lfs = np.array([np.linalg.norm(As[i], 2) ** 2 for i in range(batch)],
+                   dtype=np.float32)
+    return As, bs, lams.astype(np.float32), Lfs
+
+
+def rows_problem(ranks):
+    """``dryrun_multichip``'s tp problem at ``ranks`` row stripes: A
+    (256 ranks, 96), float32."""
+    rng = np.random.default_rng(0)
+    m, n = 256 * ranks, 96
+    A = (rng.standard_normal((m, n)) / np.sqrt(m)).astype(np.float32)
+    b = rng.standard_normal(m).astype(np.float32)
+    return A, b, float(np.linalg.norm(A, 2) ** 2)
+
+
+def consensus_blocks(ranks):
+    """``dryrun_multichip``'s consensus blocks: ``ranks`` blocks of 32 x
+    96, float32."""
+    rng = np.random.default_rng(1)
+    return [(rng.standard_normal((32, 96)).astype(np.float32),
+             rng.standard_normal(32).astype(np.float32))
+            for _ in range(ranks)]
+
+
+# the card's sizes and tolerances for the row-sharded PANOC and the
+# consensus (chip_smoke.py's route (w) runs the same on one rank)
+ROWS_TOL, ROWS_MAXIT = 1e-5, 1000
+CONSENSUS_TOL, CONSENSUS_MAXIT = 1e-4, 5000
+FLAGSHIP_TOL, FLAGSHIP_MAXIT = 1e-5, 2000
+
+
+# ---------------------------------------------------------------------------
+# counting collectives
+
+_DIST_COLLECTIVES = (
+    "all_reduce", "all_gather", "all_gather_into_tensor", "all_to_all",
+    "all_to_all_single", "broadcast", "reduce", "reduce_scatter",
+    "reduce_scatter_tensor", "gather", "scatter", "barrier", "send",
+    "recv", "isend", "irecv", "all_gather_object", "broadcast_object_list")
+
+
+@contextlib.contextmanager
+def no_collectives(what):
+    """Fail unless the block runs no collective: every collective of
+    ``torch.distributed`` is wrapped with a counter for the block, and the
+    port's collective helper keeps its own count."""
+    import torch.distributed as dist
+
+    from ..parallel.sharded_ops import COLLECTIVES
+
+    calls = []
+    saved = {n: getattr(dist, n) for n in _DIST_COLLECTIVES
+             if hasattr(dist, n)}
+
+    def counting(name, fn):
+        def run(*args, **kwargs):
+            calls.append(name)
+            return fn(*args, **kwargs)
+        return run
+
+    before = sum(COLLECTIVES.values())
+    for n, fn in saved.items():
+        setattr(dist, n, counting(n, fn))
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(dist, n, fn)
+    helper = sum(COLLECTIVES.values()) - before
+    assert not calls and not helper, (
+        f"{what}: collectives inside the sharded solve: {calls}, "
+        f"{helper} by the helper")
+
+
+# ---------------------------------------------------------------------------
+# the cases
+
+CASES = {}
+CPU_CASES = ("operator", "panoc", "consensus", "dp_batch", "global_mesh",
+             "lasso_kernel", "blocked", "multirhs", "box_qp",
+             "restart_warm", "tv", "shared_operand", "flat", "packed",
+             "errors", "multiprocess", "dryrun")
+CARD_CASES = ("flagship", "rows_panoc", "blocks_consensus")
+
+
+def case(fn):
+    CASES[fn.__name__] = fn
+    return fn
+
+
+class Context:
+    """A rank's view: its rank, the world, its device and the meshes the
+    cases build (built once, in the same order on every rank)."""
+
+    def __init__(self, rank, world, device_type, device):
+        self.rank, self.world = rank, world
+        self.device_type, self.device = device_type, device
+        self._meshes = {}
+
+    def mesh(self, shape, names):
+        from ..parallel import make_mesh
+
+        key = (tuple(shape), tuple(names))
+        if key not in self._meshes:
+            self._meshes[key] = make_mesh(shape, names, self.device_type)
+        return self._meshes[key]
+
+    def dp(self):
+        return self.mesh((self.world,), ("dp",))
+
+    def tp(self):
+        return self.mesh((self.world,), ("tp",))
+
+    def t(self, v):
+        return torch.as_tensor(np.asarray(v), device=self.device)
+
+
+def _np(x):
+    from ..parallel.sharded_ops import full_tensor
+
+    return full_tensor(x).detach().cpu().numpy()
+
+
+def _equal_lanes(what, got, want):
+    """Gathered sharded outputs against the unsharded solve, bit for
+    bit."""
+    from ..parallel.sharded_ops import full_tensor
+
+    for i, (g, w) in enumerate(zip(got, want)):
+        g = full_tensor(g)
+        assert torch.equal(g, w), (
+            f"{what}: output {i} differs from the unsharded solve "
+            f"(max {float((g.double() - w.double()).abs().max()):.3e})")
+
+
+def _lasso_outputs(z, it, d):
+    return {"z": _np(z), "it": _np(it), "done": _np(d)}
+
+
+@case
+def operator(ctx):
+    from ..parallel import shard_matrix_operator
+
+    A, b, _, _ = big_lasso()
+    op = shard_matrix_operator(ctx.t(A), ctx.tp(), row_axis="tp")
+    x = ctx.t(np.random.default_rng(1).standard_normal(A.shape[1]))
+    y = ctx.t(np.random.default_rng(2).standard_normal(A.shape[0]))
+    Ax, Aty = op.matvec(x), op.rmatvec(y)
+    # A is distributed: each rank holds a stripe of the rows
+    assert op.A.to_local().shape == (A.shape[0] // ctx.world, A.shape[1])
+    np.testing.assert_allclose(Ax.cpu().numpy(), A @ x.cpu().numpy())
+    np.testing.assert_allclose(Aty.cpu().numpy(), A.T @ y.cpu().numpy())
+    return {"Ax": Ax.cpu().numpy(), "Aty": Aty.cpu().numpy()}
+
+
+@case
+def panoc(ctx):
+    from .. import PANOC
+    from ..parallel import replicate, shard_matrix_operator
+    from ..prox import NormL1, SqrNormL2, Translate
+
+    A, b, lam, Lf = big_lasso()
+    mesh = ctx.tp()
+    x0 = torch.zeros(A.shape[1], dtype=torch.float64, device=ctx.device)
+    fo = Translate(SqrNormL2(1.0), replicate(-ctx.t(b), mesh))
+    op = shard_matrix_operator(ctx.t(A), mesh, row_axis="tp")
+    x_s, it_s = PANOC(tol=1e-6)(x0=replicate(x0, mesh), f=fo, A=op,
+                                g=NormL1(lam), Lf=Lf)
+    x_d, it_d = PANOC(tol=1e-6)(x0=x0, f=Translate(SqrNormL2(1.0),
+                                                   -ctx.t(b)),
+                                A=ctx.t(A), g=NormL1(lam), Lf=Lf)
+    assert it_s == it_d, (it_s, it_d)
+    np.testing.assert_allclose(x_s.cpu().numpy(), x_d.cpu().numpy(),
+                               atol=1e-10)
+    return {"x": x_s.cpu().numpy(), "it": np.asarray(it_s)}
+
+
+@case
+def consensus(ctx):
+    from ..parallel import ConsensusADMM, shard_batch, stack_functions
+    from ..prox import NormL1, make_least_squares
+
+    A, b, lam, _ = big_lasso(m=64, n=16)
+    blocks = [make_least_squares(ctx.t(A[i * 8:(i + 1) * 8]),
+                                 ctx.t(b[i * 8:(i + 1) * 8]))
+              for i in range(8)]
+    fs = stack_functions(blocks)
+    solver = ConsensusADMM(tol=1e-7, maxit=20_000)
+    x0 = torch.zeros(16, dtype=torch.float64, device=ctx.device)
+    x_s, it_s = solver(x0=x0, fs=shard_batch(fs, ctx.tp(), "tp"),
+                       g=NormL1(lam), gamma=1.0)
+    x_d, it_d = solver(x0=x0, fs=fs, g=NormL1(lam), gamma=1.0)
+    assert it_s == it_d, (it_s, it_d)
+    np.testing.assert_allclose(x_s.cpu().numpy(), x_d.cpu().numpy(),
+                               atol=1e-12)
+    return {"x": x_s.cpu().numpy(), "it": np.asarray(it_s)}
+
+
+@case
+def dp_batch(ctx):
+    from ..algorithms import make_fast_forward_backward_iteration
+    from ..parallel import batch_problems, batched_run_loop, shard_batch
+    from ..prox import NormL1, make_least_squares
+
+    f64 = lambda v: torch.as_tensor(v, dtype=torch.float64,  # noqa: E731
+                                    device=ctx.device)
+    problems = [dict(x0=f64(np.zeros(12)),
+                     f=make_least_squares(f64(A), f64(b)),
+                     g=NormL1(f64(lam)), Lf=f64(Lf))
+                for A, b, lam, Lf in dp_problems()]
+    iteration = batch_problems(make_fast_forward_backward_iteration,
+                               problems)
+    plain = batched_run_loop(iteration, 2000, 1e-6)
+    placed = shard_batch(iteration, ctx.tp(), "tp")
+    with no_collectives("dp_batch"):
+        xs, iters, done = batched_run_loop(placed, 2000, 1e-6)
+    _equal_lanes("dp_batch", (xs, iters, done), plain)
+    return {"xs": _np(xs), "iters": _np(iters)}
+
+
+@case
+def global_mesh(ctx):
+    from ..kernels.lasso import solve_lasso_batch
+    from ..parallel import global_mesh as make_global, shard_batch
+
+    mesh = make_global((2, ctx.world // 2), ("dp", "tp"),
+                       device_type=ctx.device_type)
+    assert tuple(mesh.shape) == (2, ctx.world // 2)
+    args = [ctx.t(v) for v in global_mesh_batch()]
+    ref = solve_lasso_batch(*args, 1e-5, maxit=3000, use_kernel=False)
+    placed = shard_batch(tuple(args), mesh, "dp")
+    with no_collectives("global_mesh"):
+        out = solve_lasso_batch(*placed, 1e-5, maxit=3000,
+                                use_kernel=False)
+    _equal_lanes("global_mesh", out, ref)
+    return _lasso_outputs(*out)
+
+
+def _kernel_case(ctx, name, sharded, plain, args, **kw):
+    ref = plain(*args, **kw)
+    with no_collectives(name):
+        out = sharded(*args, mesh=ctx.dp(), **kw)
+    _equal_lanes(name, out, ref)
+    assert all(len(_np(v)) == len(ref[0]) for v in out)
+    return _lasso_outputs(*out)
+
+
+@case
+def lasso_kernel(ctx):
+    from ..kernels.lasso import solve_lasso_batch
+    from ..parallel import sharded_solve_lasso_batch
+
+    args = [ctx.t(v) for v in lasso_batch()] + [1e-5]
+    return _kernel_case(ctx, "lasso_kernel", sharded_solve_lasso_batch,
+                        solve_lasso_batch, args, maxit=3000,
+                        use_kernel=True)
+
+
+@case
+def blocked(ctx):
+    from ..kernels.lasso import solve_lasso_batch, solve_lasso_batch_blocked
+    from ..parallel import sharded_solve_lasso_batch_blocked
+
+    args = [ctx.t(v) for v in lasso_batch(seed=4)] + [1e-5]
+    out = _kernel_case(ctx, "blocked", sharded_solve_lasso_batch_blocked,
+                       solve_lasso_batch_blocked, args, maxit=3000,
+                       iter_block=4)
+    # the one-step counts, of which the blocked ones are upper bounds
+    out["it_one"] = solve_lasso_batch(*args, maxit=3000)[1].cpu().numpy()
+    return out
+
+
+@case
+def multirhs(ctx):
+    from ..kernels.lasso import solve_lasso_multirhs
+    from ..parallel import sharded_solve_lasso_multirhs
+
+    A, Bmat, lam, Lf = multirhs_data()
+    args = [ctx.t(A), ctx.t(Bmat), ctx.t(lam), Lf, 1e-5]
+    return _kernel_case(ctx, "multirhs", sharded_solve_lasso_multirhs,
+                        solve_lasso_multirhs, args, maxit=3000)
+
+
+@case
+def box_qp(ctx):
+    from ..kernels.box_qp import solve_box_qp_batch
+    from ..parallel import sharded_solve_box_qp_batch
+
+    Q, q, Lip = box_qp_data()
+    args = [ctx.t(Q), ctx.t(q), -1.0, 1.0, ctx.t(Lip), 1e-4]
+    return _kernel_case(ctx, "box_qp", sharded_solve_box_qp_batch,
+                        solve_box_qp_batch, args, maxit=20_000,
+                        use_kernel=True)
+
+
+@case
+def restart_warm(ctx):
+    from ..kernels.lasso import solve_lasso_batch, solve_lasso_multirhs
+    from ..parallel import (
+        sharded_solve_lasso_batch,
+        sharded_solve_lasso_multirhs,
+    )
+
+    A, b, lam, Lf = (ctx.t(v) for v in restart_data())
+    out = _kernel_case(ctx, "restart", sharded_solve_lasso_batch,
+                       solve_lasso_batch, [A, b, lam, Lf, 1e-5],
+                       maxit=3000, use_kernel=False, restart=True)
+    # warm start from the solution: every lane finishes at once
+    z = ctx.t(out["z"])
+    warm = _kernel_case(ctx, "warm", sharded_solve_lasso_batch,
+                        solve_lasso_batch, [A, b, lam, Lf, 1e-5],
+                        maxit=3000, use_kernel=False, x0=z)
+    multi = _kernel_case(ctx, "multirhs restart",
+                         sharded_solve_lasso_multirhs, solve_lasso_multirhs,
+                         [A[0], b, lam, float(Lf[0]), 1e-5], maxit=3000,
+                         restart=True)
+    out.update({k + "_warm": v for k, v in warm.items()})
+    out.update({k + "_multi": v for k, v in multi.items()})
+    return out
+
+
+@case
+def tv(ctx):
+    from ..kernels.tv import solve_tv_batch
+    from ..parallel import sharded_solve_tv_batch
+
+    b, lam = tv_data()
+    return _kernel_case(ctx, "tv", sharded_solve_tv_batch, solve_tv_batch,
+                        [ctx.t(b), ctx.t(lam), 1e-3], maxit=4000,
+                        iter_block=4, use_kernel=True)
+
+
+@case
+def shared_operand(ctx):
+    from ..algorithms import make_fast_forward_backward_iteration
+    from ..parallel import (
+        Shared,
+        batched_run_loop,
+        broadcast_hyperparams,
+        shard_batch,
+    )
+    from ..prox import LeastSquaresLoss, NormL1
+
+    A, b, lam, Lf = shared_operand_data()
+    B, N = lam.shape[0], A.shape[1]
+    iteration = broadcast_hyperparams(make_fast_forward_backward_iteration(
+        x0=torch.zeros((B, N), dtype=torch.float32, device=ctx.device),
+        f=Shared(LeastSquaresLoss(ctx.t(A), ctx.t(b))), g=NormL1(ctx.t(lam)),
+        Lf=torch.full((B,), Lf, dtype=torch.float32, device=ctx.device)))
+    ref = batched_run_loop(iteration, 3000, 1e-5)
+    placed = shard_batch(iteration, ctx.dp(), "dp")
+    with no_collectives("shared_operand"):
+        out = batched_run_loop(placed, 3000, 1e-5)
+    _equal_lanes("shared_operand", out, ref)
+    return _lasso_outputs(*out)
+
+
+@case
+def flat(ctx):
+    from ..ops.linops import MatrixOperator
+    from ..parallel import (
+        Shared,
+        batched_panoc,
+        batched_zerofpr,
+        shard_batch,
+    )
+    from ..prox import NormL1, SqrDistance
+
+    A, b, lam, Lf = (ctx.t(v) for v in flat_data())
+    mesh = ctx.dp()
+    # 0.95 / Lf as a division (a number over a tensor is a reciprocal
+    # times the number in PyTorch, one rounding more than the JAX test's)
+    gamma = torch.full_like(Lf, 0.95) / Lf
+    problem = (SqrDistance(b), MatrixOperator(A), NormL1(lam),
+               torch.zeros((A.shape[0], A.shape[2]), dtype=A.dtype,
+                           device=ctx.device), gamma)
+    out = {}
+    for fn in (batched_zerofpr, batched_panoc):
+        name = fn.__name__
+        ref = fn(*problem, 1e-6, maxit=400)
+        placed = shard_batch(problem, mesh, "dp")
+        with no_collectives(name):
+            got = fn(*placed, 1e-6, maxit=400)
+        _equal_lanes(name, got, ref)
+        out.update({f"{k}_{name}": v for k, v in _lasso_outputs(*got)
+                    .items()})
+    # a Shared operand: one (A, b), per-lane lam, dp lanes
+    f_sh, A_sh = Shared(SqrDistance(b[0])), Shared(MatrixOperator(A[0]))
+    lanes = (NormL1(lam), problem[3], torch.full_like(lam, 0.95) / Lf[0])
+    ref = batched_zerofpr(f_sh, A_sh, lanes[0], lanes[1], lanes[2], 1e-6,
+                          maxit=400)
+    placed = shard_batch(lanes, mesh, "dp")
+    with no_collectives("batched_zerofpr, Shared"):
+        got = batched_zerofpr(f_sh, A_sh, *placed, 1e-6, maxit=400)
+    _equal_lanes("batched_zerofpr, Shared", got, ref)
+    out.update({f"{k}_shared": v for k, v in _lasso_outputs(*got).items()})
+    return out
+
+
+@case
+def packed(ctx):
+    from ..kernels.lasso import solve_lasso_batch_packed
+    from ..parallel import sharded_solve_lasso_batch_packed
+
+    args = [ctx.t(v) for v in lasso_batch(B=16, M=16, N=192, seed=6)]
+    return _kernel_case(ctx, "packed", sharded_solve_lasso_batch_packed,
+                        solve_lasso_batch_packed, args + [1e-5],
+                        maxit=3000)
+
+
+def _raises(fn, message):
+    try:
+        fn()
+    except ValueError as err:
+        assert str(err) == message, (str(err), message)
+        return
+    raise AssertionError(f"no ValueError: {message}")
+
+
+@case
+def errors(ctx):
+    from ..parallel import (
+        sharded_solve_box_qp_batch,
+        sharded_solve_lasso_batch,
+        sharded_solve_lasso_batch_packed,
+        sharded_solve_lasso_multirhs,
+        sharded_solve_tv_batch,
+    )
+
+    mesh, w = ctx.dp(), ctx.world
+    A, b, lam, Lf = (ctx.t(v) for v in lasso_batch(B=4 * w, M=16, N=192,
+                                                   seed=7))
+    _raises(lambda: sharded_solve_lasso_batch_packed(
+        A, b, lam, Lf, 1e-5, mesh=mesh, maxit=10, pack=3),
+        f"explicit pack=3 does not divide the per-device batch 4 (= "
+        f"{4 * w} / dp={w}); use pack=None for automatic selection with "
+        f"natural-layout fallback")
+    odd = 4 * w + 1
+    A1, b1, lam1, Lf1 = (ctx.t(v) for v in lasso_batch(B=odd, seed=7))
+    _raises(lambda: sharded_solve_lasso_batch(
+        A1, b1, lam1, Lf1, 1e-5, mesh=mesh, maxit=10),
+        f"batch {odd} not divisible by mesh axis dp={w}")
+    Am, Bmat, lamm, _ = multirhs_data()
+    _raises(lambda: sharded_solve_lasso_multirhs(
+        ctx.t(Am), ctx.t(Bmat), ctx.t(lamm), ctx.t(np.ones(16, np.float32)),
+        1e-5, mesh=mesh, maxit=10),
+        "Lf must be a scalar for the shared-A multirhs wrapper, got shape "
+        "(16,)")
+    Q, q, Lip = (ctx.t(v) for v in box_qp_data())
+    lo = ctx.t(-np.ones(16, np.float32))
+    _raises(lambda: sharded_solve_box_qp_batch(
+        Q, q, lo, 1.0, Lip, 1e-4, mesh=mesh, maxit=10),
+        "lo must be lane-uniform (scalar) in the sharded wrapper, got "
+        "shape (16,)")
+    bt, lamt = (ctx.t(v) for v in tv_data())
+    _raises(lambda: sharded_solve_tv_batch(
+        bt, lamt, 1e-3, mesh=mesh, maxit=10, gamma1=np.ones(8)),
+        "gamma1 must be lane-uniform (scalar) in the sharded wrapper, got "
+        "shape (8,)")
+    return {"checked": np.asarray(5)}
+
+
+@case
+def multiprocess(ctx):
+    from ..kernels.lasso import solve_lasso_batch
+    from ..parallel import global_mesh as make_global, shard_batch
+
+    mesh = make_global((ctx.world,), ("dp",), device_type=ctx.device_type)
+    args = [ctx.t(v) for v in multiprocess_batch()]
+    ref = solve_lasso_batch(*args, 1e-5, maxit=3000, use_kernel=False)
+    placed = shard_batch(tuple(args), mesh, "dp")
+    with no_collectives("multiprocess"):
+        out = solve_lasso_batch(*placed, 1e-5, maxit=3000,
+                                use_kernel=False)
+    _equal_lanes("multiprocess", out, ref)
+    return _lasso_outputs(*out)
+
+
+@case
+def dryrun(ctx):
+    from .graft_entry import dryrun_multichip
+
+    dryrun_multichip(ctx.world, ctx.device_type)
+    return {"ran": np.asarray(ctx.world)}
+
+
+def _sync(ctx):
+    if ctx.device.type == "cuda":
+        torch.cuda.synchronize(ctx.device)
+
+
+def _per_rank(ctx, value):
+    """Every rank's ``value`` (a number), gathered."""
+    import torch.distributed as dist
+
+    from ..parallel.sharded_ops import all_gather
+
+    t = torch.tensor([value], dtype=torch.float64, device=ctx.device)
+    return all_gather(t, dist.group.WORLD).cpu().numpy()
+
+
+@case
+def flagship(ctx):
+    """The main path's 256 lanes, ``256 / ranks`` a rank, through
+    ``sharded_solve_lasso_batch_packed(restart=True)``, each rank uploading
+    only its own lanes."""
+    import torch.distributed as dist
+
+    from ..kernels import lasso as tl
+    from ..parallel import sharded_solve_lasso_batch_packed
+    from ..parallel.sharded_ops import _dtensor
+
+    dt = _dtensor()
+    mesh = ctx.dp()
+    data = flagship_problems()
+    per = data[0].shape[0] // ctx.world
+    mine = [dt.DTensor.from_local(
+        ctx.t(v[ctx.rank * per:(ctx.rank + 1) * per]), mesh, [dt.Shard(0)],
+        run_check=False) for v in data]
+
+    def solve():
+        return sharded_solve_lasso_batch_packed(
+            *mine, FLAGSHIP_TOL, mesh=mesh, maxit=FLAGSHIP_MAXIT,
+            restart=True)
+
+    solve()  # warm-up
+    _sync(ctx)
+    dist.barrier()
+    tl.fused_fista_full_step.launches = 0
+    t0 = time.perf_counter()
+    with no_collectives("flagship"):
+        z, it, done = solve()
+        _sync(ctx)
+    wall = time.perf_counter() - t0
+    dist.barrier()
+    # from the barrier before the solves to the barrier after them
+    both = time.perf_counter() - t0
+    launches = tl.fused_fista_full_step.launches
+    walls = _per_rank(ctx, wall)
+    print(f"rank {ctx.rank}: flagship {per} lanes, {wall:.4f} s a solve, "
+          f"fista_step launches {launches}", flush=True)
+    if ctx.rank == 0:
+        print(f"flagship: ranks' walls {', '.join(f'{w:.4f}' for w in walls)}"
+              f" s; two-rank wall {both:.4f} s (one card shared)",
+              flush=True)
+    assert launches > 0 or ctx.device_type == "cpu"
+    out = _lasso_outputs(z, it, done)
+    out.update(walls=walls, both=np.asarray(both),
+               launches=_per_rank(ctx, launches))
+    return out
+
+
+def rows_panoc_solve(ranks, device, mesh):
+    """PANOC on :func:`rows_problem` (``ranks`` stripes): A row-sharded
+    over the mesh's one axis where ``mesh`` is given, a plain matrix
+    otherwise.  Returns ``(x, iterations, seconds)``."""
+    from .. import PANOC
+    from ..parallel import shard_matrix_operator
+    from ..prox import NormL1, SqrNormL2, Translate
+
+    A, b, Lf = (torch.as_tensor(v, device=device) if isinstance(
+        v, np.ndarray) else v for v in rows_problem(ranks))
+    op = A if mesh is None else shard_matrix_operator(
+        A, mesh, row_axis=mesh.mesh_dim_names[0])
+    t0 = time.perf_counter()
+    x, it = PANOC(tol=ROWS_TOL, maxit=ROWS_MAXIT)(
+        x0=torch.zeros(A.shape[1], dtype=A.dtype, device=device),
+        f=Translate(SqrNormL2(1.0), -b), A=op, g=NormL1(0.1), Lf=Lf)
+    return x, it, time.perf_counter() - t0
+
+
+def consensus_solve(ranks, device, mesh):
+    """ConsensusADMM over :func:`consensus_blocks` (``ranks`` blocks), the
+    blocks sharded over the mesh's one axis where ``mesh`` is given.
+    Returns ``(x, iterations, seconds)``."""
+    from ..parallel import ConsensusADMM, shard_batch, stack_functions
+    from ..prox import NormL1, make_least_squares
+
+    fs = stack_functions([
+        make_least_squares(torch.as_tensor(A, device=device),
+                           torch.as_tensor(b, device=device))
+        for A, b in consensus_blocks(ranks)])
+    if mesh is not None:
+        fs = shard_batch(fs, mesh, mesh.mesh_dim_names[0])
+    t0 = time.perf_counter()
+    x, it = ConsensusADMM(tol=CONSENSUS_TOL, maxit=CONSENSUS_MAXIT)(
+        x0=torch.zeros(96, dtype=torch.float32, device=device), fs=fs,
+        g=NormL1(0.1), gamma=1.0)
+    return x, it, time.perf_counter() - t0
+
+
+def _against_one_rank(ctx, name, solve, maxit):
+    x_s, it_s, wall = solve(ctx.world, ctx.device, ctx.dp())
+    x_1, it_1, wall_1 = solve(ctx.world, ctx.device, None)
+    assert it_s < maxit and it_1 < maxit, (name, it_s, it_1)
+    err = float((x_s - x_1).abs().max())
+    scale = 1.0 + float(x_1.abs().max())
+    # float32 reduce-order slack, as dryrun_multichip's
+    assert err <= 1e-4 * scale, (name, err, scale)
+    if ctx.rank == 0:
+        print(f"{name}: {ctx.world} ranks {it_s} iterations, {wall:.4f} s; "
+              f"one rank {it_1} iterations, {wall_1:.4f} s; max|dx| "
+              f"{err:.3e}", flush=True)
+    return {"x": x_s.cpu().numpy(), "it": np.asarray(it_s),
+            "x_one": x_1.cpu().numpy(), "it_one": np.asarray(it_1),
+            "walls": _per_rank(ctx, wall)}
+
+
+@case
+def rows_panoc(ctx):
+    return _against_one_rank(ctx, "rows_panoc", rows_panoc_solve,
+                             ROWS_MAXIT)
+
+
+@case
+def blocks_consensus(ctx):
+    return _against_one_rank(ctx, "blocks_consensus", consensus_solve,
+                             CONSENSUS_MAXIT)
+
+
+# ---------------------------------------------------------------------------
+# ranks and the launcher
+
+
+def _device(device_type, rank, world):
+    if device_type == "cpu":
+        return torch.device("cpu")
+    # a card a rank where there are enough, else the ranks share card 0
+    return torch.device("cuda", rank if torch.cuda.device_count() >= world
+                        else 0)
+
+
+def rank_main(args):
+    import torch.distributed as dist
+
+    from ..parallel import initialize_distributed
+    from ..parallel.sharded_ops import COLLECTIVES
+
+    if args.device == "cpu":
+        torch.set_num_threads(1)
+    device = _device(args.device, args.rank, args.ranks)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    initialize_distributed(f"localhost:{args.port}", args.ranks, args.rank,
+                           backend=args.backend, device_type=args.device)
+    ctx = Context(args.rank, args.ranks, args.device, device)
+    results = {}
+    try:
+        for name in _case_names(args.cases):
+            t0 = time.perf_counter()
+            out = CASES[name](ctx)
+            results.update({f"{name}__{k}": v for k, v in out.items()})
+            print(f"rank {args.rank}: {name} ok "
+                  f"({time.perf_counter() - t0:.2f} s)", flush=True)
+        if args.rank == 0:
+            np.savez(os.path.join(args.out, "spmd.npz"), **results)
+        print(f"rank {args.rank}: collectives {dict(COLLECTIVES)}",
+              flush=True)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def _case_names(cases):
+    names = {"cpu": CPU_CASES, "card": CARD_CASES}.get(cases)
+    names = names or tuple(cases.split(","))
+    unknown = [n for n in names if n not in CASES]
+    if unknown:
+        raise SystemExit(f"spmd_worker: unknown cases {unknown}")
+    return names
+
+
+def _free_port():
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def launch(args):
+    """Start the ranks, wait for them, stop all of them if one fails."""
+    _case_names(args.cases)
+    os.makedirs(args.out, exist_ok=True)
+    if args.device == "cuda":
+        if not torch.cuda.is_available():
+            raise SystemExit("spmd_worker: --device cuda and no card")
+        from ..kernels import _build
+
+        _build.library()  # once, before the ranks load it
+    root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (root, env.get("PYTHONPATH")) if p)
+    if args.device == "cpu":
+        # one thread a rank, numpy's BLAS too
+        env.update(OMP_NUM_THREADS="1", OPENBLAS_NUM_THREADS="1",
+                   MKL_NUM_THREADS="1")
+    port = _free_port()
+    cmd = [sys.executable, "-m", "proxtpu_torch.tools.spmd_worker",
+           "--ranks", str(args.ranks), "--backend", args.backend,
+           "--device", args.device, "--cases", args.cases, "--out",
+           args.out, "--port", str(port)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(cmd + ["--rank", str(r)], env=env)
+             for r in range(args.ranks)]
+    failed = None
+    try:
+        while any(p.poll() is None for p in procs):
+            failed = next((r for r, p in enumerate(procs)
+                           if p.poll() not in (None, 0)), None)
+            if failed is not None:
+                break
+            if time.perf_counter() - t0 > args.timeout:
+                failed = "timeout"
+                break
+            time.sleep(0.05)
+        failed = failed if failed is not None else next(
+            (r for r, p in enumerate(procs) if p.returncode != 0), None)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    if failed is not None:
+        raise SystemExit(f"spmd_worker: rank {failed} failed")
+    print(f"spmd_worker: {args.ranks} ranks, cases {args.cases}: "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--ranks", type=int, required=True)
+    p.add_argument("--backend", choices=("gloo", "nccl"), required=True)
+    p.add_argument("--device", choices=("cpu", "cuda"), required=True)
+    p.add_argument("--cases", default="cpu",
+                   help="'cpu', 'card' or a comma-separated list")
+    p.add_argument("--out", required=True)
+    p.add_argument("--timeout", type=float, default=240.0)
+    p.add_argument("--rank", type=int, help=argparse.SUPPRESS)
+    p.add_argument("--port", type=int, help=argparse.SUPPRESS)
+    args = p.parse_args(argv)
+    if args.rank is None:
+        launch(args)
+    else:
+        rank_main(args)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,415 @@
+"""The port's sharding layer on 4 Gloo ranks on the CPU, against the JAX
+package on its 8-virtual-device mesh.
+
+A module fixture starts ``python -m proxtpu_torch.tools.spmd_worker`` once:
+4 processes, one Gloo process group, every case of
+``tests/test_sharding.py`` but the dp x tp one, ``tests/test_multiprocess.py``
+'s two-process solve and ``dryrun_multichip``.  The worker itself asserts
+that every data-parallel path's gathered outputs are ``torch.equal`` to the
+unsharded port and that no collective runs inside the sharded solves, and
+the ``ValueError`` messages.  Here each case's rank-0 outputs are held
+against the JAX function on the same numpy inputs (the worker's
+generators): counts within 1 and the reference's float32 cross-path 1e-4
+for the one-step solvers, the blocked upper bound and 5e-4, equal counts
+and 1e-4 for TV, exact float64 counts for PANOC, consensus, the generic
+driver (1e-12) and the flat machines (1e-10); float32 and flat lanes that
+stop at a knife edge are held by the recheck (see :func:`_lanes_close`).
+The JAX references run while the ranks work.
+"""
+
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch  # noqa: F401  (both packages in one process, as every port test)
+from jax.sharding import NamedSharding, PartitionSpec as P
+
+import proxtpu as pa
+from proxtpu.parallel import (
+    ConsensusADMM,
+    default_dp_mesh,
+    make_mesh,
+    replicate,
+    shard_batch,
+    shard_matrix_operator,
+    stack_functions,
+)
+from proxtpu.prox import NormL1, SqrNormL2, Translate, make_least_squares
+from proxtpu_torch.tools import spmd_worker as w
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+RANKS = 4
+TIMEOUT = 240
+# float32 solutions of the port and the JAX package: the reference's
+# cross-path contract (tests/test_kernels.py:58-61).  The JAX tests' 1e-5
+# holds their sharded runs against their unsharded ones, the same
+# arithmetic; the port's sharded lanes equal its unsharded ones bit for
+# bit (asserted in the worker).
+F32_ATOL = 1e-4
+
+
+class _Run:
+    """The worker, started once; ``result()`` waits for it and loads the
+    rank-0 outputs."""
+
+    def __init__(self, out):
+        self.path = os.path.join(out, "spmd.npz")
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.pathsep.join(
+            p for p in (ROOT, env.get("PYTHONPATH")) if p)
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "proxtpu_torch.tools.spmd_worker",
+             "--ranks", str(RANKS), "--backend", "gloo", "--device", "cpu",
+             "--cases", "cpu", "--out", out, "--timeout", str(TIMEOUT)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            env=env, cwd=ROOT)
+        self._out = None
+
+    def result(self):
+        if self._out is None:
+            try:
+                log, _ = self.proc.communicate(timeout=TIMEOUT + 30)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                log, _ = self.proc.communicate()
+                pytest.fail("spmd_worker timed out:\n" + log)
+            assert self.proc.returncode == 0, "spmd_worker failed:\n" + log
+            with np.load(self.path) as f:
+                self._out = {k: f[k] for k in f.files}
+        return self._out
+
+    def case(self, name):
+        out = self.result()
+        return {k.split("__", 1)[1]: v for k, v in out.items()
+                if k.startswith(name + "__")}
+
+
+@pytest.fixture(scope="module")
+def run(tmp_path_factory):
+    r = _Run(str(tmp_path_factory.mktemp("spmd")))
+    yield r
+    if r.proc.poll() is None:
+        r.proc.kill()
+        r.proc.communicate()
+
+
+@pytest.fixture(scope="module")
+def tp_mesh():
+    assert len(jax.devices()) >= 8, "conftest must force 8 CPU devices"
+    return make_mesh((8,), ("tp",))
+
+
+@pytest.fixture(scope="module")
+def dp_mesh():
+    return default_dp_mesh(8, axis="dp")
+
+
+def recheck(A, b, lam, Lf, x):
+    """Each lane's float64 forward-backward residual ``||x - prox(x - gamma
+    A^T (A x - b))||_inf / gamma`` at ``gamma = 1 / Lf``: the stopping
+    criterion the solvers certify.  A (M, N) and b (M,) may be shared."""
+    x = np.asarray(x, np.float64)
+    B = x.shape[0]
+    A = np.broadcast_to(np.asarray(A, np.float64), (B,) + np.shape(A)[-2:])
+    b = np.broadcast_to(np.asarray(b, np.float64), (B, A.shape[1]))
+    gamma = 1.0 / np.broadcast_to(np.asarray(Lf, np.float64), (B,))
+    lam = np.broadcast_to(np.asarray(lam, np.float64), (B,))
+    r = np.einsum("bmn,bn->bm", A, x) - b
+    y = x - gamma[:, None] * np.einsum("bmn,bm->bn", A, r)
+    z = np.sign(y) * np.maximum(np.abs(y) - (gamma * lam)[:, None], 0.0)
+    return np.max(np.abs(x - z), axis=1) / gamma
+
+
+def _lanes_close(port, ref, atol, slack=1, data=None, tol=None):
+    """Every lane done in both packages; counts within ``slack`` and
+    solutions within ``atol``.
+
+    In float32 a few lanes of the JAX tests' problems stop at a knife edge:
+    FISTA's residual is not monotone and the two packages sum in different
+    orders, so one of them stops many iterations before the other
+    (tests/multiprocess_worker.py's batch: 44 iterations and 2.6e-4 apart
+    on one lane; the port's sharded lanes equal its unsharded ones bit for
+    bit, so this is not the sharding).  Where ``data`` (A, b, lam, Lf) is
+    given, at most one lane in eight may leave the tolerance, and then only
+    as a certified stop: both packages' lanes under 1.1 ``tol`` (bench.py's
+    gate) by the float64 recheck."""
+    z, it, done = (np.asarray(v) for v in ref)
+    assert bool(port["done"].all()) and bool(done.all())
+    dit = np.abs(port["it"].astype(np.int64) - it)
+    dz = np.max(np.abs(port["z"] - z).reshape(len(z), -1), axis=1)
+    edge = (dit > slack) | (dz > atol)
+    if data is None or not edge.any():
+        assert not edge.any(), (dit, dz)
+        return
+    assert edge.mean() <= 1 / 8, (dit, dz)
+    for x in (port["z"], z):
+        worst = recheck(*data, x)[edge].max()
+        assert worst <= 1.1 * tol, (worst, dit, dz)
+
+
+def _j(*vs):
+    return [jnp.asarray(v) for v in vs]
+
+
+def test_sharded_operator_matvecs(run, tp_mesh):
+    A, b, _, _ = w.big_lasso()
+    op = shard_matrix_operator(jnp.asarray(A), tp_mesh, row_axis="tp")
+    x = np.random.default_rng(1).standard_normal(A.shape[1])
+    y = np.random.default_rng(2).standard_normal(A.shape[0])
+    Ax, Aty = np.asarray(op.matvec(x)), np.asarray(op.rmatvec(y))
+    port = run.case("operator")
+    np.testing.assert_allclose(port["Ax"], Ax)
+    np.testing.assert_allclose(port["Aty"], Aty)
+
+
+def test_sharded_panoc_matches_jax(run, tp_mesh):
+    A, b, lam, Lf = w.big_lasso()
+    fo = Translate(SqrNormL2(1.0), -replicate(jnp.asarray(b), tp_mesh))
+    op = shard_matrix_operator(jnp.asarray(A), tp_mesh, row_axis="tp")
+    x, it = pa.PANOC(tol=1e-6)(
+        x0=replicate(jnp.zeros(A.shape[1]), tp_mesh), f=fo, A=op,
+        g=NormL1(lam), Lf=Lf)
+    port = run.case("panoc")
+    assert int(port["it"]) == it
+    np.testing.assert_allclose(port["x"], np.asarray(x), atol=1e-10)
+
+
+def test_consensus_admm_matches_jax(run, tp_mesh):
+    A, b, lam, _ = w.big_lasso(m=64, n=16)
+    fs = stack_functions([make_least_squares(*_j(A[i * 8:(i + 1) * 8],
+                                                 b[i * 8:(i + 1) * 8]))
+                          for i in range(8)])
+    x, it = ConsensusADMM(tol=1e-7, maxit=20_000)(
+        x0=jnp.zeros(16), fs=shard_batch(fs, tp_mesh, "tp"), g=NormL1(lam),
+        gamma=1.0)
+    port = run.case("consensus")
+    assert int(port["it"]) == it
+    np.testing.assert_allclose(port["x"], np.asarray(x), atol=1e-9)
+
+
+def test_dp_sharded_batch_solve(run, tp_mesh):
+    from proxtpu.algorithms import make_fast_forward_backward_iteration
+    from proxtpu.parallel.batch import batch_problems, batched_run_loop
+
+    problems = [dict(x0=jnp.zeros(12), f=make_least_squares(*_j(A, b)),
+                     g=NormL1(lam), Lf=Lf)
+                for A, b, lam, Lf in w.dp_problems()]
+    iteration = shard_batch(
+        batch_problems(make_fast_forward_backward_iteration, problems),
+        tp_mesh, "tp")
+    xs, iters, _ = batched_run_loop(iteration, 2000, 1e-6)
+    port = run.case("dp_batch")
+    np.testing.assert_array_equal(port["iters"], np.asarray(iters))
+    np.testing.assert_allclose(port["xs"], np.asarray(xs), atol=1e-12)
+
+
+def test_global_mesh_runs_sharded_solve(run):
+    from proxtpu.kernels.lasso import solve_lasso_batch
+    from proxtpu.parallel import global_mesh
+
+    mesh = global_mesh((4, 2), ("dp", "tp"))
+    data = w.global_mesh_batch()
+    A, b, lam, Lf = _j(*data)
+    shard = lambda x, spec: jax.device_put(  # noqa: E731
+        x, NamedSharding(mesh, spec))
+    with mesh:
+        ref = solve_lasso_batch(
+            shard(A, P("dp", None, None)), shard(b, P("dp", None)),
+            shard(lam, P("dp")), shard(Lf, P("dp")), 1e-5, maxit=3000,
+            use_kernel=False)
+    _lanes_close(run.case("global_mesh"), ref, F32_ATOL, data=data,
+                 tol=1e-5)
+
+
+def test_sharded_lasso_kernel_parity(run, dp_mesh):
+    from proxtpu.parallel import sharded_solve_lasso_batch
+
+    data = w.lasso_batch()
+    ref = sharded_solve_lasso_batch(*_j(*data), 1e-5, mesh=dp_mesh,
+                                    maxit=3000, use_kernel=True,
+                                    interpret=True)
+    _lanes_close(run.case("lasso_kernel"), ref, F32_ATOL, data=data,
+                 tol=1e-5)
+
+
+def test_sharded_lasso_blocked_parity(run, dp_mesh):
+    from proxtpu.parallel import sharded_solve_lasso_batch_blocked
+
+    z, _, done = (np.asarray(v) for v in sharded_solve_lasso_batch_blocked(
+        *_j(*w.lasso_batch(seed=4)), 1e-5, mesh=dp_mesh, maxit=3000,
+        iter_block=4, interpret=True))
+    port = run.case("blocked")
+    assert bool(port["done"].all()) and bool(done.all())
+    np.testing.assert_allclose(port["z"], z, atol=5e-4)
+    # blocked counts are upper bounds of the same package's one-step
+    # counts (in float32 lane 1's one-step stop is a knife edge: 189 in
+    # the port, 209 in both JAX routes; 209 in both packages in float64)
+    assert np.all(port["it"] >= port["it_one"] - 1)
+
+
+def test_sharded_multirhs_parity(run, dp_mesh):
+    from proxtpu.parallel import sharded_solve_lasso_multirhs
+
+    data = w.multirhs_data()
+    A, Bmat, lam, Lf = data
+    ref = sharded_solve_lasso_multirhs(*_j(A, Bmat, lam), Lf, 1e-5,
+                                       mesh=dp_mesh, maxit=3000)
+    _lanes_close(run.case("multirhs"), ref, F32_ATOL, data=data,
+                 tol=1e-5)
+
+
+def test_sharded_box_qp_parity(run, dp_mesh):
+    from proxtpu.parallel import sharded_solve_box_qp_batch
+
+    Q, q, Lip = _j(*w.box_qp_data())
+    ref = sharded_solve_box_qp_batch(Q, q, -1.0, 1.0, Lip, 1e-4,
+                                     mesh=dp_mesh, maxit=20_000,
+                                     use_kernel=True, interpret=True)
+    _lanes_close(run.case("box_qp"), ref, 1e-4)
+
+
+def test_sharded_lasso_restart_and_warm_start(run, dp_mesh):
+    from proxtpu.parallel import (
+        sharded_solve_lasso_batch,
+        sharded_solve_lasso_multirhs,
+    )
+
+    data = w.restart_data()
+    A, b, lam, Lf = _j(*data)
+    ref = sharded_solve_lasso_batch(A, b, lam, Lf, 1e-5, mesh=dp_mesh,
+                                    maxit=3000, use_kernel=False,
+                                    restart=True)
+    port = run.case("restart_warm")
+    _lanes_close(port, ref, F32_ATOL, data=data, tol=1e-5)
+    # warm start from the solution: every lane finishes at once, as in JAX
+    assert bool(port["done_warm"].all()) and int(port["it_warm"].max()) <= 3
+    ref_m = sharded_solve_lasso_multirhs(A[0], b, lam, float(Lf[0]), 1e-5,
+                                         mesh=dp_mesh, maxit=3000,
+                                         restart=True)
+    _lanes_close({k[:-len("_multi")]: v for k, v in port.items()
+                  if k.endswith("_multi")}, ref_m, F32_ATOL,
+                 data=(data[0][0], data[1], data[2], data[3][0]), tol=1e-5)
+
+
+def test_sharded_tv_parity(run, dp_mesh):
+    from proxtpu.parallel import sharded_solve_tv_batch
+
+    b, lam = _j(*w.tv_data())
+    ref = sharded_solve_tv_batch(b, lam, 1e-3, mesh=dp_mesh, maxit=4000,
+                                 iter_block=4, use_kernel=True,
+                                 interpret=True)
+    _lanes_close(run.case("tv"), ref, 1e-4, slack=0)
+
+
+def test_generic_driver_shared_operand_dp_sharded(run, dp_mesh):
+    from proxtpu.algorithms.fast_forward_backward import (
+        make_fast_forward_backward_iteration,
+    )
+    from proxtpu.parallel import Shared, batched_run_loop
+    from proxtpu.parallel.batch import broadcast_hyperparams
+    from proxtpu.prox import LeastSquaresLoss
+
+    A, b, lam, Lf = w.shared_operand_data()
+    B, N = lam.shape[0], A.shape[1]
+    iteration = broadcast_hyperparams(make_fast_forward_backward_iteration(
+        x0=jnp.zeros((B, N), jnp.float32),
+        f=Shared(LeastSquaresLoss(*_j(A, b))), g=NormL1(jnp.asarray(lam)),
+        Lf=jnp.full((B,), Lf, jnp.float32)))
+    dp = lambda *tail: NamedSharding(dp_mesh, P("dp", *tail))  # noqa: E731
+    placed = jax.tree.map(
+        lambda l: l if isinstance(l, Shared) else jax.device_put(
+            l, dp(*([None] * (jnp.ndim(l) - 1)))),
+        iteration, is_leaf=lambda x: isinstance(x, Shared))
+    ref = batched_run_loop(placed, 3000, 1e-5)
+    _lanes_close(run.case("shared_operand"), ref, F32_ATOL,
+                 data=(A, b, lam, Lf), tol=1e-5)
+
+
+def test_flat_machines_dp_sharded(run, dp_mesh):
+    """Float64.  ZeroFPR (stacked and with a Shared operand): exact counts
+    and 1e-10 (the JAX test holds its sharded runs to 1e-12 against the
+    same arithmetic; the two packages' products differ in the last bits,
+    here by up to 1.7e-11).  PANOC is a named exception, as the flat
+    machines' others (tests/test_torch_flat_named.py): its L-BFGS
+    directions and line search amplify those last bits, so on this
+    problem three lanes part by 4e-9 to 8.9e-7 at equal counts and one
+    stops at a knife edge (129 iterations in JAX, 130 in the port, 2.1e-6
+    apart).  Held as the JAX package
+    holds its batched runs against its single ones: every lane done in
+    both, counts within 2, solutions within 1e-5, and every lane of both
+    under the flat tests' recheck of 2 tol."""
+    from proxtpu.ops.linops import MatrixOperator
+    from proxtpu.parallel import Shared, batched_panoc, batched_zerofpr
+    from proxtpu.prox import SqrDistance
+
+    data = w.flat_data()
+    A, b, lam, Lf = _j(*data)
+    dp = lambda *tail: NamedSharding(dp_mesh, P("dp", *tail))  # noqa: E731
+    shard = lambda l: jax.device_put(  # noqa: E731
+        l, dp(*([None] * (l.ndim - 1))))
+    f = jax.tree.map(shard, jax.vmap(SqrDistance)(b))
+    Aop = jax.tree.map(shard, jax.vmap(MatrixOperator)(A))
+    g = jax.tree.map(shard, NormL1(lam))
+    x0 = shard(jnp.zeros((A.shape[0], A.shape[2])))
+    port = run.case("flat")
+    lanes = lambda name: {k: port[f"{k}_{name}"]  # noqa: E731
+                          for k in ("z", "it", "done")}
+    ref = batched_zerofpr(f, Aop, g, x0, shard(0.95 / Lf), 1e-6, maxit=400)
+    _lanes_close(lanes("batched_zerofpr"), ref, 1e-10, slack=0)
+    ref = batched_panoc(f, Aop, g, x0, shard(0.95 / Lf), 1e-6, maxit=400)
+    _lanes_close(lanes("batched_panoc"), ref, 1e-5, slack=2)
+    for z in (port["z_batched_panoc"], np.asarray(ref[0])):
+        assert recheck(*data, z).max() <= 2 * 1e-6
+    ref = batched_zerofpr(
+        Shared(SqrDistance(b[0])), Shared(MatrixOperator(A[0])), g, x0,
+        shard(jnp.full((A.shape[0],), 0.95 / float(Lf[0]))), 1e-6,
+        maxit=400)
+    _lanes_close(lanes("shared"), ref, 1e-10, slack=0)
+
+
+def test_sharded_lasso_packed_parity(run, dp_mesh):
+    from proxtpu.parallel import sharded_solve_lasso_batch_packed
+
+    z, it, done = (np.asarray(v) for v in sharded_solve_lasso_batch_packed(
+        *_j(*w.lasso_batch(B=16, M=16, N=192, seed=6)), 1e-5, mesh=dp_mesh,
+        maxit=3000, interpret=True))
+    port = run.case("packed")
+    assert bool(port["done"].all()) and bool(done.all())
+    # the JAX test's tol-ball and knife-edge slack for the packed layout
+    np.testing.assert_allclose(port["z"], z, atol=1e-3)
+    assert (port["it"] == it).mean() >= 0.75, (port["it"], it)
+
+
+def test_sharded_wrappers_validate(run):
+    """The worker checked the five ValueError messages of the JAX
+    wrappers (batch not divisible, explicit pack, non-scalar Lf, lo / hi,
+    gamma1 / gamma2) on 4 ranks."""
+    assert int(run.case("errors")["checked"]) == 5
+
+
+def test_two_process_global_mesh_solve(run):
+    """``tests/test_multiprocess.py``'s solve, on 4 ranks: lanes equal to
+    the unsharded port (in the worker) and to the JAX solve on the
+    8-device global mesh."""
+    from proxtpu.kernels.lasso import solve_lasso_batch
+    from proxtpu.parallel import global_mesh
+
+    mesh = global_mesh((8,), ("dp",))
+    data = w.multiprocess_batch()
+    A, b, lam, Lf = _j(*data)
+    shard = lambda x, *spec: jax.device_put(  # noqa: E731
+        x, NamedSharding(mesh, P("dp", *spec)))
+    ref = solve_lasso_batch(shard(A, None, None), shard(b, None),
+                            shard(lam), shard(Lf), 1e-5, maxit=3000,
+                            use_kernel=False)
+    _lanes_close(run.case("multiprocess"), ref, F32_ATOL, data=data,
+                 tol=1e-5)
+
+
+def test_dryrun_multichip(run):
+    """``dryrun_multichip(4)`` ran its parity asserts on a (2, 2) mesh."""
+    assert int(run.case("dryrun")["ran"]) == RANKS
