@@ -27,7 +27,8 @@ Phases, in order; any failure raises and exits non-zero:
    float32 kernel on ``A16.float()`` and near the plain version there,
    then timed at the main path's two shapes beside the float32 instances;
 4. run the main path at full size: 256 distinct-A lasso problems of
-   200 x 400 (``bench.gen_problems``, seed 0) through
+   200 x 400 (``bench.gen_problems``, seed 0, from the port's copy in
+   ``proxtpu_torch/tools/problems.py``) through
    ``solve_lasso_batch_packed_tail(restart=True, k1=192, tail=64)``, drained
    by ``stream_solve`` at depth 2, with a host residual recheck, the kernels'
    launch counts, the device time per solve (launches x the kernels' time at
@@ -141,7 +142,16 @@ Phases, in order; any failure raises and exits non-zero:
         counters; ``compiled_stats`` of the same solve: the kernels' flops
         and bytes by the JAX package's ``CostEstimate`` formulas at each
         launch's width;
-12. drive the sharding layer (phase "sharding", routes (w) and (x)); the
+12. drive batched Li-Lin (phase "batched Li-Lin", route (z)): ``BatchedAlgorithm
+    (make_li_lin_iteration)`` on route (b)'s 64 box QPs, float32, tol 1e-4,
+    capped at 2,000, as ``benchmarks/families_bench.py`` runs it: the
+    lanes reported done rechecked <= 2 tol, the lanes where Li-Lin's
+    monitor accepts a limit cycle printed beside those of float64 (the same
+    in both packages), the done lanes solved again as their own batch, all
+    done and rechecked, and the single-problem solver on lanes 0-7 beside
+    the batched counts; no kernel launches; the phase fails past its 45 s
+    budget;
+13. drive the sharding layer (phase "sharding", routes (w) and (x)); the
     phase fails past its 120 s budget:
     (w) a one-rank NCCL process group (``tcp://localhost``) and
         ``default_dp_mesh()``: ``sharded_solve_lasso_batch_packed(restart=
@@ -152,14 +162,27 @@ Phases, in order; any failure raises and exits non-zero:
         bit-equal to its unsharded solver with its kernels' launches; PANOC
         on a row-sharded ``ShardedMatrixOperator`` and ``ConsensusADMM`` at
         ``dryrun_multichip``'s sizes against their unsharded runs;
-        ``dryrun_multichip(1)``;
+        ``dryrun_multichip(1)``; route (y)'s problem unplaced (timed) and at
+        a (1, 1) ``("dp", "tp")`` mesh, where the vmap-aware all-reduce runs
+        on NCCL: bit-equal, one all-reduce at init and one a step;
     (x) ``python -m proxtpu_torch.tools.spmd_worker --cases card``: two Gloo
         ranks sharing the card, 128 flagship lanes each, gathered and held
         against (w) lane for lane (bit for bit where ``step_plan`` at B =
         128 is the plan at 256; else every lane rechecked and the lanes
         apart printed); a row-sharded PANOC and a consensus over the two
         ranks against one rank; each rank's wall and the two-rank wall;
-13. print the kernels' JSON line (time, plain version's time, bound and,
+14. drive the dp x tp composition (phase "dp x tp", route (y)): ``python -m
+    proxtpu_torch.tools.spmd_worker --ranks 4 --cases shared_tp``, four Gloo
+    ranks sharing the card as a (2, 2) mesh, ``benchmarks/scaling.py --path
+    shared_tp`` at full width (256 lanes over dp, one A of 200 x 400 in row
+    stripes over tp, tol 1e-5, ``check_every`` 8, one warm-up and two timed
+    solves): one all-reduce over tp at init and a step, none over dp, tp
+    ranks bit-equal, every lane done, bit-equal to the stripes emulated in
+    this process, within 1e-3 of (w)'s unplaced run and every lane's
+    float64 recheck <= 1.2 tol; each rank's wall, the four-rank wall, the
+    one-rank wall, the lanes apart in count, µs a Gloo all-reduce; the
+    phase fails past its 120 s budget;
+15. print the kernels' JSON line (time, plain version's time, bound and,
     where one PyTorch call computes the same function, that call's time),
     the seconds of every phase, then the result line.
 
@@ -1364,6 +1387,7 @@ def check_contract_small():
     2e-3 (box QP) of the one-step solver's."""
     from proxtpu_torch import box_qp_from_numpy, problems_from_numpy
     from proxtpu_torch.kernels import box_qp as tb
+    from proxtpu_torch.tools import problems
     from proxtpu_torch.kernels import lasso as tl
 
     def hold(name, shape, kw, kernel, plain, slack):
@@ -1407,7 +1431,7 @@ def check_contract_small():
                             runs[tl.solve_lasso_batch_blocked],
                             runs[tl.solve_lasso_batch], 5e-4)
     for (B, n, seed) in ((6, 16, 0), (8, 16, 3)):
-        Qs, qs, gam = box_qp_problems(B, n, seed)
+        Qs, qs, gam = problems.box_qp_problems(B, n, seed)
         Q, q, lo, hi, Lip = box_qp_from_numpy(Qs, qs, -1.0, 1.0, 0.95 / gam,
                                               device=DEVICE)
         runs = {}
@@ -1426,31 +1450,18 @@ def check_contract_small():
                         runs[tb.solve_box_qp_batch], 2e-3)
 
 
-def box_qp_problems(B, n, seed):
-    """The reference's nonconvex box-QP family
-    (benchmarks/families_bench.py:123-133): Q = U diag(eig) U^T with U from
-    a QR and eig uniform in [-1, 1], q standard normal, gamma = 0.95 /
-    max|eig|.  Returns float32 ``(Qs, qs, gammas)``."""
-    rng = np.random.default_rng(seed)
-    Qs = np.empty((B, n, n), np.float32)
-    gammas = np.empty((B,), np.float32)
-    for i in range(B):
-        U, _ = np.linalg.qr(rng.standard_normal((n, n)))
-        eig = 2 * rng.random(n) - 1
-        Qs[i] = (U * eig) @ U.T
-        gammas[i] = 0.95 / np.max(np.abs(eig))
-    qs = rng.standard_normal((B, n)).astype(np.float32)
-    return Qs, qs, gammas
-
-
-def box_recheck(Qs, qs, gammas, xs):
-    """max over lanes of ||x - clip(x - gamma (Q x + q), -1, 1)||_inf /
-    gamma, in float64."""
+def box_residuals(Qs, qs, gammas, xs):
+    """Every lane's ||x - clip(x - gamma (Q x + q), -1, 1)||_inf / gamma,
+    in float64."""
     x = xs.astype(np.float64)
     g = gammas.astype(np.float64)[:, None]
     grad = np.einsum("bij,bj->bi", Qs.astype(np.float64), x) + qs
-    return float(np.max(np.max(np.abs(x - np.clip(x - g * grad, -1, 1)),
-                               axis=1) / g[:, 0]))
+    return np.max(np.abs(x - np.clip(x - g * grad, -1, 1)), axis=1) / g[:, 0]
+
+
+def box_recheck(Qs, qs, gammas, xs):
+    """The largest of :func:`box_residuals`."""
+    return float(np.max(box_residuals(Qs, qs, gammas, xs)))
 
 
 def device_time(parts, pace, wall, card):
@@ -1466,12 +1477,12 @@ def device_time(parts, pace, wall, card):
 
 
 def phase_main_path(card, pace):
-    import bench
+    from proxtpu_torch.tools import problems
     from proxtpu_torch import problems_from_numpy
     from proxtpu_torch.kernels import lasso as tl
     from proxtpu_torch.parallel import stream_solve
 
-    As, bs, lams, Lfs = bench.gen_problems(bench.BATCH)
+    As, bs, lams, Lfs = problems.lasso_problems(problems.BATCH)
     A, b, lam, Lf = problems_from_numpy(As, bs, lams, Lfs, device=DEVICE)
 
     def solve(use_kernel=True):
@@ -1499,11 +1510,12 @@ def phase_main_path(card, pace):
     xs_np, it_np = xs.cpu().numpy(), iters.cpu().numpy()
     worst = recheck(As, bs, lams, Lfs, xs_np)
     assert worst <= 1.1 * TOL, worst
-    assert np.isfinite(xs_np).all() and xs_np.shape == (bench.BATCH, bench.N)
-    print(f"main path: {bench.BATCH} lanes done, worst residual recheck "
+    assert np.isfinite(xs_np).all() and xs_np.shape == (problems.BATCH,
+                                                         problems.N)
+    print(f"main path: {problems.BATCH} lanes done, worst residual recheck "
           f"{worst:.3e} (limit {1.1 * TOL:.1e}), iterations mean "
           f"{it_np.mean():.2f} max {it_np.max()}  [{card}]")
-    print(f"main path: {dt:.4f} s per solve, {bench.BATCH / dt:.1f} "
+    print(f"main path: {dt:.4f} s per solve, {problems.BATCH / dt:.1f} "
           f"problems/s (stream_solve depth 2, {N_STREAM} solves after one "
           f"warm-up)  [{card}]")
     # the bulk phase runs k1 = 192 steps at full width, the narrow phase the
@@ -1614,8 +1626,7 @@ def drive(name, solve, check, tol, card, expect, dx_tol=None, pace=None,
 def phase_routes(card, pace):
     """Routes (a) to (d) of the library entry point at full width.
     Returns the launches per kernel summed over the routes."""
-    import bench
-    from benchmarks import kernel_sweep
+    from proxtpu_torch.tools import problems
     from proxtpu_torch import (
         AdaptiveRestartSequence,
         BatchedAlgorithm,
@@ -1643,7 +1654,7 @@ def phase_routes(card, pace):
             total[k] = total.get(k, 0) + n
 
     # (a) the DMA-bound lasso shape: the blocked solver at K = 8
-    prob = kernel_sweep.gen(*BLOCKED_SHAPES[0])
+    prob = problems.lasso_problems(*BLOCKED_SHAPES[0])
     for extra in ({}, {"extrapolation_sequence":
                        AdaptiveRestartSequence(FixedNesterovSequence())}):
         solve, check = lasso_route(*prob, 3000, **extra)
@@ -1652,7 +1663,7 @@ def phase_routes(card, pace):
     del prob
     # (b) the nonconvex box-QP family, n = 512, B = 64
     B, n = BOX_SHAPES[0]
-    Qs, qs, gam = box_qp_problems(B, n, seed=7)
+    Qs, qs, gam = problems.box_qp_problems(B, n, seed=7)
     kw = dict(x0=torch.zeros(B, n, device=DEVICE),
               f=Quadratic(torch.tensor(Qs, device=DEVICE),
                           torch.tensor(qs, device=DEVICE)),
@@ -1664,12 +1675,13 @@ def phase_routes(card, pace):
               lambda xs: box_recheck(Qs, qs, gam, xs), 1e-4, card,
               ("pg_step", "pg_k_steps"), pace=pace, shape=(B, n)))
     # (c) the flagship through the library entry point: the packed solver
-    solve, check = lasso_route(*bench.gen_problems(bench.BATCH), 3000)
+    solve, check = lasso_route(*problems.lasso_problems(problems.BATCH),
+                               3000)
     add(drive(f"route (c) flagship {MAIN_SHAPES[0]}", solve, check, TOL,
               card, ("fista_step",), pace=pace, shape=MAIN_SHAPES[0]))
     # (d) tall strongly convex problems, mf = the smallest sigma_min^2
     rng = np.random.default_rng(0)
-    B, M, N = bench.BATCH, bench.N, bench.M
+    B, M, N = problems.BATCH, problems.N, problems.M
     As = (rng.standard_normal((B, M, N)) / np.sqrt(M)).astype(np.float32)
     bs = rng.standard_normal((B, M)).astype(np.float32)
     lams = (0.1 * np.max(np.abs(np.einsum("bmn,bm->bn", As, bs)), axis=1)
@@ -1731,7 +1743,7 @@ def phase_lasso_rest(card, pace):
     """Routes (g) to (j): the shared-A path, the mixed-precision solver, the
     over-relaxed solvers and the compacting driver at full width.  Returns
     the launches per kernel summed over the driven routes."""
-    import bench
+    from proxtpu_torch.tools import problems
     from proxtpu_torch import (
         AdaptiveRestartSequence,
         BatchedAlgorithm,
@@ -1788,7 +1800,7 @@ def phase_lasso_rest(card, pace):
     print("  route (g): both kernel-route solves reached "
           "solve_lasso_multirhs at iter_block = 1")
 
-    As, bs, lams, Lfs = bench.gen_problems(bench.BATCH)
+    As, bs, lams, Lfs = problems.lasso_problems(problems.BATCH)
     P = problems_from_numpy(As, bs, lams, Lfs, device=DEVICE)
     check = lambda xs: recheck(As, bs, lams, Lfs, xs)  # noqa: E731
     # (h) the bf16 warm stage, then the float32 polish
@@ -2588,18 +2600,18 @@ def phase_flat(card, family_logistic):
     """Routes (m)-(p): the flat machines and the warm start at full width
     on the card; the phase must end within FLAT_BUDGET_S.  Returns the
     kernel launches of route (p)'s float32 stage."""
-    import bench
+    from proxtpu_torch.tools.problems import BATCH, lasso_problems
     from proxtpu_torch.utils.precision import require_full_f32_matmul
 
     require_full_f32_matmul()
     t_phase = time.perf_counter()
-    problems = bench.gen_problems(bench.BATCH)
+    flagship = lasso_problems(BATCH)
     seconds, out = {}, {}
     for name, fn, args in (
-            ("(m)", flat_flagship, problems),
+            ("(m)", flat_flagship, flagship),
             ("(n)", flat_logistic, (family_logistic,)),
-            ("(o)", flat_adaptive, problems),
-            ("(p)", flat_warm, problems)):
+            ("(o)", flat_adaptive, flagship),
+            ("(p)", flat_warm, flagship)):
         t0 = time.perf_counter()
         out[name] = fn(card, *args)
         seconds[name] = time.perf_counter() - t0
@@ -3013,14 +3025,14 @@ def phase_drivers(card):
     launches of route (v)'s traced solve."""
     import shutil
 
-    import bench
+    from proxtpu_torch.tools import problems
     from proxtpu_torch import problems_from_numpy
     from proxtpu_torch.utils.precision import require_full_f32_matmul
 
     require_full_f32_matmul()
     os.makedirs(DRIVERS_DIR, exist_ok=True)
     t_phase = time.perf_counter()
-    As, bs, lams, Lfs = bench.gen_problems(bench.BATCH)
+    As, bs, lams, Lfs = problems.lasso_problems(problems.BATCH)
     seconds = {}
 
     def route(name, fn, *args):
@@ -3093,8 +3105,7 @@ def sharded_pair(name, sharded, plain, card, expect, check=None):
 def sharding_one_rank(card):
     """Route (w): the sharding layer on a one-rank NCCL group at full width.
     Returns the kernels' launches and the flagship's unsharded solve."""
-    import bench
-    from benchmarks import kernel_sweep
+    from proxtpu_torch.tools import problems
     from proxtpu_torch import problems_from_numpy
     from proxtpu_torch.kernels import box_qp as tb
     from proxtpu_torch.kernels import lasso as tl
@@ -3118,9 +3129,7 @@ def sharding_one_rank(card):
             total[k] = total.get(k, 0) + n
 
     # the sharded main path: the flagship through the packed solver
-    flagship = bench.gen_problems(bench.BATCH)
-    assert all(np.array_equal(a, b) for a, b in zip(
-        flagship, spmd_worker.flagship_problems(bench.BATCH)))
+    flagship = problems.lasso_problems(problems.BATCH)
     A, b, lam, Lf = problems_from_numpy(*flagship, device=DEVICE)
     check = lambda z: recheck(*flagship, z.cpu().numpy())  # noqa: E731
     launches, packed = sharded_pair(
@@ -3140,7 +3149,7 @@ def sharding_one_rank(card):
         lambda: tl.solve_lasso_batch(A, b, lam, Lf, TOL, maxit=3000),
         card, ("fb_step", "fista_step"), check)[0])
     del A, b, lam, Lf
-    prob = kernel_sweep.gen(*BLOCKED_SHAPES[0])
+    prob = problems.lasso_problems(*BLOCKED_SHAPES[0])
     Ak, bk, lk, Lk = problems_from_numpy(*prob, device=DEVICE)
     add(sharded_pair(
         f"sharded_solve_lasso_batch_blocked {BLOCKED_SHAPES[0]}",
@@ -3152,7 +3161,7 @@ def sharding_one_rank(card):
         lambda z: recheck(*prob, z.cpu().numpy()))[0])
     del prob, Ak, bk, lk, Lk
     B, n = BOX_SHAPES[0]
-    Qs, qs, gam = box_qp_problems(B, n, seed=7)
+    Qs, qs, gam = problems.box_qp_problems(B, n, seed=7)
     Q, q = (torch.tensor(v, device=DEVICE) for v in (Qs, qs))
     Lip = torch.tensor(0.95 / gam, device=DEVICE)
     for blocks, expect in ((K, ("pg_step", "pg_k_steps")),
@@ -3205,7 +3214,67 @@ def sharding_one_rank(card):
               f"run; {dt:.4f} s, unsharded {dt_1:.4f} s  [{card}]")
     graft_entry.dryrun_multichip(1, "cuda")
     print("(w) dryrun_multichip(1): every layout matches its unsharded run")
-    return total, packed
+    return total, packed, dp_tp_one_rank(card)
+
+
+def dp_tp_one_rank(card):
+    """Route (w)'s dp x tp case and route (y)'s reference:
+    ``benchmarks/scaling.py --path shared_tp``'s problem (``spmd_worker.
+    shared_tp_data``) unplaced on the card, one warm-up and one timed
+    solve; then placed at a (1, 1) mesh on the one-rank NCCL group, so that
+    the vmap-aware sum runs on NCCL: bit-equal, one all-reduce at init and
+    one a step.  Returns the unplaced outputs and wall."""
+    from proxtpu_torch.parallel import batched_run_loop, make_mesh
+    from proxtpu_torch.parallel.sharded_ops import (
+        all_reduce,
+        full_tensor,
+        sum_over,
+    )
+    from proxtpu_torch.tools import spmd_worker as w
+
+    A, b, lams, Lf = w.shared_tp_data(w.SHARED_TP_LANES)
+    it = w.dp_x_tp_iteration(A, b, lams, Lf, DEVICE)
+    args = (w.SHARED_TP_MAXIT, w.SHARED_TP_TOL)
+
+    def unplaced():
+        return batched_run_loop(it, *args, check_every=w.SHARED_TP_K)
+
+    unplaced()  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = unplaced()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    mesh = make_mesh((1, 1), ("dp", "tp"))
+    out, wall_11, reduces = w.dp_x_tp_solve(mesh, it, *args, w.SHARED_TP_K)
+    assert all(torch.equal(full_tensor(o), r) for o, r in zip(out, ref)), (
+        "(w) dp x tp at (1, 1): differs from the unplaced run")
+    assert bool(ref[2].all()), f"(w) dp x tp: {int((~ref[2]).sum())} left"
+    steps = w.steps_run(ref[1], w.SHARED_TP_K, w.SHARED_TP_MAXIT)
+    # what a step's collective costs here: the helper's all-reduce of the
+    # step's buffer, and the same through sum_over under vmap
+    buf = torch.zeros((len(lams), A.shape[1] + 1), device=DEVICE)
+    group = mesh.get_group("tp")
+    per_call = {}
+    for name, fn in (("all_reduce", lambda: all_reduce(buf, group)),
+                     ("sum_over under vmap", lambda: torch.func.vmap(
+                         lambda t: sum_over(t, group))(buf))):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(50):
+            fn()
+        torch.cuda.synchronize()
+        per_call[name] = 1e6 * (time.perf_counter() - t0) / 50
+    print(f"(w) dp x tp at a (1, 1) mesh on NCCL, {len(lams)} lanes of "
+          f"{A.shape}: bit-equal to the unplaced run; {reduces} all-reduces "
+          f"over tp = 1 + {steps} steps; iterations mean "
+          f"{ref[1].float().mean():.2f} max {int(ref[1].max())}; placed "
+          f"{wall_11:.4f} s, unplaced {wall:.4f} s; us a call on "
+          f"({len(lams)}, {A.shape[1] + 1}): "
+          + ", ".join(f"{k} {v:.1f}" for k, v in per_call.items())
+          + f"  [{card}]")
+    return ref, wall
 
 
 def sharding_two_ranks(card, packed):
@@ -3214,7 +3283,7 @@ def sharding_two_ranks(card, packed):
     against route (w)'s unsharded solve."""
     import shutil
 
-    import bench
+    from proxtpu_torch.tools import problems
     from proxtpu_torch.kernels import _build
     from proxtpu_torch.kernels import lasso as tl
 
@@ -3237,7 +3306,7 @@ def sharding_two_ranks(card, packed):
     plans = {b: tl.step_plan(b, M, N, sms, limit)
              for b in (B, B // SHARDING_RANKS)}
     apart = np.flatnonzero((it != it_w) | np.any(z != z_w, axis=1))
-    worst = recheck(*bench.gen_problems(bench.BATCH), z)
+    worst = recheck(*problems.lasso_problems(problems.BATCH), z)
     if plans[B] == plans[B // SHARDING_RANKS]:
         assert apart.size == 0, f"(x): lanes {apart} differ from (w)"
     assert worst <= 1.1 * TOL, worst
@@ -3267,7 +3336,7 @@ def phase_sharding(card):
     assert initialize_distributed(f"localhost:{port}", 1, 0) == 1
     assert dist.get_backend() == "nccl"
     try:
-        launches, packed = sharding_one_rank(card)
+        launches, packed, dp_tp = sharding_one_rank(card)
     finally:
         dist.destroy_process_group()
     sharding_two_ranks(card, packed)
@@ -3275,7 +3344,181 @@ def phase_sharding(card):
     print(f"  sharding: {dt:.1f} s (budget {SHARDING_BUDGET_S:.0f} s)  "
           f"[{card}]")
     assert dt <= SHARDING_BUDGET_S, (dt, SHARDING_BUDGET_S)
-    return launches
+    return launches, dp_tp
+
+
+DP_TP_BUDGET_S = 120.0
+DP_TP_DIR = os.path.join("build", "chip_smoke_dp_tp")
+DP_TP_RANKS = 4  # route (y): a (2, 2) mesh of Gloo ranks sharing the card
+
+
+def shared_residuals64(A, b, lams, Lf, xs):
+    """Every lane's float64 FB residual on the shared A at gamma = 1 / Lf
+    (the recheck of the JAX package's dp x tp test)."""
+    A64, x = A.astype(np.float64), xs.astype(np.float64)
+    gam = 1.0 / Lf
+    y = x - gam * ((x @ A64.T - b) @ A64)
+    z = np.sign(y) * np.maximum(np.abs(y) - gam * lams[:, None], 0.0)
+    return np.max(np.abs(x - z), axis=1) / gam
+
+
+def phase_dp_tp(card, one_rank):
+    """Route (y): ``python -m proxtpu_torch.tools.spmd_worker --ranks 4
+    --cases shared_tp``, the dp x tp composition of ``benchmarks/
+    scaling.py --path shared_tp`` at full width on a (2, 2) mesh of Gloo
+    ranks sharing the card (the worker asserts one all-reduce over tp at
+    init and a step, none over dp, and tp ranks bit-equal).  Held: every
+    lane done; the bits of the stripes' arithmetic emulated in this process
+    (``spmd_worker.emulated_dp_x_tp``); against the unplaced run on one rank
+    (``one_rank``, route (w)'s), the JAX test's slack: solutions within
+    1e-3 and every lane's float64 recheck <= 1.2 tol.  The lanes whose
+    count differs from the unplaced run's are printed: at this width a
+    float32 sum in another order moves about four lanes in ten by an
+    iteration or more (tests/test_torch_dp_tp.py run as a script), so the
+    JAX test's 75% of equal counts, set at 16 lanes of 24 x 32, holds at
+    that size (tests/test_torch_multiprocess.py) and is not a gate here.
+    The phase must end within DP_TP_BUDGET_S."""
+    import shutil
+
+    from proxtpu_torch.tools import spmd_worker as w
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(DP_TP_DIR, ignore_errors=True)
+    subprocess.run(
+        [sys.executable, "-m", "proxtpu_torch.tools.spmd_worker", "--ranks",
+         str(DP_TP_RANKS), "--backend", "gloo", "--device", "cuda",
+         "--cases", "shared_tp", "--out", DP_TP_DIR, "--timeout", "100"],
+        check=True, timeout=110)
+    dt_worker = time.perf_counter() - t_phase
+    with np.load(os.path.join(DP_TP_DIR, "spmd.npz")) as f:
+        out = {k.split("__", 1)[1]: f[k] for k in f.files}
+    shutil.rmtree(DP_TP_DIR, ignore_errors=True)
+    z, it, done = out["z"], out["it"], out["done"]
+    A, b, lams, Lf = w.shared_tp_data(w.SHARED_TP_LANES)
+    assert done.all(), f"(y): {int((~done).sum())} lanes left"
+    emulated = [v.cpu().numpy() for v in w.emulated_dp_x_tp(
+        A, b, lams, Lf, DEVICE, (DP_TP_RANKS // 2, 2), w.SHARED_TP_MAXIT,
+        w.SHARED_TP_TOL, w.SHARED_TP_K)]
+    assert all(np.array_equal(g, e) for g, e in zip((z, it, done),
+                                                   emulated)), (
+        "(y): the placed solve differs from its stripes emulated in one "
+        "process")
+    (z1, it1, _), wall1 = one_rank
+    z1, it1 = z1.cpu().numpy(), it1.cpu().numpy()
+    dz = float(np.abs(z - z1).max())
+    worst = float(shared_residuals64(A, b, lams, Lf, z).max())
+    apart = np.flatnonzero(it != it1)
+    assert dz <= 1e-3, dz
+    assert worst <= 1.2 * w.SHARED_TP_TOL, worst
+    steps, reduces = out["steps"].astype(int), out["reduces"].astype(int)
+    print(f"(y) {DP_TP_RANKS} Gloo ranks, (dp, tp) = (2, 2), "
+          f"{w.SHARED_TP_LANES} lanes of {A.shape}, check_every "
+          f"{w.SHARED_TP_K}: ranks' walls "
+          + "; ".join(", ".join(f"{v:.4f}" for v in row)
+                      for row in out["walls"])
+          + f" s; four-rank walls (barrier to barrier) "
+          f"{', '.join(f'{v:.4f}' for v in out['both'])} s; one rank "
+          f"unplaced {wall1:.4f} s  [{card}]")
+    print(f"(y) bit-equal to the stripes emulated in one process; "
+          f"iterations mean {it.mean():.2f} max {int(it.max())} (unplaced "
+          f"{it1.mean():.2f} / {int(it1.max())}); {apart.size} of {len(it)} "
+          f"lanes apart in count from the unplaced run (max "
+          f"{int(np.abs(it.astype(int) - it1).max())} iterations), max|dx| "
+          f"{dz:.3e}; worst float64 recheck {worst:.3e} (limit "
+          f"{1.2 * w.SHARED_TP_TOL:.1e}); all-reduces by rank "
+          f"{reduces.tolist()} over {steps.tolist()} steps (one at init, "
+          f"one a step, none over dp); "
+          f"{', '.join(f'{v:.1f}' for v in out['reduce_us'])} us a Gloo "
+          f"all-reduce of ({w.SHARED_TP_LANES // 2}, {A.shape[1] + 1}) "
+          f"float32 on cuda:0; the worker {dt_worker:.1f} s  [{card}]")
+    dt = time.perf_counter() - t_phase
+    print(f"  dp x tp: {dt:.1f} s (budget {DP_TP_BUDGET_S:.0f} s)  "
+          f"[{card}]")
+    assert dt <= DP_TP_BUDGET_S, (dt, DP_TP_BUDGET_S)
+
+
+LILIN_BUDGET_S = 45.0
+LILIN_TOL, LILIN_MAXIT = 1e-4, 2000
+# route (b)'s lanes on which Li-Lin cycles in float64, the same in both
+# packages at this cap (tests/test_torch_li_lin_batch.py run as a script)
+LILIN_F64_CYCLING = [5, 7, 8, 10, 12, 17, 18, 20, 21, 30, 31, 34, 35, 36,
+                     37, 38, 39, 42, 43, 47, 52, 56, 61, 63]
+
+
+def phase_li_lin(card):
+    """Route (z): ``BatchedAlgorithm(make_li_lin_iteration)`` on route (b)'s
+    64 nonconvex box QPs of n = 512, float32, tol 1e-4, as the JAX
+    package's ``benchmarks/families_bench.py`` runs it: one solve of every
+    lane (Li-Lin's monitor accepts limit cycles on some lanes of this
+    family, in float64 and in both packages; those lanes run to the cap and
+    are printed beside the float64 ones), every lane it reports done
+    rechecked <= 2 tol; then the lanes done, solved as their own batch,
+    every lane done and rechecked <= 2 tol; the single-problem solver on
+    lanes 0-7 beside the batched counts.  No kernel lies on this path.
+    The phase must end within LILIN_BUDGET_S."""
+    from proxtpu_torch import BatchedAlgorithm, LiLin, make_li_lin_iteration
+    from proxtpu_torch.prox import IndBox, Quadratic
+    from proxtpu_torch.tools import problems
+
+    t_phase = time.perf_counter()
+    counters = launch_counters()
+    launches = {k: getattr(wr, a) for k, (wr, a) in counters.items()}
+    B, n = BOX_SHAPES[0]
+    Qs, qs, gam = problems.box_qp_problems(B, n, seed=7)
+
+    def solve(lanes):
+        t0 = time.perf_counter()
+        xs, iters, done = BatchedAlgorithm(
+            make_li_lin_iteration, maxit=LILIN_MAXIT, tol=LILIN_TOL)(
+            x0=torch.zeros(len(lanes), n, device=DEVICE),
+            f=Quadratic(torch.tensor(Qs[lanes], device=DEVICE),
+                        torch.tensor(qs[lanes], device=DEVICE)),
+            g=IndBox(-1.0, 1.0), gamma=torch.tensor(gam[lanes],
+                                                    device=DEVICE))
+        torch.cuda.synchronize()
+        return (xs.cpu().numpy(), iters.cpu().numpy(), done.cpu().numpy(),
+                time.perf_counter() - t0)
+
+    every = np.arange(B)
+    solve(every[:4])  # warm-up (lanes that converge within 200 steps)
+    xs, iters, done, dt_all = solve(every)
+    res = box_residuals(Qs, qs, gam, xs)
+    kept = np.flatnonzero(done)
+    assert kept.size and np.isfinite(xs).all(), kept
+    assert res[kept].max() <= 2 * LILIN_TOL, res[kept].max()
+    xs_k, it_k, done_k, dt_k = solve(kept)
+    res_k = box_residuals(Qs[kept], qs[kept], gam[kept], xs_k)
+    assert done_k.all() and res_k.max() <= 2 * LILIN_TOL, (
+        int((~done_k).sum()), res_k.max())
+    print(f"(z) batched Li-Lin, box QP {(B, n)}, cap {LILIN_MAXIT}: "
+          f"{kept.size}/{B} lanes done in {dt_all:.4f} s, worst recheck of "
+          f"those {res[done].max():.3e} (limit {2 * LILIN_TOL:.0e}); not "
+          f"done {np.flatnonzero(~done).tolist()} (float64, both packages: "
+          f"{LILIN_F64_CYCLING}); the {kept.size} done lanes as their own "
+          f"batch: all done in {dt_k:.4f} s, iterations mean "
+          f"{it_k.mean():.2f} max {int(it_k.max())}, worst recheck "
+          f"{res_k.max():.3e}, {int((it_k != iters[kept]).sum())} counts "
+          f"apart from the first solve  [{card}]")
+    singles, dt_s = [], time.perf_counter()
+    for i in range(8):
+        x, k = LiLin(tol=LILIN_TOL, maxit=LILIN_MAXIT)(
+            x0=torch.zeros(n, device=DEVICE),
+            f=Quadratic(torch.tensor(Qs[i], device=DEVICE),
+                        torch.tensor(qs[i], device=DEVICE)),
+            g=IndBox(-1.0, 1.0), gamma=float(gam[i]))
+        r = float(box_residuals(Qs[i:i + 1], qs[i:i + 1], gam[i:i + 1],
+                                x.cpu().numpy()[None])[0])
+        assert k >= LILIN_MAXIT or r <= 2 * LILIN_TOL, (i, k, r)
+        singles.append(k)
+    dt_s = time.perf_counter() - dt_s
+    print(f"(z) lanes 0-7: batched {iters[:8].tolist()}, single-problem "
+          f"LiLin {singles} ({dt_s:.4f} s for the eight)  [{card}]")
+    now = {k: getattr(wr, a) for k, (wr, a) in counters.items()}
+    assert now == launches, "(z): a kernel launched on the Li-Lin path"
+    dt = time.perf_counter() - t_phase
+    print(f"  batched Li-Lin: {dt:.1f} s (budget {LILIN_BUDGET_S:.0f} s)  "
+          f"[{card}]")
+    assert dt <= LILIN_BUDGET_S, (dt, LILIN_BUDGET_S)
 
 
 def kernel_bounds():
@@ -3370,9 +3613,14 @@ def main():
     print("the drivers' remaining surface, routes (q)-(v):")
     for k, n in phase("drivers", phase_drivers, card).items():
         launches[k] = launches.get(k, 0) + n
+    print("batched Li-Lin, route (z):")
+    phase("batched Li-Lin", phase_li_lin, card)
     print("the sharding layer, routes (w) and (x):")
-    for k, n in phase("sharding", phase_sharding, card).items():
+    sharded, dp_tp = phase("sharding", phase_sharding, card)
+    for k, n in sharded.items():
         launches[k] = launches.get(k, 0) + n
+    print("the dp x tp composition, route (y):")
+    phase("dp x tp", phase_dp_tp, card, dp_tp)
     launches["read_reduce"] = floor_launches
     kernels = {
         "fista_step": ("lasso_step.cu", "proxtpu/kernels/lasso.py:156"),

@@ -6,9 +6,11 @@ of ``proxtpu/algorithms/li_lin.py``; Li & Lin, NIPS 2015, Algorithm 2).
 An extrapolated forward-backward step monitored against a nonmonotone
 moving average ``F_average`` (eta = 0.8, delta = 1e-3).  When the monitor
 fails, a plain forward-backward step from ``x`` is computed and the better
-of the two points is kept.  The monitor is tested on the host, so the plain
-step is paid only when it fails (the reference's ``lax.cond``); the step
-does not map under ``torch.func.vmap``.
+of the two points is kept.  For one problem the monitor is tested on the
+host, so the plain step is paid only when it fails (the reference's
+``lax.cond``).  The batched drivers set ``select_branches``: both branches
+are computed and each lane selects its own, which is what ``lax.cond``
+becomes under ``vmap``, and the form that runs under ``torch.func.vmap``.
 """
 
 from __future__ import annotations
@@ -53,6 +55,9 @@ class LiLinIteration:
     delta: object
     eta: object
     theta_restart: bool = False
+    # set by the batched drivers: both branches and a per-lane select, no
+    # test on the host
+    select_branches: bool = False
 
     def _forward_backward(self, y, gamma):
         f_y, grad_f_y = value_and_gradient(self.f, y)
@@ -83,26 +88,34 @@ class LiLinIteration:
         w1 = (theta - 1) / theta1  # the case-1 extrapolation weight
         y1 = tree_map(lambda zl, xl: zl + w1 * (zl - xl), s.z, s.x)
 
-        if bool(monitor_ok):
-            y, x_new, Fx = y1, s.z, Fz.to(theta.dtype)
+        fast = (y1, s.z, Fz.to(theta.dtype))
+        if self.select_branches:
+            monitored = self._monitored(s, Fz, theta, theta1, w1, y1)
+            y, x_new, Fx = (tree_where(monitor_ok, a, b)
+                            for a, b in zip(fast, monitored))
+        elif bool(monitor_ok):
+            y, x_new, Fx = fast
         else:
-            # the plain FB step from x (case 2)
-            _, _, v, g_v = self._forward_backward(s.x, s.gamma)
-            Fv = self.f(v) + g_v
-            case1 = Fz <= Fv
-            w2 = theta / theta1
-            y2 = tree_map(
-                lambda zl, vl, xl: zl + w2 * (zl - vl) + w1 * (vl - xl),
-                s.z, v, s.x)
-            y = tree_where(case1, y1, y2)
-            x_new = tree_where(case1, s.z, v)
-            Fx = torch.where(case1, Fz, Fv).to(theta.dtype)
+            y, x_new, Fx = self._monitored(s, Fz, theta, theta1, w1, y1)
 
         f_y, grad_f_y, z, g_z = self._forward_backward(y, s.gamma)
         q1 = self.eta * s.q + 1
         F_average = (self.eta * s.q * s.F_average + Fx) / q1
         return LiLinState(x_new, y, f_y, grad_f_y, s.gamma, z, g_z,
                           tree_sub(y, z), theta1, F_average, q1)
+
+    def _monitored(self, s, Fz, theta, theta1, w1, y1):
+        """The branch taken when the monitor fails: the plain FB step from
+        x (case 2) and the better of the two points."""
+        _, _, v, g_v = self._forward_backward(s.x, s.gamma)
+        Fv = self.f(v) + g_v
+        case1 = Fz <= Fv
+        w2 = theta / theta1
+        y2 = tree_map(
+            lambda zl, vl, xl: zl + w2 * (zl - vl) + w1 * (vl - xl),
+            s.z, v, s.x)
+        return (tree_where(case1, y1, y2), tree_where(case1, s.z, v),
+                torch.where(case1, Fz, Fv).to(theta.dtype))
 
     def default_stopping_criterion(self, tol, s):
         return tree_inf_norm(s.res) / s.gamma <= tol

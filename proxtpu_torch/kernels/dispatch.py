@@ -25,6 +25,10 @@ plain version (CPU).  The reference's rules are kept, with two changes:
   runs one step per convergence test (K = 1) on every device; the
   reference blocks K steps on a TPU only (``dispatch.py:627``), a choice of
   that chip's trip cost.
+
+Every matcher declines a problem that holds an operand in row stripes over
+a tp mesh axis (the dp x tp composition): only the generic driver runs its
+collective inside the step.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ import math
 
 import torch
 
+from ..parallel.sharded_ops import holds_row_stripes
 from ..utils.tree import real_dtype_of
 
 # the blocked routes' threshold: bytes of A (or Q) per lane
@@ -104,7 +109,8 @@ def match_tv_solver(factory, kwargs, *, tol, maxit, stop=None, solution=None,
     rule; per-image counts are upper bounds with up to ``iter_block - 1``
     of sampling slack.  float32 takes the kernel route, float64 the plain
     step."""
-    if stop is not None or solution is not None:
+    if stop is not None or solution is not None or holds_row_stripes(
+            kwargs):
         return None
     name = getattr(factory, "__name__", "")
     if name != "make_chambolle_pock_iteration":
@@ -238,7 +244,8 @@ def match_kernel_solver(factory, kwargs, *, tol, maxit, stop=None,
       ``IndBox`` (finite scalar bounds) + a fixed step  ->  the box-QP
       solvers.
     """
-    if stop is not None or solution is not None:
+    if stop is not None or solution is not None or holds_row_stripes(
+            kwargs):
         return None
     if kwargs.get("adaptive"):
         return None
@@ -413,7 +420,8 @@ def match_flat_adaptive(factory, kwargs, *, tol, maxit, stop=None,
     or ``None``.  ``check_every`` trips run between the host's tests
     (``BatchedAlgorithm`` passes 8 unless it was given one); the counts do
     not depend on it."""
-    if stop is not None or solution is not None:
+    if stop is not None or solution is not None or holds_row_stripes(
+            kwargs):
         return None
     name = getattr(factory, "__name__", "")
     accel = name == "make_fast_forward_backward_iteration"
@@ -507,7 +515,8 @@ def match_flat_linesearch(factory, kwargs, *, tol, maxit, stop=None,
     per trip instead of ``max_backtracks`` masked trials per iteration),
     or ``None``.  ``check_every=None`` picks 8 for adaptive PANOC and 1
     elsewhere, as the JAX package; the counts do not depend on it."""
-    if stop is not None or solution is not None:
+    if stop is not None or solution is not None or holds_row_stripes(
+            kwargs):
         return None
     name = getattr(factory, "__name__", "")
     if name not in _FLAT_LS:

@@ -156,6 +156,17 @@ def _default_solution(it, s):
     return it.default_solution(s)
 
 
+def _select_branches(iteration):
+    """An iteration that branches on the host for one problem (a
+    ``select_branches`` field, as ``LiLinIteration``'s) set to compute
+    both branches and select per lane: what ``lax.cond`` becomes under
+    ``vmap`` in the JAX package."""
+    if dataclasses.is_dataclass(iteration) and "select_branches" in {
+            f.name for f in dataclasses.fields(iteration)}:
+        return dataclasses.replace(iteration, select_branches=True)
+    return iteration
+
+
 class _Lanes:
     """A batched iteration (through :func:`broadcast_hyperparams`) and its
     ``init``, ``step``, stopping criterion and solution mapped over the
@@ -163,7 +174,7 @@ class _Lanes:
     axis 0."""
 
     def __init__(self, iteration, tol, stop=None, solution=None):
-        self.iteration = broadcast_hyperparams(iteration)
+        self.iteration = broadcast_hyperparams(_select_branches(iteration))
         self.tol, self.stop_fn = tol, stop or _default_stop
         self.solution_fn = solution or _default_solution
         self.leaves, self.spec = flatten(self.iteration)
@@ -261,7 +272,7 @@ def _start(lanes):
                                    device=done.device)
 
 
-@lane_parallel
+@lane_parallel(stripes=True)
 def batched_run_loop(iteration, maxit, tol, stop=None, solution=None,
                      check_every=1, verbose=False, freq=100,
                      halt_nonfinite=False):
@@ -508,7 +519,7 @@ class BatchedAlgorithm:
             if "backtrack_limit" in params:
                 merged["backtrack_limit"] = _default_backtrack_limit(merged)
 
-    @lane_parallel
+    @lane_parallel(stripes=True)
     def __call__(self, **kwargs):
         merged = {**self.kwargs, **kwargs}
         # a kwarg the factory does not take must not be dropped by a

@@ -15,9 +15,9 @@ as they are.
   local ``A_i^H y_i`` then an all-reduce.  Both take and return plain
   vectors that every rank holds whole, so every single-problem solver runs
   on the operator unchanged.
-* :func:`shard_batch`, :func:`replicate`: place data with
-  ``DTensor.from_local`` from the full tensor that every rank holds (no
-  scatter, no communication).
+* :func:`shard_batch`, :func:`replicate`, :func:`shard_rows`: place data
+  with ``DTensor.from_local`` from the full tensor that every rank holds
+  (no scatter, no communication).
 * :func:`lane_parallel`: the one place where placed lanes meet the
   batched drivers.  Compute never runs DTensor operations: a decorated
   entry point runs on each rank's own lanes as plain tensors (``Shard(0)``
@@ -25,6 +25,14 @@ as they are.
   tensor) and returns its per-lane outputs as DTensors placed as the lanes
   came in.  No collective runs inside the solve: each rank stops when its
   own lanes are done.
+* The dp x tp composition (the generic batched driver only,
+  ``lane_parallel(stripes=True)``): one ``Shared`` operand whose tensors
+  are row stripes over a ``tp`` mesh axis, inside lanes placed over
+  ``dp``.  The operand becomes :class:`RowShardedLeastSquaresLoss` or
+  :class:`RowShardedMatrixOperator`, which hold this rank's stripe and end
+  their products in :func:`sum_over`: one all-reduce over ``tp`` for the
+  whole stacked batch inside the vmapped step.  The ranks of a ``tp``
+  group hold the same bits after it, so they stop at the same step.
 """
 
 from __future__ import annotations
@@ -37,7 +45,10 @@ from dataclasses import dataclass
 import torch
 import torch.distributed as dist
 
+from ..ops.linops import MatrixOperator
+from ..prox.functions import LeastSquaresLoss, _rparam, _vdot_real
 from ..utils.precision import pdot
+from ..utils.shared import Shared, map_shared, shared_values
 from ..utils.tree import flatten, tree_map
 from .distributed import world_mesh
 
@@ -80,6 +91,40 @@ def all_gather(t, group, dim=0):
     parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, t, group=group)
     return torch.cat(parts, dim)
+
+
+class _SumOver(torch.autograd.Function):
+    """:func:`all_reduce` as a function ``torch.func.vmap`` passes through:
+    under each vmap level the batch dim moves to the front, so the one
+    collective runs once on the whole stacked batch."""
+
+    generate_vmap_rule = False
+
+    @staticmethod
+    def forward(t, group):
+        return all_reduce(t, group)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, t, group):
+        if in_dims[0] is None:
+            return _SumOver.apply(t, group), None
+        return _SumOver.apply(t.movedim(in_dims[0], 0), group), 0
+
+
+def sum_over(t, group):
+    """The sum of ``t`` over the ranks of ``group``.  Inside
+    ``torch.func.vmap`` (nested too, any ``in_dims``) it is one
+    :func:`all_reduce` of the whole stacked batch, outside it a plain one.
+    Raises where no process group exists: there is no local fallback."""
+    if not dist.is_initialized():
+        raise RuntimeError(
+            "sum_over: no process group; call initialize_distributed(...) "
+            "before a collective")
+    return _SumOver.apply(t, group)
 
 
 # ---------------------------------------------------------------------------
@@ -160,8 +205,28 @@ def shard_batch(tree, mesh, axis_name, batch_dim=0):
     dims = [None] * (batch_dim + 1)
     dims[batch_dim] = axis_name
     return spec.unflatten([
+        l if _is_dtensor(l) else
         _place(l, mesh, () if s or l.dim() == 0 else dims)
         for l, s in zip(leaves, spec.shared)])
+
+
+def shard_rows(tree, mesh, axis_name):
+    """Place every tensor under a :class:`~proxtpu_torch.utils.shared.
+    Shared` marker in ``tree`` as row stripes over the mesh axis
+    ``axis_name`` (``Shard(0)`` there, replicated on the other axes; a
+    rank-0 tensor replicated): the tp half of the dp x tp composition.
+    Tensors outside a Shared marker are left as they are, so that
+    :func:`shard_batch` can place the lanes after it::
+
+        it = shard_batch(shard_rows(iteration, mesh, "tp"), mesh, "dp")
+    """
+    def place(leaf, shared):
+        if not shared or _is_dtensor(leaf):
+            return leaf
+        return _place(leaf, mesh, (axis_name,) if leaf.dim() else ())
+
+    leaves, spec = flatten(tree)
+    return spec.unflatten([place(l, s) for l, s in zip(leaves, spec.shared)])
 
 
 def full_tensor(x):
@@ -186,25 +251,39 @@ def full_tensor(x):
 # placed lanes into the batched drivers
 
 
+def _is_dtensor(x):
+    mod = _dtensor_module()
+    return mod is not None and isinstance(x, mod.DTensor)
+
+
 def _is_replicated(x):
     return all(p.is_replicate() for p in x.placements)
 
 
-def localize(tree, lanes=True):
+def localize(tree, lanes=True, stripes=False):
     """``(tree on this rank, lanes)``: every ``Replicate`` DTensor of
     ``tree`` as its local full tensor, and with ``lanes=True`` every
     lane-sharded one (``Shard(0)`` on some mesh dims, ``Replicate`` on the
     others) as its local block.  ``lanes`` is ``(mesh, placements)`` of
     those lanes, or ``None`` where none were placed.  Lanes placed two ways
-    at once, and a sharded tensor under a ``Shared`` marker (one operand
-    split inside the lanes, which needs a collective in the vmapped step),
-    raise ``ValueError``."""
+    at once raise ``ValueError``.
+
+    A sharded tensor under a ``Shared`` marker (one operand split inside
+    the lanes) raises ``ValueError`` unless ``stripes=True``; then the
+    Shared operand must be row stripes over one mesh axis (see
+    :func:`_row_sharded`) and becomes its row-sharded form, whose products
+    end in :func:`sum_over` over that axis."""
     mod = _dtensor_module()
     if mod is None:
         return tree, None
     leaves, spec = flatten(tree)
     if not any(isinstance(l, mod.DTensor) for l in leaves):
         return tree, None
+    if lanes and stripes and any(
+            s and isinstance(l, mod.DTensor) and not _is_replicated(l)
+            for l, s in zip(leaves, spec.shared)):
+        tree = map_shared(tree, _row_sharded)
+        leaves, spec = flatten(tree)
     placed = None
     out = []
     for leaf, shared in zip(leaves, spec.shared):
@@ -217,9 +296,11 @@ def localize(tree, lanes=True):
         else:
             if shared:
                 raise ValueError(
-                    "a sharded tensor under a Shared marker (one operand "
-                    "split inside data-parallel lanes) is not supported; "
-                    "replicate the Shared operand")
+                    f"a sharded tensor ({leaf.placements}) under a Shared "
+                    "marker: one operand split inside data-parallel lanes "
+                    "runs only on the generic batched driver "
+                    "(batched_run_loop, BatchedAlgorithm); replicate the "
+                    "Shared operand here")
             if any(p.is_shard() and p.dim != 0 or p.is_partial()
                    for p in leaf.placements):
                 raise ValueError(
@@ -243,18 +324,151 @@ def place_lanes(tree, mesh, placements):
         if isinstance(l, torch.Tensor) and l.dim() > 0 else l, tree)
 
 
-def lane_parallel(fn):
+def lane_parallel(fn=None, *, stripes=False):
     """Run a batched entry point on each rank's own lanes: placed
     arguments as plain local tensors (see :func:`localize`), the per-lane
     outputs placed as the lanes came in.  Unplaced arguments take the
-    entry point's own path, unchanged."""
+    entry point's own path, unchanged.  ``stripes=True`` (the generic
+    driver) also takes a ``Shared`` operand in row stripes over a tp
+    axis."""
+    if fn is None:
+        return functools.partial(lane_parallel, stripes=stripes)
+
     @functools.wraps(fn)
     def run(*args, **kwargs):
-        (args, kwargs), lanes = localize((args, kwargs))
+        (args, kwargs), lanes = localize((args, kwargs), stripes=stripes)
         out = fn(*args, **kwargs)
         return out if lanes is None else place_lanes(out, *lanes)
 
     return run
+
+
+# ---------------------------------------------------------------------------
+# a Shared operand in row stripes over a tp axis
+
+
+def _stripe(t, owner, name):
+    """``(local stripe, mesh, mesh dim)`` of ``t``, a DTensor that is
+    ``Shard(0)`` on exactly one mesh dim and ``Replicate`` on the others;
+    anything else raises ``ValueError`` naming ``owner`` and the
+    placements."""
+    if _is_dtensor(t):
+        cut = [i for i, p in enumerate(t.placements)
+               if not p.is_replicate()]
+        if len(cut) == 1 and t.placements[cut[0]].is_shard(0):
+            return t.to_local(), t.device_mesh, cut[0]
+    placements = tuple(t.placements) if _is_dtensor(t) else "not placed"
+    raise ValueError(
+        f"{owner} under a Shared marker: {name} has placements "
+        f"{placements}; the tp layout takes row stripes, Shard(0) on one "
+        "mesh axis and Replicate on the others")
+
+
+def _local(v):
+    return v.to_local() if _is_dtensor(v) else v
+
+
+def _row_sharded(value):
+    """``Shared(value)`` with a ``LeastSquaresLoss`` or a
+    ``MatrixOperator`` in row stripes as its row-sharded form; any other
+    class with a sharded tensor raises ``ValueError``."""
+    leaves, _ = flatten(value)
+    sharded = [tuple(l.placements) for l in leaves
+               if _is_dtensor(l) and not _is_replicated(l)]
+    if not sharded:
+        return Shared(value)
+    owner = type(value).__name__
+    if isinstance(value, LeastSquaresLoss):
+        A, mesh, dim = _stripe(value.A, owner, "A")
+        b, mesh_b, dim_b = _stripe(value.b, owner, "b")
+        if (mesh_b, dim_b) != (mesh, dim) or b.shape[0] != A.shape[0]:
+            raise ValueError(
+                f"{owner} under a Shared marker: A {tuple(value.A.placements)}"
+                f" and b {tuple(value.b.placements)} are split differently;"
+                " the tp layout takes the same row stripes of both")
+        return Shared(RowShardedLeastSquaresLoss(
+            A, b, _local(value.lam), mesh.get_group(dim)))
+    if isinstance(value, MatrixOperator):
+        A, mesh, dim = _stripe(value.A, owner, "A")
+        return Shared(RowShardedMatrixOperator(
+            A, mesh.get_group(dim), mesh.get_local_rank(dim) * A.shape[0],
+            value.A.shape[0]))
+    raise ValueError(
+        f"{owner} under a Shared marker holds sharded tensors {sharded}; "
+        "the tp layout covers LeastSquaresLoss and MatrixOperator in row "
+        "stripes only")
+
+
+def holds_row_stripes(tree):
+    """Whether ``tree`` holds an operand in row stripes (the dp x tp
+    composition after :func:`localize`): the kernel and flat routes
+    decline such a problem."""
+    return any(isinstance(v, (RowShardedLeastSquaresLoss,
+                              RowShardedMatrixOperator))
+               for v in shared_values(tree))
+
+
+@dataclass(frozen=True)
+class RowShardedLeastSquaresLoss:
+    """``f(x) = lam/2 ||A x - b||^2`` with this rank's row stripe ``A_i``,
+    ``b_i``; ``x`` is whole on every rank.  ``r_i = A_i x - b_i`` is local;
+    ``||r||^2`` and ``A^H r`` are sums of the stripes' parts over
+    ``group``, and ``value_and_gradient`` carries both in one buffer of
+    ``N + 1`` entries a lane, so a step costs one collective."""
+
+    A: object
+    b: object
+    lam: object
+    group: object
+
+    is_convex = True
+    is_generalized_quadratic = True
+
+    def __call__(self, x):
+        r = pdot(self.A, x) - self.b
+        return _rparam(self.lam, x) / 2 * sum_over(_vdot_real(r, r),
+                                                  self.group)
+
+    def value_and_gradient(self, x):
+        r = pdot(self.A, x) - self.b
+        grad = pdot(self.A.mH, r)
+        parts = torch.cat([grad.reshape(-1),
+                           _vdot_real(r, r).to(grad.dtype).reshape(1)])
+        total = sum_over(parts, self.group)
+        lam = _rparam(self.lam, x)
+        return (lam / 2 * torch.real(total[-1]),
+                lam * total[:-1].reshape(grad.shape))
+
+
+@dataclass(frozen=True)
+class RowShardedMatrixOperator:
+    """A dense matrix held as this rank's row stripe ``A`` (rows
+    ``offset`` to ``offset + A.shape[0]`` of ``rows``).  ``rmatvec`` takes
+    the stripe's rows of ``y`` and ends in :func:`sum_over`.  ``matvec``
+    returns whole rows: each stripe's product placed at its rows and
+    summed over ``group`` (an all-gather by the one collective), since no
+    function of this port takes row stripes of its input."""
+
+    A: object
+    group: object
+    offset: int
+    rows: int
+
+    def matvec(self, x):
+        y = pdot(self.A, x)
+        tail = self.rows - self.offset - y.shape[0]
+        return sum_over(torch.cat([
+            y.new_zeros((self.offset,) + y.shape[1:]), y,
+            y.new_zeros((tail,) + y.shape[1:])]), self.group)
+
+    def rmatvec(self, y):
+        return sum_over(
+            pdot(self.A.mH, y.narrow(0, self.offset, self.A.shape[0])),
+            self.group)
+
+    def opnorm(self):
+        gram = sum_over(pdot(self.A.mH, self.A), self.group)
+        return torch.sqrt(torch.linalg.eigvalsh(gram)[-1].clamp_min(0))
 
 
 # ---------------------------------------------------------------------------

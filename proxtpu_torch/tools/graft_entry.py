@@ -15,11 +15,9 @@ against a run of the same steps without a mesh:
   step's ``A^H grad`` is a local product and an all-reduce;
 * consensus blocks sharded over ``tp`` (the mean all-reduce);
 * the fused one-step lasso solver, a ``Shared`` operand, the flat ZeroFPR
-  machine and ``halt_nonfinite`` on dp lanes.
-
-The JAX dry run's dp x tp block (one ``Shared`` operand row-sharded over
-``tp`` inside dp lanes) is not ported: it needs a collective inside the
-vmapped step.
+  machine and ``halt_nonfinite`` on dp lanes;
+* dp x tp: the same ``Shared`` operand in row stripes over ``tp`` inside
+  the dp lanes, its products ending in one all-reduce over ``tp`` a step.
 """
 
 from __future__ import annotations
@@ -72,7 +70,7 @@ def _steps(iteration, steps=STEPS):
     from ..parallel.batch import _Lanes
     from ..parallel.sharded_ops import localize, place_lanes
 
-    local, lanes = localize(iteration)
+    local, lanes = localize(iteration, stripes=True)
     run = _Lanes(local, 0.0)
     s = run.init()
     for _ in range(steps):
@@ -121,7 +119,7 @@ def dryrun_multichip(n_devices, device_type="cuda"):
         stack_functions,
     )
     from ..parallel.consensus import make_consensus_admm_iteration
-    from ..parallel.sharded_ops import block, full_tensor
+    from ..parallel.sharded_ops import block, full_tensor, shard_rows
     from ..prox import (
         LeastSquaresLoss,
         NormL1,
@@ -223,8 +221,17 @@ def dryrun_multichip(n_devices, device_type="cuda"):
         x0=torch.zeros((Bs, ns), dtype=As.dtype, device=device),
         f=Shared(LeastSquaresLoss(As, bsh)), g=NormL1(lams),
         Lf=torch.full((Bs,), Lfs, dtype=As.dtype, device=device)))
-    _close(_steps(shard_batch(sh_host, mesh, "dp")).z, _steps(sh_host).z,
+    rep_z = _steps(sh_host).z
+    _close(_steps(shard_batch(sh_host, mesh, "dp")).z, rep_z,
            "Shared-operand dp-sharded batch")
+
+    # --- dp x tp: the same Shared operand in row stripes over tp (48 / tp
+    # rows a rank), the lanes over dp; the step's products end in one
+    # all-reduce over tp
+    _close(_steps(shard_batch(shard_rows(sh_host, mesh, "tp"), mesh,
+                              "dp")).z, rep_z,
+           "dp x tp Shared-operand batch (A in row stripes over tp, dp "
+           "lanes)")
 
     # --- the flat ZeroFPR machine on dp lanes
     Bf, mf_, nf = 4 * dp, 32, 48

@@ -14,16 +14,20 @@ order on every rank and writes each case's gathered outputs from rank 0 to
 Each data-parallel case asserts that its gathered per-lane outputs are
 ``torch.equal`` to the unsharded solve of the same lanes, and that no
 collective ran inside the sharded solve (``torch.distributed``'s
-collectives and the port's collective helper are counted).  The data
-generators are numpy only, so a test can feed the JAX package the same
-inputs.
+collectives and the port's collective helper are counted).  The dp x tp
+cases (one ``Shared`` operand in row stripes over ``tp``, lanes over
+``dp``) assert instead one all-reduce over ``tp`` at init and at every
+step run, none over ``dp``, and bit-equal solutions on the ranks of a tp
+group.  The data generators are numpy only, so a test can feed the JAX
+package the same inputs.
 
 ``--cases cpu`` runs the counterparts of the JAX package's sharding tests
-(``tests/test_sharding.py`` but the dp x tp case, and
-``tests/test_multiprocess.py``) and ``dryrun_multichip``; ``--cases card``
-runs the flagship lanes through ``sharded_solve_lasso_batch_packed``, a
-row-sharded PANOC and a consensus with a block a rank, each against its
-run on one rank.
+(``tests/test_sharding.py``, ``tests/test_multiprocess.py``) and
+``dryrun_multichip``; ``--cases card`` runs the flagship lanes through
+``sharded_solve_lasso_batch_packed``, a row-sharded PANOC and a consensus
+with a block a rank, each against its run on one rank.  ``--cases
+shared_tp`` (four ranks) runs ``benchmarks/scaling.py --path shared_tp``
+at full width and times it.
 """
 
 from __future__ import annotations
@@ -35,9 +39,12 @@ import socket
 import subprocess
 import sys
 import time
+from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+from .problems import lasso_problems
 
 # ---------------------------------------------------------------------------
 # data (numpy, seeded as the JAX package's tests)
@@ -55,13 +62,7 @@ def big_lasso(seed=0, m=64, n=48):
 
 def lasso_batch(B=16, M=16, N=24, seed=3, dtype=np.float32):
     """``tests/test_sharding.py::_lasso_batch``."""
-    rng = np.random.default_rng(seed)
-    A = (rng.standard_normal((B, M, N)) / np.sqrt(M)).astype(dtype)
-    b = rng.standard_normal((B, M)).astype(dtype)
-    lam = (0.1 * np.max(np.abs(np.einsum("bmn,bm->bn", A, b)), axis=1)
-           ).astype(dtype)
-    Lf = np.asarray([np.linalg.norm(A[i], 2) ** 2 for i in range(B)], dtype)
-    return A, b, lam, Lf
+    return lasso_problems(B, M, N, dtype, seed)
 
 
 def dp_problems():
@@ -113,15 +114,7 @@ def box_qp_data():
 
 
 def restart_data():
-    rng = np.random.default_rng(7)
-    B, M, N = 16, 12, 20
-    A = (rng.standard_normal((B, M, N)) / np.sqrt(M)).astype(np.float32)
-    b = rng.standard_normal((B, M)).astype(np.float32)
-    lam = (0.1 * np.max(np.abs(np.einsum("bmn,bm->bn", A, b)), axis=1)
-           ).astype(np.float32)
-    Lf = np.asarray([np.linalg.norm(A[i], 2) ** 2 for i in range(B)],
-                    np.float32)
-    return A, b, lam, Lf
+    return lasso_problems(16, 12, 20, seed=7)
 
 
 def tv_data():
@@ -154,28 +147,27 @@ def flat_data():
 def multiprocess_batch():
     """``tests/multiprocess_worker.py``'s batch (2 processes x 4 devices:
     16 lanes of 12 x 20, float32)."""
+    return lasso_problems(16, 12, 20, seed=11)
+
+
+def dp_x_tp_data(dtype=np.float32):
+    """``tests/test_sharding.py::test_generic_driver_shared_operand_dp_x_tp
+    _sharded``'s problem: one A (24, 32) and b, 16 lanes of lam, seed 11;
+    ``Lf`` a number."""
     rng = np.random.default_rng(11)
-    B, M, N = 16, 12, 20
-    A = (rng.standard_normal((B, M, N)) / np.sqrt(M)).astype(np.float32)
-    b = rng.standard_normal((B, M)).astype(np.float32)
-    lam = (0.1 * np.max(np.abs(np.einsum("bmn,bm->bn", A, b)), axis=1)
-           ).astype(np.float32)
-    Lf = np.array([np.linalg.norm(A[i], 2) ** 2 for i in range(B)],
-                  np.float32)
-    return A, b, lam, Lf
+    B, M, N = 16, 24, 32
+    A = (rng.standard_normal((M, N)) / np.sqrt(M)).astype(dtype)
+    b = rng.standard_normal(M).astype(dtype)
+    lam = (0.1 + 0.2 * rng.random(B)).astype(dtype)
+    return A, b, lam, float(np.linalg.norm(A, 2) ** 2)
 
 
-def flagship_problems(batch=256):
-    """The main path's problems (a copy of ``bench.gen_problems``): 200 x
-    400 float32, seed 0."""
-    M, N = 200, 400
-    rng = np.random.default_rng(0)
-    As = (rng.standard_normal((batch, M, N)) / np.sqrt(M)).astype(np.float32)
-    bs = rng.standard_normal((batch, M)).astype(np.float32)
-    lams = 0.1 * np.max(np.abs(np.einsum("bmn,bm->bn", As, bs)), axis=1)
-    Lfs = np.array([np.linalg.norm(As[i], 2) ** 2 for i in range(batch)],
-                   dtype=np.float32)
-    return As, bs, lams.astype(np.float32), Lfs
+def shared_tp_data(lanes):
+    """``benchmarks/scaling.py --path shared_tp``'s problem at ``lanes``
+    lanes: ``A = As[0]`` (200 x 400), ``b = bs[0]``, the lanes' ``lams`` and
+    the scalar ``Lf`` of ``As[0]``, float32."""
+    As, bs, lams, _ = lasso_problems(lanes)
+    return As[0], bs[0], lams, float(np.linalg.norm(As[0], 2) ** 2)
 
 
 def rows_problem(ranks):
@@ -202,6 +194,10 @@ def consensus_blocks(ranks):
 ROWS_TOL, ROWS_MAXIT = 1e-5, 1000
 CONSENSUS_TOL, CONSENSUS_MAXIT = 1e-4, 5000
 FLAGSHIP_TOL, FLAGSHIP_MAXIT = 1e-5, 2000
+# benchmarks/scaling.py --path shared_tp: 64 lanes a device, tol, maxit,
+# the host's test every 8 steps; timed solves after one warm-up
+SHARED_TP_LANES, SHARED_TP_TOL, SHARED_TP_MAXIT = 256, 1e-5, 2000
+SHARED_TP_K, SHARED_TP_REPEAT = 8, 2
 
 
 # ---------------------------------------------------------------------------
@@ -247,6 +243,34 @@ def no_collectives(what):
         f"{helper} by the helper")
 
 
+@contextlib.contextmanager
+def groups_reduced():
+    """The process group of every ``torch.distributed.all_reduce`` the
+    block runs, in a list (the port's collective helper reaches
+    ``torch.distributed`` through this attribute)."""
+    import torch.distributed as dist
+
+    groups, saved = [], dist.all_reduce
+
+    def counting(tensor, *args, group=None, **kwargs):
+        groups.append(group)
+        return saved(tensor, *args, group=group, **kwargs)
+
+    dist.all_reduce = counting
+    try:
+        yield groups
+    finally:
+        dist.all_reduce = saved
+
+
+def steps_run(iters, check_every, maxit):
+    """The steps the generic driver runs on lanes whose counts are
+    ``iters``: blocks of ``check_every`` until the host finds every lane
+    done after the last one stopped, or ``maxit``."""
+    last = int(iters.max())
+    return min(maxit - 1, check_every * -(-(last - 1) // check_every))
+
+
 # ---------------------------------------------------------------------------
 # the cases
 
@@ -254,7 +278,7 @@ CASES = {}
 CPU_CASES = ("operator", "panoc", "consensus", "dp_batch", "global_mesh",
              "lasso_kernel", "blocked", "multirhs", "box_qp",
              "restart_warm", "tv", "shared_operand", "flat", "packed",
-             "errors", "multiprocess", "dryrun")
+             "errors", "multiprocess", "dp_x_tp", "dryrun")
 CARD_CASES = ("flagship", "rows_panoc", "blocks_consensus")
 
 
@@ -285,6 +309,12 @@ class Context:
 
     def tp(self):
         return self.mesh((self.world,), ("tp",))
+
+    def dp_tp(self):
+        """The ``("dp", "tp")`` mesh of the dp x tp composition: tp = 2
+        where the world is even, the rest over dp."""
+        tp = 2 if self.world % 2 == 0 else 1
+        return self.mesh((self.world // tp, tp), ("dp", "tp"))
 
     def t(self, v):
         return torch.as_tensor(np.asarray(v), device=self.device)
@@ -530,6 +560,199 @@ def shared_operand(ctx):
     return _lasso_outputs(*out)
 
 
+def dp_x_tp_iteration(A, b, lam, Lf, device):
+    """FISTA on one ``Shared(LeastSquaresLoss(A, b))`` with a lam per lane,
+    the scalar step ``1 / Lf`` and ``x0 = 0``, unplaced (the JAX
+    package's dp x tp test and ``benchmarks/scaling.py --path
+    shared_tp``)."""
+    from ..algorithms import make_fast_forward_backward_iteration
+    from ..parallel import Shared
+    from ..prox import LeastSquaresLoss, NormL1
+
+    t = lambda v: torch.as_tensor(v, device=device)  # noqa: E731
+    return make_fast_forward_backward_iteration(
+        x0=torch.zeros((len(lam), A.shape[1]), dtype=t(A).dtype,
+                       device=device),
+        f=Shared(LeastSquaresLoss(t(A), t(b))), g=NormL1(t(lam)), Lf=Lf)
+
+
+@dataclass(frozen=True)
+class EmulatedStripes:
+    """``lam/2 ||A x - b||^2`` as ``RowShardedLeastSquaresLoss`` computes
+    it over a tp group of ``parts`` ranks, in one process: each stripe's
+    ``A_i^H r_i`` and ``||r_i||^2`` in one buffer, the buffers summed in
+    rank order (two ranks' sum has the same bits in either order)."""
+
+    A: object
+    b: object
+    parts: int
+
+    is_convex = True
+    is_generalized_quadratic = True
+
+    def __call__(self, x):
+        return self.value_and_gradient(x)[0]
+
+    def value_and_gradient(self, x):
+        from ..prox.functions import _rparam, _vdot_real
+        from ..utils.precision import pdot
+
+        total = None
+        for A, b in zip(self.A.chunk(self.parts), self.b.chunk(self.parts)):
+            r = pdot(A, x) - b
+            grad = pdot(A.mH, r)
+            part = torch.cat([grad.reshape(-1),
+                              _vdot_real(r, r).to(grad.dtype).reshape(1)])
+            total = part if total is None else total + part
+        lam = _rparam(1.0, x)
+        return (lam / 2 * torch.real(total[-1]),
+                lam * total[:-1].reshape(grad.shape))
+
+
+def emulated_dp_x_tp(A, b, lam, Lf, device, mesh_shape, maxit, tol,
+                     check_every):
+    """The dp x tp solve of ``mesh_shape = (dp, tp)`` emulated in one
+    process, one dp block of lanes at a time at a rank's batch: the bits
+    the placed solve must give.  Returns ``(z, iters, done)``."""
+    from ..algorithms import make_fast_forward_backward_iteration
+    from ..parallel import Shared, batched_run_loop
+    from ..prox import NormL1
+
+    dp, tp = mesh_shape
+    t = lambda v: torch.as_tensor(v, device=device)  # noqa: E731
+    f = Shared(EmulatedStripes(t(A), t(b), tp))
+    outs = [batched_run_loop(make_fast_forward_backward_iteration(
+        x0=torch.zeros((len(block), A.shape[1]), dtype=t(A).dtype,
+                       device=device), f=f, g=NormL1(t(block)), Lf=Lf),
+        maxit, tol, check_every=check_every)
+        for block in np.split(lam, dp)]
+    return tuple(torch.cat(parts) for parts in zip(*outs))
+
+
+def dp_x_tp_solve(mesh, iteration, maxit, tol, check_every):
+    """``batched_run_loop`` on ``iteration`` with its Shared operand in row
+    stripes over ``tp`` and its lanes over ``dp``.  Asserts the design's
+    collectives (one all-reduce at init and one at every step run, each
+    over tp, so none over dp) and that the ranks of a tp group end with
+    the same bits.  Returns ``(outputs, seconds, all-reduces)``."""
+    from ..parallel import batched_run_loop, shard_batch
+    from ..parallel.sharded_ops import COLLECTIVES, all_gather, shard_rows
+
+    placed = shard_batch(shard_rows(iteration, mesh, "tp"), mesh, "dp")
+    device = iteration.x0.device
+    before = COLLECTIVES["all_reduce"]
+    with groups_reduced() as groups:
+        t0 = time.perf_counter()
+        out = batched_run_loop(placed, maxit, tol, check_every=check_every)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        wall = time.perf_counter() - t0
+    helper = COLLECTIVES["all_reduce"] - before
+    want = 1 + steps_run(out[1].to_local(), check_every, maxit)
+    tp_group = mesh.get_group("tp")
+    assert helper == want == len(groups), (helper, want, len(groups))
+    assert all(g is tp_group for g in groups), "an all-reduce not over tp"
+    x = out[0].to_local()
+    both = all_gather(x[None], tp_group)
+    assert all(torch.equal(both[0], xr) for xr in both[1:]), (
+        "the ranks of a tp group hold different solutions")
+    return out, wall, helper
+
+
+@case
+def dp_x_tp(ctx):
+    """The JAX package's dp x tp test on a (2, 2) mesh in float32 and
+    float64, through ``batched_run_loop`` and ``BatchedAlgorithm`` (the
+    same bits), held against the port's unplaced run under the JAX test's
+    contract (the test holds both against the JAX package)."""
+    from ..algorithms import make_fast_forward_backward_iteration
+    from ..parallel import (
+        BatchedAlgorithm,
+        Shared,
+        batched_run_loop,
+        shard_batch,
+    )
+    from ..parallel.sharded_ops import full_tensor, shard_rows
+    from ..prox import LeastSquaresLoss, NormL1
+
+    mesh = ctx.dp_tp()
+    out = {}
+    for dtype in (np.float32, np.float64):
+        A, b, lam, Lf = dp_x_tp_data(dtype)
+        it = dp_x_tp_iteration(A, b, lam, Lf, ctx.device)
+        got = dp_x_tp_solve(mesh, it, 3000, 1e-5, 1)[0]
+        placed = BatchedAlgorithm(
+            make_fast_forward_backward_iteration, maxit=3000, tol=1e-5)(
+            x0=shard_batch(it.x0, mesh, "dp"),
+            f=shard_rows(Shared(LeastSquaresLoss(ctx.t(A), ctx.t(b))), mesh,
+                         "tp"),
+            g=NormL1(shard_batch(ctx.t(lam), mesh, "dp")), Lf=Lf)
+        _equal_lanes("dp_x_tp BatchedAlgorithm", placed,
+                     [full_tensor(v) for v in got])
+        _equal_lanes("dp_x_tp, the stripes emulated in one process", got,
+                     emulated_dp_x_tp(A, b, lam, Lf, ctx.device,
+                                      tuple(mesh.shape), 3000, 1e-5, 1))
+        z, k, done = (full_tensor(v) for v in got)
+        zp, kp, _ = batched_run_loop(it, 3000, 1e-5)
+        assert bool(done.all()), "dp_x_tp: lanes left"
+        assert float((k == kp).double().mean()) >= 0.75, (k, kp)
+        assert float((z - zp).abs().max()) <= 1e-3
+        name = np.dtype(dtype).name
+        out.update({f"{key}_{name}": v for key, v in
+                    _lasso_outputs(z, k, done).items()})
+    return out
+
+
+@case
+def shared_tp(ctx):
+    """``benchmarks/scaling.py --path shared_tp`` at full width: 256 lanes
+    over dp, ``A = As[0]`` (200 x 400) in row stripes over tp, one warm-up
+    solve, then ``SHARED_TP_REPEAT`` timed ones, each rank's wall and the
+    wall from barrier to barrier, and the time of one all-reduce of the
+    step's buffer over tp."""
+    import torch.distributed as dist
+
+    from ..parallel.sharded_ops import all_reduce, full_tensor
+
+    mesh = ctx.dp_tp()
+    A, b, lam, Lf = shared_tp_data(SHARED_TP_LANES)
+    it = dp_x_tp_iteration(A, b, lam, Lf, ctx.device)
+    args = (mesh, it, SHARED_TP_MAXIT, SHARED_TP_TOL, SHARED_TP_K)
+    dp_x_tp_solve(*args)  # warm-up
+    walls, both = [], []
+    for _ in range(SHARED_TP_REPEAT):
+        dist.barrier()
+        t0 = time.perf_counter()
+        out, wall, reduces = dp_x_tp_solve(*args)
+        dist.barrier()
+        walls.append(wall)
+        both.append(time.perf_counter() - t0)
+    # one all-reduce of the step's buffer (a lane's N + 1 entries)
+    buf = torch.zeros((out[0].to_local().shape[0], A.shape[1] + 1),
+                      dtype=torch.float32, device=ctx.device)
+    tp_group = mesh.get_group("tp")
+    all_reduce(buf, tp_group)
+    _sync(ctx)
+    reps = 50
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        all_reduce(buf, tp_group)
+    _sync(ctx)
+    reduce_us = 1e6 * (time.perf_counter() - t0) / reps
+    it_local = out[1].to_local()
+    steps = steps_run(it_local, SHARED_TP_K, SHARED_TP_MAXIT)
+    print(f"rank {ctx.rank}: shared_tp {it_local.shape[0]} lanes, walls "
+          f"{', '.join(f'{w:.4f}' for w in walls)} s, {steps} steps, "
+          f"{reduces} all-reduces, {reduce_us:.1f} us an all-reduce",
+          flush=True)
+    z, k, done = (full_tensor(v) for v in out)
+    return {**_lasso_outputs(z, k, done),
+            "walls": np.stack([_per_rank(ctx, w) for w in walls]),
+            "both": np.asarray(both), "reduces": _per_rank(ctx, reduces),
+            "steps": _per_rank(ctx, steps),
+            "reduce_us": _per_rank(ctx, reduce_us)}
+
+
 @case
 def flat(ctx):
     from ..ops.linops import MatrixOperator
@@ -687,7 +910,7 @@ def flagship(ctx):
 
     dt = _dtensor()
     mesh = ctx.dp()
-    data = flagship_problems()
+    data = lasso_problems(256)
     per = data[0].shape[0] // ctx.world
     mine = [dt.DTensor.from_local(
         ctx.t(v[ctx.rank * per:(ctx.rank + 1) * per]), mesh, [dt.Shard(0)],

@@ -48,21 +48,35 @@ def batch_axes(tree, axis=0):
     return [None if s else axis for s in spec.shared]
 
 
-def unwrap_shared(tree):
-    """Strip every :class:`Shared` wrapper (the outermost in each branch),
-    returning the plain object as a single lane of a shared problem sees
-    it."""
+def map_shared(tree, fn):
+    """``tree`` with every Shared subtree ``Shared(v)`` (the outermost in
+    each branch) replaced by ``fn(v)``."""
     if isinstance(tree, Shared):
-        return object.__getattribute__(tree, "value")
+        return fn(object.__getattribute__(tree, "value"))
     if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
         return dataclasses.replace(tree, **{
-            f.name: unwrap_shared(getattr(tree, f.name))
+            f.name: map_shared(getattr(tree, f.name), fn)
             for f in dataclasses.fields(tree)})
     node = None if tree is None else _children(tree)
     if node is None:
         return tree
     children, rebuild = node
-    return rebuild([unwrap_shared(c) for c in children])
+    return rebuild([map_shared(c, fn) for c in children])
+
+
+def shared_values(tree):
+    """The value of every Shared subtree of ``tree`` (the outermost in
+    each branch)."""
+    values = []
+    map_shared(tree, lambda v: values.append(v) or v)
+    return values
+
+
+def unwrap_shared(tree):
+    """Strip every :class:`Shared` wrapper (the outermost in each branch),
+    returning the plain object as a single lane of a shared problem sees
+    it."""
+    return map_shared(tree, lambda value: value)
 
 
 def lane_arrays(tree):

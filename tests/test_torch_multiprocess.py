@@ -3,11 +3,12 @@ package on its 8-virtual-device mesh.
 
 A module fixture starts ``python -m proxtpu_torch.tools.spmd_worker`` once:
 4 processes, one Gloo process group, every case of
-``tests/test_sharding.py`` but the dp x tp one, ``tests/test_multiprocess.py``
-'s two-process solve and ``dryrun_multichip``.  The worker itself asserts
-that every data-parallel path's gathered outputs are ``torch.equal`` to the
-unsharded port and that no collective runs inside the sharded solves, and
-the ``ValueError`` messages.  Here each case's rank-0 outputs are held
+``tests/test_sharding.py``, ``tests/test_multiprocess.py``'s two-process
+solve and ``dryrun_multichip``.  The worker itself asserts that every
+data-parallel path's gathered outputs are ``torch.equal`` to the unsharded
+port and that no collective runs inside the sharded solves, the
+``ValueError`` messages, and for the dp x tp composition one all-reduce
+over tp a step, none over dp, and tp ranks that end bit-equal.  Here each case's rank-0 outputs are held
 against the JAX function on the same numpy inputs (the worker's
 generators): counts within 1 and the reference's float32 cross-path 1e-4
 for the one-step solvers, the blocked upper bound and 5e-4, equal counts
@@ -408,6 +409,40 @@ def test_two_process_global_mesh_solve(run):
                             use_kernel=False)
     _lanes_close(run.case("multiprocess"), ref, F32_ATOL, data=data,
                  tol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_dp_x_tp_matches_jax(run, dtype):
+    """``test_generic_driver_shared_operand_dp_x_tp_sharded`` on a (2, 2)
+    mesh: one A in row stripes over tp, 16 lanes over dp, through
+    ``batched_run_loop`` (the worker holds ``BatchedAlgorithm`` to its
+    bits), against the JAX package's replicated run on the same inputs.
+    float32 under the JAX test's own contract (the stripes' partial sums
+    reassociate the M-contraction): 75% of counts equal, 1e-3, every lane's
+    float64 recheck <= 1.2e-5; float64: equal counts and 1e-9."""
+    from proxtpu.algorithms.fast_forward_backward import (
+        make_fast_forward_backward_iteration,
+    )
+    from proxtpu.parallel import Shared, batched_run_loop
+    from proxtpu.prox import LeastSquaresLoss
+
+    A, b, lam, Lf = w.dp_x_tp_data(dtype)
+    B, N = lam.shape[0], A.shape[1]
+    it = make_fast_forward_backward_iteration(
+        x0=jnp.zeros((B, N), dtype), f=Shared(LeastSquaresLoss(*_j(A, b))),
+        g=NormL1(jnp.asarray(lam)), Lf=jnp.full((B,), Lf, dtype))
+    z, k, done = (np.asarray(v) for v in batched_run_loop(it, 3000, 1e-5))
+    name = np.dtype(dtype).name
+    pz, pk, pdone = (run.case("dp_x_tp")[f"{key}_{name}"]
+                     for key in ("z", "it", "done"))
+    assert bool(pdone.all()) and bool(done.all())
+    if dtype == np.float32:
+        assert (pk == k).mean() >= 0.75, (pk, k)
+        np.testing.assert_allclose(pz, z, atol=1e-3)
+        assert recheck(A, b, lam, Lf, pz).max() <= 1.2e-5
+    else:
+        np.testing.assert_array_equal(pk, k)
+        np.testing.assert_allclose(pz, z, atol=1e-9)
 
 
 def test_dryrun_multichip(run):

@@ -227,8 +227,9 @@ def test_placed_lanes_world_one(mesh):
 
 
 def test_sharded_shared_operand_is_refused(mesh):
-    """One operand sharded inside data-parallel lanes (the JAX package's
-    dp x tp composition) needs a collective in the vmapped step: refused."""
+    """One operand sharded inside data-parallel lanes with A in row stripes
+    and b whole (split differently): refused by name.  The dp x tp layout
+    that is taken, A and b in the same stripes: tests/test_torch_dp_tp.py."""
     from proxtpu_torch.algorithms import make_fast_forward_backward_iteration
     from proxtpu_torch.prox import LeastSquaresLoss
 
