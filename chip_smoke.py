@@ -164,7 +164,10 @@ Phases, in order; any failure raises and exits non-zero:
         ``dryrun_multichip``'s sizes against their unsharded runs;
         ``dryrun_multichip(1)``; route (y)'s problem unplaced (timed) and at
         a (1, 1) ``("dp", "tp")`` mesh, where the vmap-aware all-reduce runs
-        on NCCL: bit-equal, one all-reduce at init and one a step;
+        on NCCL: bit-equal, one all-reduce at init and one a step; routes
+        (aa) and (ab) unplaced (timed, phase 15's reference) and at the
+        (1, 1) mesh on NCCL: bit-equal, the route taken and its
+        all-reduces a step or trip;
     (x) ``python -m proxtpu_torch.tools.spmd_worker --cases card``: two Gloo
         ranks sharing the card, 128 flagship lanes each, gathered and held
         against (w) lane for lane (bit for bit where ``step_plan`` at B =
@@ -182,7 +185,31 @@ Phases, in order; any failure raises and exits non-zero:
     float64 recheck <= 1.2 tol; each rank's wall, the four-rank wall, the
     one-rank wall, the lanes apart in count, µs a Gloo all-reduce; the
     phase fails past its 120 s budget;
-15. print the kernels' JSON line (time, plain version's time, bound and,
+15. drive the tp layout on the shared-A solver and the flat machines
+    (phase "tp legs"): ``python -m proxtpu_torch.tools.spmd_worker --ranks
+    4 --cases tp_legs``, four Gloo ranks sharing the card as a (2, 2)
+    mesh, each route after a warm-up of a few steps:
+    (aa) route (y)'s problem through ``BatchedAlgorithm(
+         make_fast_forward_backward_iteration)`` with ``Shared(
+         LeastSquaresLoss)`` in row stripes: ``solve_lasso_multirhs``'s
+         core on the stripe (the counting wrapper), one all-reduce a step;
+    (ab) the same problem through ``BatchedAlgorithm`` of PANOC and ZeroFPR
+         (``Shared(SqrDistance(b))`` beside ``Shared(MatrixOperator(A))``,
+         both in row stripes: two all-reduces a trip) and of
+         FastForwardBackward with no step (the adaptive FISTA machine, two
+         a trip), and route (n)'s ``flat_zerofpr_shared`` on the
+         families' logistic data with A in row stripes;
+    each: none over dp, tp ranks bit-equal, every lane done, bit-equal to
+    the stripes emulated in this process, within 1e-3 of (w)'s unplaced
+    run and every lane's float64 recheck <= 1.2 tol (the logistic route:
+    both runs under the families' gate, the distance printed), the lanes
+    apart in count printed; each rank's
+    wall, the four-rank wall, the steps or trips, the all-reduces a rank,
+    µs a Gloo all-reduce at each size, (aa) against (y)'s wall; the phase
+    fails past its 180 s budget;
+16. ``tools/graft_entry.entry()`` with no argument: its FISTA step built on
+    the card, against the same step on a CPU copy within 1e-5;
+17. print the kernels' JSON line (time, plain version's time, bound and,
     where one PyTorch call computes the same function, that call's time),
     the seconds of every phase, then the result line.
 
@@ -3277,6 +3304,71 @@ def dp_tp_one_rank(card):
     return ref, wall
 
 
+def tp_legs_one_rank(card):
+    """Routes (aa) and (ab) unplaced on the card (a warm-up of a few steps,
+    then one timed solve each): phase "tp legs"'s reference.  Then each at
+    a (1, 1) mesh on the one-rank NCCL group: bit-equal to the unplaced
+    run, the route taken and its all-reduces a step or trip
+    (``spmd_worker.tp_leg_solve``).  Returns ``{route: (numpy problem,
+    outputs, seconds)}``."""
+    from proxtpu_torch.parallel import make_mesh
+    from proxtpu_torch.parallel.sharded_ops import full_tensor
+    from proxtpu_torch.tools import spmd_worker as w
+
+    mesh = make_mesh((1, 1), ("dp", "tp"))
+    out = {}
+    for route, data in w.tp_card_data().items():
+        warm, kw_warm = w.tp_problem(route, data, DEVICE, 10,
+                                     w.SHARED_TP_TOL)
+        warm(**kw_warm)
+        solve, kw = w.tp_problem(route, data, DEVICE, w.SHARED_TP_MAXIT,
+                                 w.SHARED_TP_TOL)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = solve(**kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got, wall_11, reduces, steps = w.tp_leg_solve(
+            mesh, route, solve, kw, w.SHARED_TP_MAXIT)
+        assert all(torch.equal(full_tensor(o), r) for o, r in zip(got, ref)), (
+            f"(w) tp leg {route} at (1, 1): differs from the unplaced run")
+        assert bool(ref[2].all()), (
+            f"(w) tp leg {route}: {int((~ref[2]).sum())} lanes left")
+        unit = "steps" if route == "multirhs" else "trips"
+        print(f"(w) tp leg {route} at a (1, 1) mesh on NCCL, {len(ref[1])} "
+              f"lanes: bit-equal to the unplaced run; {reduces} all-reduces "
+              f"over tp in {steps} {unit}; iterations mean "
+              f"{ref[1].float().mean():.2f} max {int(ref[1].max())}; placed "
+              f"{wall_11:.4f} s, unplaced {wall:.4f} s  [{card}]")
+        out[route] = (data, ref, wall)
+    return out
+
+
+def check_entry(card):
+    """``tools/graft_entry.entry()`` with no argument builds on the card:
+    its one vmapped FISTA step on the 64 x 128 x 256 batch against the same
+    step on a CPU copy of its arguments, within 1e-5 (the card and the CPU
+    sum the products in another order, so the bits may differ)."""
+    from proxtpu_torch.tools import graft_entry
+    from proxtpu_torch.utils.tree import flatten
+
+    def on_cpu(tree):
+        leaves, spec = flatten(tree)
+        return spec.unflatten([l.cpu() for l in leaves])
+
+    fn, (it, state) = graft_entry.entry()
+    assert it.x0.device.type == "cuda", it.x0.device
+    got = fn(it, state)
+    want = fn(on_cpu(it), on_cpu(state))
+    errs = {name: max_err(getattr(got, name).cpu(), getattr(want, name))
+            for name in ("x", "z", "res")}
+    assert max(errs.values()) <= 1e-5, errs
+    print(f"entry(): one vmapped FISTA step on 64 x 128 x 256 on "
+          f"{it.x0.device}, against a CPU copy: max|d| "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f" (limit 1e-5)  [{card}]")
+
+
 def sharding_two_ranks(card, packed):
     """Route (x): two Gloo ranks sharing the one card through
     ``python -m proxtpu_torch.tools.spmd_worker``, the flagship lanes held
@@ -3322,7 +3414,8 @@ def sharding_two_ranks(card, packed):
 
 def phase_sharding(card):
     """Routes (w) and (x): the sharding layer on the card; the phase must
-    end within SHARDING_BUDGET_S.  Returns the kernel launches of (w)."""
+    end within SHARDING_BUDGET_S.  Returns the kernel launches of (w),
+    route (y)'s and routes (aa), (ab)'s unplaced references."""
     import socket
 
     import torch.distributed as dist
@@ -3337,6 +3430,7 @@ def phase_sharding(card):
     assert dist.get_backend() == "nccl"
     try:
         launches, packed, dp_tp = sharding_one_rank(card)
+        tp_legs = tp_legs_one_rank(card)
     finally:
         dist.destroy_process_group()
     sharding_two_ranks(card, packed)
@@ -3344,7 +3438,7 @@ def phase_sharding(card):
     print(f"  sharding: {dt:.1f} s (budget {SHARDING_BUDGET_S:.0f} s)  "
           f"[{card}]")
     assert dt <= SHARDING_BUDGET_S, (dt, SHARDING_BUDGET_S)
-    return launches, dp_tp
+    return launches, dp_tp, tp_legs
 
 
 DP_TP_BUDGET_S = 120.0
@@ -3435,6 +3529,102 @@ def phase_dp_tp(card, one_rank):
     print(f"  dp x tp: {dt:.1f} s (budget {DP_TP_BUDGET_S:.0f} s)  "
           f"[{card}]")
     assert dt <= DP_TP_BUDGET_S, (dt, DP_TP_BUDGET_S)
+    return out["walls"]
+
+
+TP_LEGS_BUDGET_S = 180.0
+TP_LEGS_DIR = os.path.join("build", "chip_smoke_tp_legs")
+
+
+def phase_tp_legs(card, one_rank, y_walls):
+    """Routes (aa) and (ab): ``python -m proxtpu_torch.tools.spmd_worker
+    --ranks 4 --cases tp_legs``, the tp layout on the shared-A solver and
+    the flat machines at route (y)'s width on a (2, 2) mesh of Gloo ranks
+    sharing the card (the worker asserts the route taken, the all-reduces
+    a step or trip, none over dp, tp ranks bit-equal).  Held here: every
+    lane done; the bits of the stripes emulated in this process
+    (``spmd_worker.emulated_tp``); against the unplaced run on one rank
+    (``one_rank``, from phase "sharding"), solutions within 1e-3 and every
+    lane's float64 recheck <= 1.2 tol at the route's step (1 / Lf; the line
+    searches' 0.95 / Lf).  The logistic route is held, both runs, to the
+    families' float64 gate, and its distance from the unplaced run is
+    printed: two certified float32 answers of that problem sit a few 1e-3
+    apart (on the CPU the unplaced run is 2.5e-3 from the float64 optimum,
+    |x| up to 11.9).  The lanes apart in count are printed, not gated:
+    float32 sums in another order (ROADMAP queue 3 watch item 1).
+    ``y_walls``: route (y)'s ranks' walls, for (aa)'s ratio.  The phase
+    must end within TP_LEGS_BUDGET_S."""
+    import shutil
+
+    from proxtpu_torch.tools import families as fam
+    from proxtpu_torch.tools import spmd_worker as w
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(TP_LEGS_DIR, ignore_errors=True)
+    subprocess.run(
+        [sys.executable, "-m", "proxtpu_torch.tools.spmd_worker", "--ranks",
+         str(DP_TP_RANKS), "--backend", "gloo", "--device", "cuda",
+         "--cases", "tp_legs", "--out", TP_LEGS_DIR, "--timeout", "150"],
+        check=True, timeout=160)
+    dt_worker = time.perf_counter() - t_phase
+    with np.load(os.path.join(TP_LEGS_DIR, "spmd.npz")) as f:
+        out = {k.split("__", 1)[1]: f[k] for k in f.files}
+    shutil.rmtree(TP_LEGS_DIR, ignore_errors=True)
+    for route, (data, (z1, it1, _), wall1) in one_rank.items():
+        z, it, done = (out[f"{k}_{route}"] for k in ("z", "it", "done"))
+        name = "(aa)" if route == "multirhs" else "(ab)"
+        assert done.all(), f"{name} {route}: {int((~done).sum())} lanes left"
+        emulated = [v.cpu().numpy() for v in w.emulated_tp(
+            route, data, DEVICE, (DP_TP_RANKS // 2, 2), w.SHARED_TP_MAXIT,
+            w.SHARED_TP_TOL)]
+        assert all(np.array_equal(g, e) for g, e in zip((z, it, done),
+                                                       emulated)), (
+            f"{name} {route}: the placed solve differs from its stripes "
+            "emulated in one process")
+        z1, it1 = z1.cpu().numpy(), it1.cpu().numpy()
+        dz = float(np.abs(z - z1).max())
+        if route == "logistic_zerofpr":
+            worst = max(float(fam.logistic_recheck(data, x).max())
+                        for x in (z, z1))
+            limit = 2 * fam.LOG_TOL
+        else:
+            A, b, lams, Lf = data
+            step = 0.95 if route in ("panoc", "zerofpr") else 1.0
+            worst = float(shared_residuals64(A, b, lams, Lf / step, z).max())
+            limit = 1.2 * w.SHARED_TP_TOL
+            assert dz <= 1e-3, (route, dz)
+        apart = np.flatnonzero(it != it1)
+        assert worst <= limit, (route, worst, limit)
+        unit = "steps" if route == "multirhs" else "trips"
+        walls = out[f"walls_{route}"]
+        steps = out[f"steps_{route}"].astype(int).tolist()
+        print(f"{name} {route}, {DP_TP_RANKS} Gloo ranks, (dp, tp) = (2, 2), "
+              f"{len(it)} lanes: ranks' walls "
+              f"{', '.join(f'{v:.4f}' for v in walls)} s; four-rank wall "
+              f"{float(out[f'both_{route}']):.4f} s; one rank unplaced "
+              f"{wall1:.4f} s; {unit} {steps}, all-reduces by rank "
+              f"{out[f'reduces_{route}'].astype(int).tolist()} "
+              f"({w.TP_ROUTES[route]} a {unit[:-1]}, none over dp)  [{card}]")
+        print(f"{name} {route}: bit-equal to the stripes emulated in one "
+              f"process; iterations mean {it.mean():.2f} max {int(it.max())} "
+              f"(unplaced {it1.mean():.2f} / {int(it1.max())}); {apart.size} "
+              f"of {len(it)} lanes apart in count from the unplaced run (max "
+              f"{int(np.abs(it.astype(int) - it1).max())} iterations), max|dx|"
+              f" {dz:.3e}; worst float64 recheck {worst:.3e} (limit "
+              f"{limit:.1e})")
+    aa, y = float(np.mean(out["walls_multirhs"])), float(np.mean(y_walls))
+    print(f"(aa) against (y) on the same stripes: a rank's wall {aa:.4f} s "
+          f"against {y:.4f} s, ratio {aa / y:.3f}  [{card}]")
+    print("tp legs: us a Gloo all-reduce over tp on cuda:0, by rank: "
+          + "; ".join(f"({lanes}, {n}) float32 "
+                      + ", ".join(f"{v:.1f}" for v in us)
+                      for (lanes, n), us in zip(out["reduce_sizes"],
+                                                out["reduce_us"]))
+          + f"; the worker {dt_worker:.1f} s  [{card}]")
+    dt = time.perf_counter() - t_phase
+    print(f"  tp legs: {dt:.1f} s (budget {TP_LEGS_BUDGET_S:.0f} s)  "
+          f"[{card}]")
+    assert dt <= TP_LEGS_BUDGET_S, (dt, TP_LEGS_BUDGET_S)
 
 
 LILIN_BUDGET_S = 45.0
@@ -3616,11 +3806,15 @@ def main():
     print("batched Li-Lin, route (z):")
     phase("batched Li-Lin", phase_li_lin, card)
     print("the sharding layer, routes (w) and (x):")
-    sharded, dp_tp = phase("sharding", phase_sharding, card)
+    sharded, dp_tp, tp_legs = phase("sharding", phase_sharding, card)
     for k, n in sharded.items():
         launches[k] = launches.get(k, 0) + n
     print("the dp x tp composition, route (y):")
-    phase("dp x tp", phase_dp_tp, card, dp_tp)
+    y_walls = phase("dp x tp", phase_dp_tp, card, dp_tp)
+    print("the tp layout on the shared-A solver and the flat machines, "
+          "routes (aa), (ab):")
+    phase("tp legs", phase_tp_legs, card, tp_legs, y_walls)
+    phase("entry", check_entry, card)
     launches["read_reduce"] = floor_launches
     kernels = {
         "fista_step": ("lasso_step.cu", "proxtpu/kernels/lasso.py:156"),

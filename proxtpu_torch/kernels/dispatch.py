@@ -26,9 +26,13 @@ plain version (CPU).  The reference's rules are kept, with two changes:
   reference blocks K steps on a TPU only (``dispatch.py:627``), a choice of
   that chip's trip cost.
 
-Every matcher declines a problem that holds an operand in row stripes over
-a tp mesh axis (the dp x tp composition): only the generic driver runs its
-collective inside the step.
+A problem that holds an operand in row stripes over a tp mesh axis (the dp
+x tp composition, after ``lane_parallel(stripes=True)`` has localized it)
+takes the shared-A leg (one all-reduce over tp a step), the flat PANOC,
+ZeroFPR, PANOCplus and adaptive FB / FISTA machines (their operator's and
+gradient's sums over tp inside each oracle round) or the generic driver.
+The stacked-A lasso and box-QP legs, the TV matcher and the flat DRLS leg
+decline it.
 """
 
 from __future__ import annotations
@@ -46,9 +50,18 @@ BLOCKED_LANE_BYTES = 1 << 20
 PACKED_GROUP_BYTES = 4 << 20
 
 
+def _number(v, device):
+    """``v`` as a tensor: a tensor as it is, a Python or numpy number in
+    float64, so that a float64 problem keeps all its digits (the JAX
+    package's ``jnp.asarray`` under x64)."""
+    if isinstance(v, torch.Tensor):
+        return v.to(device)
+    return torch.as_tensor(v, dtype=torch.float64, device=device)
+
+
 def _scalar_or_vec(v, B, dtype, device):
     """A scalar or (B,) parameter as a (B,) tensor, or None."""
-    t = torch.as_tensor(v, device=device)
+    t = _number(v, device)
     if t.dim() == 0:
         return torch.full((B,), float(t), dtype=dtype, device=device)
     if tuple(t.shape) == (B,):
@@ -190,12 +203,14 @@ def match_tv_solver(factory, kwargs, *, tol, maxit, stop=None, solution=None,
 
 
 def _match_multirhs(A, b, f, g_l1, g_lam2, kwargs, x0, x0_pass, mf,
-                    restart, tol, maxit):
+                    restart, tol, maxit, group=None):
     """The shared-A leg of :func:`match_kernel_solver`: A (M, N) shared by
     the B lanes of b (B, M) -> :func:`~.lasso.solve_lasso_multirhs` at
     K = 1, or ``None``.  It needs a scalar step (``Lf`` or ``gamma``), a
     scalar or (B,) l1 weight (and ridge), x0 (B, N) and no ``mf``; float64
-    takes it too, since no hand-written kernel runs."""
+    takes it too, since no hand-written kernel runs.  With ``group`` (a
+    ``RowShardedLeastSquaresLoss``), A and b are this rank's row stripe
+    and the solver's core sums each step's ``R A`` over ``group``."""
     B = b.shape[0]
     if not bool((torch.as_tensor(getattr(f, "lam", 1.0)) == 1.0).all()):
         return None
@@ -206,10 +221,10 @@ def _match_multirhs(A, b, f, g_l1, g_lam2, kwargs, x0, x0_pass, mf,
         return None
     Lf, gamma = kwargs.get("Lf"), kwargs.get("gamma")
     if gamma is not None:
-        gamma = torch.as_tensor(gamma)
+        gamma = _number(gamma, A.device)
         Lfs = 1.0 / gamma if gamma.dim() == 0 else None
     elif Lf is not None:
-        Lf = torch.as_tensor(Lf)
+        Lf = _number(Lf, A.device)
         Lfs = Lf if Lf.dim() == 0 else None
     else:
         Lfs = None
@@ -220,6 +235,10 @@ def _match_multirhs(A, b, f, g_l1, g_lam2, kwargs, x0, x0_pass, mf,
 
     from . import lasso
 
+    if group is not None:
+        return lambda: lasso._solve_multirhs(
+            ((A, b),), lam, Lfs, tol, maxit=maxit, iter_block=1,
+            restart=restart, x0=x0_pass, lam2=lam2, group=group)
     return lambda: lasso.solve_lasso_multirhs(
         A, b, lam, Lfs, tol, maxit=maxit, iter_block=1, restart=restart,
         x0=x0_pass, lam2=lam2)
@@ -239,13 +258,14 @@ def match_kernel_solver(factory, kwargs, *, tol, maxit, stop=None,
       a scalar ``mf > 0``  ->  the lasso solvers;
     * the same with one A (M, N) for every lane (b (B, M), or b (M,) of a
       ``Shared`` f broadcast to x0's lanes), a scalar step and no ``mf``
-      ->  :func:`~.lasso.solve_lasso_multirhs` at K = 1;
+      ->  :func:`~.lasso.solve_lasso_multirhs` at K = 1; a ``Shared`` f in
+      row stripes over tp (``RowShardedLeastSquaresLoss``) -> the same
+      solver on the stripe, one all-reduce over tp a step;
     * ``make_forward_backward_iteration`` + ``Quadratic`` (stacked Q, q) +
       ``IndBox`` (finite scalar bounds) + a fixed step  ->  the box-QP
       solvers.
     """
-    if stop is not None or solution is not None or holds_row_stripes(
-            kwargs):
+    if stop is not None or solution is not None:
         return None
     if kwargs.get("adaptive"):
         return None
@@ -281,12 +301,18 @@ def match_kernel_solver(factory, kwargs, *, tol, maxit, stop=None,
             NormL1,
         )
 
+        from ..parallel.sharded_ops import RowShardedLeastSquaresLoss
+
         if isinstance(f, Shared):
             f = f.value
         if isinstance(g, Shared):
             g = g.value
-        if not isinstance(f, (LeastSquares, LeastSquaresLoss)):
+        group = getattr(f, "group", None)
+        if not isinstance(f, (LeastSquares, LeastSquaresLoss,
+                              RowShardedLeastSquaresLoss)):
             return None
+        if holds_row_stripes({k: v for k, v in kwargs.items() if k != "f"}):
+            return None  # stripes elsewhere than in a shared-A f
         if isinstance(g, ElasticNet):
             g_l1, g_lam2 = g.mu, g.lam
         elif isinstance(g, NormL1):
@@ -304,7 +330,9 @@ def match_kernel_solver(factory, kwargs, *, tol, maxit, stop=None,
             b = b.expand(x0.shape[0], b.shape[0])
         if A.dim() == 2 and b.dim() == 2:
             return _match_multirhs(A, b, f, g_l1, g_lam2, kwargs, x0, x0_pass,
-                                   mf, restart, tol, maxit)
+                                   mf, restart, tol, maxit, group)
+        if group is not None:
+            return None  # the stacked-A leg takes no row stripes
         if A.dim() != 3 or b.dim() != 2 or A.shape[0] != b.shape[0]:
             return None
         B = A.shape[0]
@@ -359,6 +387,8 @@ def match_kernel_solver(factory, kwargs, *, tol, maxit, stop=None,
 
         if seq is not None or mf is not None:
             return None  # plain FB has no momentum to restart or tune
+        if holds_row_stripes(kwargs):
+            return None  # the box-QP leg takes no row stripes
         if not isinstance(f, Quadratic) or not isinstance(g, IndBox):
             return None
         Q, q = torch.as_tensor(f.Q), torch.as_tensor(f.q)
@@ -419,9 +449,10 @@ def match_flat_adaptive(factory, kwargs, *, tol, maxit, stop=None,
     per trip instead of ``backtrack_limit`` masked trials per iteration),
     or ``None``.  ``check_every`` trips run between the host's tests
     (``BatchedAlgorithm`` passes 8 unless it was given one); the counts do
-    not depend on it."""
-    if stop is not None or solution is not None or holds_row_stripes(
-            kwargs):
+    not depend on it.  A ``Shared`` least squares in row stripes over tp
+    (``RowShardedLeastSquaresLoss``) sums its gradient over tp once a
+    trip."""
+    if stop is not None or solution is not None:
         return None
     name = getattr(factory, "__name__", "")
     accel = name == "make_fast_forward_backward_iteration"
@@ -514,9 +545,11 @@ def match_flat_linesearch(factory, kwargs, *, tol, maxit, stop=None,
     machines (:mod:`proxtpu_torch.parallel.flat_ls`: one oracle evaluation
     per trip instead of ``max_backtracks`` masked trials per iteration),
     or ``None``.  ``check_every=None`` picks 8 for adaptive PANOC and 1
-    elsewhere, as the JAX package; the counts do not depend on it."""
-    if stop is not None or solution is not None or holds_row_stripes(
-            kwargs):
+    elsewhere, as the JAX package; the counts do not depend on it.  A
+    ``Shared`` operator in row stripes over tp
+    (``RowShardedMatrixOperator``: whole rows out of ``matvec``) costs two
+    all-reduces over tp an oracle round; DRLS declines the stripes."""
+    if stop is not None or solution is not None:
         return None
     name = getattr(factory, "__name__", "")
     if name not in _FLAT_LS:
@@ -620,9 +653,10 @@ def match_flat_linesearch(factory, kwargs, *, tol, maxit, stop=None,
 def _match_flat_drls(kwargs, *, tol, maxit, check_every=1):
     """The DRLS leg of :func:`match_flat_linesearch` (no operator; f has a
     prox; gamma and c per lane by the factory's own helpers,
-    ``drls.jl:11-22``)."""
+    ``drls.jl:11-22``); row stripes decline: DRLS needs ``prox_f`` of
+    the whole problem."""
     x0, f, g = kwargs.get("x0"), kwargs.get("f"), kwargs.get("g")
-    if x0 is None or f is None or g is None:
+    if x0 is None or f is None or g is None or holds_row_stripes(kwargs):
         return None
     x0 = torch.as_tensor(x0)
     if x0.dim() != 2:

@@ -43,7 +43,12 @@ import math
 
 import torch
 
-from ..parallel.sharded_ops import lane_parallel
+from ..parallel.sharded_ops import (
+    all_reduce,
+    lane_parallel,
+    localize_multirhs,
+    place_lanes,
+)
 from ..utils.host_loop import run_host_loop
 from ..utils.precision import require_full_f32_matmul
 from ..utils.profiling import estimate, kernel_cost
@@ -1044,22 +1049,53 @@ def solve_lasso_multirhs(A, Bmat, lam, Lf, tol, maxit=2000, iter_block=1,
     convergence tests, which are then sampled every K iterations (counts
     are upper bounds, clamped to ``maxit``), and tests the restart only on
     a block's last step; K = 1 is the textbook per-step solve.  Same
-    stopping rule and freezing as :func:`solve_lasso_batch`.  Returns
-    ``(xs (B, N), iters (B,) int32, done (B,) bool)``."""
+    stopping rule and freezing as :func:`solve_lasso_batch`.
+
+    Placed arguments (DTensors) run as GSPMD runs the reference's placed
+    arrays (:func:`~proxtpu_torch.parallel.sharded_ops.localize_multirhs`):
+    lanes over a dp axis each rank solves its own; A in row stripes over a
+    tp axis makes ``R A`` a partial sum that one all-reduce over tp a step
+    makes whole, and every rank of a tp group then holds the same bits.
+    Returns ``(xs (B, N), iters (B,) int32, done (B,) bool)``, placed as
+    the lanes came in."""
+    A, Bmat, (lam, Lf, x0, lam2), group, lanes = localize_multirhs(
+        A, Bmat, (lam, Lf, x0, lam2))
+    out = _solve_multirhs(((A, Bmat),), lam, Lf, tol, maxit=maxit,
+                          iter_block=iter_block, restart=restart, x0=x0,
+                          lam2=lam2, group=group)
+    return out if lanes is None else place_lanes(out, *lanes)
+
+
+def _solve_multirhs(stripes, lam, Lf, tol, maxit=2000, iter_block=1,
+                    restart=False, x0=None, lam2=None, group=None):
+    """:func:`solve_lasso_multirhs` on local tensors.  ``stripes`` is
+    ``((A_1, B_1), ...)``: row stripes of A (M_i, N) with the matching
+    columns of the right-hand sides (B, M_i); a step's ``R A`` is the sum
+    of the stripes' ``(X A_i^T - B_i) A_i`` in order (one stripe: the
+    plain product), then over ``group`` by one
+    :func:`~proxtpu_torch.parallel.sharded_ops.all_reduce` of the (B, N)
+    product where ``group`` is given.  Nothing else needs a collective:
+    ``res``, the restart test, ``t`` and ``done`` come from X and Z, which
+    every rank of the group holds whole."""
     require_full_f32_matmul()
-    M, N = A.shape
-    B = Bmat.shape[0]
-    dtype = A.dtype
-    gamma = 1.0 / torch.as_tensor(Lf, dtype=dtype, device=A.device)
-    thr = gamma * _per_lane(lam, B, A)
-    shrink = None if lam2 is None else 1.0 + gamma * _per_lane(lam2, B, A)
+    A0, B0 = stripes[0]
+    B, N = B0.shape[0], A0.shape[1]
+    dtype = A0.dtype
+    gamma = 1.0 / torch.as_tensor(Lf, dtype=dtype, device=A0.device)
+    thr = gamma * _per_lane(lam, B, A0)
+    shrink = None if lam2 is None else 1.0 + gamma * _per_lane(lam2, B, A0)
     K = int(iter_block)
     if K < 1:
         raise ValueError(f"iter_block must be >= 1, got {iter_block}")
 
     def step(X):
-        R = torch.matmul(X, A.t()) - Bmat
-        Z = _soft_threshold(X - gamma * torch.matmul(R, A), thr[:, None])
+        G = None
+        for A, Bmat in stripes:
+            part = torch.matmul(torch.matmul(X, A.t()) - Bmat, A)
+            G = part if G is None else G + part
+        if group is not None:
+            G = all_reduce(G, group)
+        Z = _soft_threshold(X - gamma * G, thr[:, None])
         if shrink is not None:
             Z = Z / shrink[:, None]
         return Z, torch.amax(torch.abs(X - Z), dim=1)
@@ -1082,12 +1118,12 @@ def solve_lasso_multirhs(A, Bmat, lam, Lf, tol, maxit=2000, iter_block=1,
                 torch.where(done, t, tn), done | (res / gamma <= tol),
                 torch.where(done, iters, k))
 
-    z0, res0 = step(_x0_or_zeros(x0, B, N, A))
-    t0 = torch.ones((B,), dtype=dtype, device=A.device)
+    z0, res0 = step(_x0_or_zeros(x0, B, N, A0))
+    t0 = torch.ones((B,), dtype=dtype, device=A0.device)
     state, k = run_host_loop(
         body, (z0, z0, (1 + torch.sqrt(1 + 4 * t0 * t0)) / 2,
                res0 / gamma <= tol,
-               torch.ones((B,), dtype=torch.int32, device=A.device)),
+               torch.ones((B,), dtype=torch.int32, device=A0.device)),
         lambda s: s[3], maxit, k_step=K)
     _, z, _, done, iters = state
     return z, torch.clamp(torch.where(done, iters, k), max=maxit), done

@@ -25,6 +25,10 @@ The host drives the trips as in :mod:`proxtpu_torch.parallel.flat_ls`
 lane being active, so the block size changes nothing).  The trips are
 bounded by ``maxit + log(gamma0 / minimum_gamma) / log(1 / reduce_gamma)
 + maxit log(increase_gamma) / log(1 / reduce_gamma)``, a defensive cap.
+
+A ``Shared`` least squares in row stripes over a tp mesh axis
+(``lane_parallel(stripes=True)``: ``RowShardedLeastSquaresLoss``) sums
+its value and gradient over tp in one all-reduce a trip.
 """
 
 from __future__ import annotations
@@ -193,7 +197,7 @@ def _flat_adaptive_run(f, g, x0, gamma0, tol, maxit, accel=False,
     return s["z"], s["k"], s["done"]
 
 
-@lane_parallel
+@lane_parallel(stripes=True)
 def batched_adaptive_fb(f, g, x0, tol, maxit=10_000, gamma0=None,
                         minimum_gamma=1e-7, reduce_gamma=0.5,
                         increase_gamma=1.0, check_every=1):
@@ -214,7 +218,7 @@ def batched_adaptive_fb(f, g, x0, tol, maxit=10_000, gamma0=None,
         increase_gamma=float(increase_gamma), check_every=int(check_every))
 
 
-@lane_parallel
+@lane_parallel(stripes=True)
 def batched_adaptive_fista(f, g, x0, tol, maxit=10_000, gamma0=None,
                            minimum_gamma=1e-7, reduce_gamma=0.5,
                            increase_gamma=1.0, mf=0.0, check_every=1):

@@ -34,6 +34,16 @@ objects (every tensor carries the batch axis, except those under a
 :class:`~proxtpu_torch.utils.shared.Shared` marker, which every lane
 shares: a shared A is one (B, n) @ (n, m) product a trip, a stacked A one
 ``bmm``).
+
+Row stripes over a tp mesh axis (``lane_parallel(stripes=True)``, see
+:mod:`~proxtpu_torch.parallel.sharded_ops`): a shared ``MatrixOperator``
+in row stripes returns whole rows from ``matvec`` (one all-reduce of the
+zero-padded (B, m) products) and ends ``rmatvec`` in one (B, n)
+all-reduce, so an oracle round costs two collectives and f, its gradient
+and the y-space dot products stay local.  Every rank of a tp group holds
+the same bits after each collective, so the host's test ends every rank's
+loop at the same trip.  DRLS takes no stripes: it needs ``prox_f`` of the
+whole least squares.
 """
 
 from __future__ import annotations
@@ -1272,7 +1282,7 @@ def _flat_panocplus_run(f, A, g, x0, gamma, tol, maxit, alpha, beta,
     return s["z_sol"], s["k"], s["done"]
 
 
-@lane_parallel
+@lane_parallel(stripes=True)
 def batched_panocplus(f, A, g, x0, gamma, tol, maxit=1000, alpha=0.95,
                       beta=0.5, max_backtracks=20, directions=None,
                       adaptive=False, minimum_gamma=1e-7,
@@ -1314,7 +1324,7 @@ def batched_panocplus(f, A, g, x0, gamma, tol, maxit=1000, alpha=0.95,
         trip_cap=trip_cap, check_every=int(check_every))
 
 
-@lane_parallel
+@lane_parallel(stripes=True)
 def batched_zerofpr(f, A, g, x0, gamma, tol, maxit=1000, alpha=0.95,
                     beta=0.5, max_backtracks=20, directions=None,
                     trip_cap=None, check_every=1, adaptive=False,
@@ -1348,7 +1358,7 @@ def batched_zerofpr(f, A, g, x0, gamma, tol, maxit=1000, alpha=0.95,
         check_every=int(check_every))
 
 
-@lane_parallel
+@lane_parallel(stripes=True)
 def batched_panoc(f, A, g, x0, gamma, tol, maxit=1000, alpha=0.95,
                   beta=0.5, max_backtracks=20, directions=None,
                   trip_cap=None, check_every=1, adaptive=False,

@@ -25,14 +25,21 @@ as they are.
   tensor) and returns its per-lane outputs as DTensors placed as the lanes
   came in.  No collective runs inside the solve: each rank stops when its
   own lanes are done.
-* The dp x tp composition (the generic batched driver only,
-  ``lane_parallel(stripes=True)``): one ``Shared`` operand whose tensors
-  are row stripes over a ``tp`` mesh axis, inside lanes placed over
-  ``dp``.  The operand becomes :class:`RowShardedLeastSquaresLoss` or
-  :class:`RowShardedMatrixOperator`, which hold this rank's stripe and end
-  their products in :func:`sum_over`: one all-reduce over ``tp`` for the
-  whole stacked batch inside the vmapped step.  The ranks of a ``tp``
-  group hold the same bits after it, so they stop at the same step.
+* The dp x tp composition (``lane_parallel(stripes=True)``: the generic
+  batched driver, ``BatchedAlgorithm`` and the flat PANOC, ZeroFPR,
+  PANOCplus and adaptive FB / FISTA machines): one ``Shared`` operand
+  whose tensors are row stripes over a ``tp`` mesh axis, inside lanes
+  placed over ``dp``.  The operand becomes
+  :class:`RowShardedLeastSquaresLoss` or :class:`RowShardedMatrixOperator`,
+  which hold this rank's stripe and end their products in
+  :func:`sum_over`: one all-reduce over ``tp`` for the whole stacked batch
+  inside the vmapped step.  Another ``Shared`` function in the same
+  stripes as a row-sharded operator beside it (``SqrDistance(b)``) is
+  gathered whole once, before the solve.  The ranks of a ``tp`` group
+  hold the same bits after every collective, so they stop at the same
+  step.  :func:`localize_multirhs` takes
+  ``solve_lasso_multirhs``'s placed arrays (A in row stripes; its step
+  ends in one :func:`all_reduce` over ``tp``).
 """
 
 from __future__ import annotations
@@ -95,8 +102,10 @@ def all_gather(t, group, dim=0):
 
 class _SumOver(torch.autograd.Function):
     """:func:`all_reduce` as a function ``torch.func.vmap`` passes through:
-    under each vmap level the batch dim moves to the front, so the one
-    collective runs once on the whole stacked batch."""
+    under each vmap level the batch dim moves last, so the one collective
+    runs once on the whole stacked batch and returns it in the layout of
+    a plain product ``A @ x`` mapped over the lanes (lanes last,
+    contiguous; see :func:`lanes_last`)."""
 
     generate_vmap_rule = False
 
@@ -112,7 +121,39 @@ class _SumOver(torch.autograd.Function):
     def vmap(info, in_dims, t, group):
         if in_dims[0] is None:
             return _SumOver.apply(t, group), None
-        return _SumOver.apply(t.movedim(in_dims[0], 0), group), 0
+        return _SumOver.apply(t.movedim(in_dims[0], -1), group), t.dim() - 1
+
+
+class _LanesLast(torch.autograd.Function):
+    """A contiguous copy; under ``torch.func.vmap``, with the batch dim
+    moved last first."""
+
+    generate_vmap_rule = False
+
+    @staticmethod
+    def forward(t):
+        return t.clone(memory_format=torch.contiguous_format)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, t):
+        if in_dims[0] is None:
+            return _LanesLast.apply(t), None
+        return _LanesLast.apply(t.movedim(in_dims[0], -1)), t.dim() - 1
+
+
+def lanes_last(t):
+    """``t``, laid out as a plain product ``A @ x`` mapped over lanes by
+    ``torch.func.vmap`` lays out its result: lanes last, contiguous.  The
+    sums of the row-sharded forms come out so (:func:`sum_over`), and a
+    later reduction over their entries then runs in the plain product's
+    order: on one rank the placed solve keeps the unplaced one's bits.
+    The one-process emulations of the stripes apply it where the ranks
+    sum."""
+    return _LanesLast.apply(t)
 
 
 def sum_over(t, group):
@@ -272,7 +313,8 @@ def localize(tree, lanes=True, stripes=False):
     the lanes) raises ``ValueError`` unless ``stripes=True``; then the
     Shared operand must be row stripes over one mesh axis (see
     :func:`_row_sharded`) and becomes its row-sharded form, whose products
-    end in :func:`sum_over` over that axis."""
+    end in :func:`sum_over` over that axis, or is gathered whole beside a
+    row-sharded operator."""
     mod = _dtensor_module()
     if mod is None:
         return tree, None
@@ -282,7 +324,8 @@ def localize(tree, lanes=True, stripes=False):
     if lanes and stripes and any(
             s and isinstance(l, mod.DTensor) and not _is_replicated(l)
             for l, s in zip(leaves, spec.shared)):
-        tree = map_shared(tree, _row_sharded)
+        axes = _operator_stripes(tree)
+        tree = map_shared(tree, lambda v: _row_sharded(v, axes))
         leaves, spec = flatten(tree)
     placed = None
     out = []
@@ -298,9 +341,11 @@ def localize(tree, lanes=True, stripes=False):
                 raise ValueError(
                     f"a sharded tensor ({leaf.placements}) under a Shared "
                     "marker: one operand split inside data-parallel lanes "
-                    "runs only on the generic batched driver "
-                    "(batched_run_loop, BatchedAlgorithm); replicate the "
-                    "Shared operand here")
+                    "runs only on the entry points that take row stripes "
+                    "(batched_run_loop, BatchedAlgorithm, the flat PANOC, "
+                    "ZeroFPR, PANOCplus and adaptive FB / FISTA machines, "
+                    "solve_lasso_multirhs); replicate the Shared operand "
+                    "here")
             if any(p.is_shard() and p.dim != 0 or p.is_partial()
                    for p in leaf.placements):
                 raise ValueError(
@@ -329,8 +374,8 @@ def lane_parallel(fn=None, *, stripes=False):
     arguments as plain local tensors (see :func:`localize`), the per-lane
     outputs placed as the lanes came in.  Unplaced arguments take the
     entry point's own path, unchanged.  ``stripes=True`` (the generic
-    driver) also takes a ``Shared`` operand in row stripes over a tp
-    axis."""
+    driver and the flat machines) also takes a ``Shared`` operand in row
+    stripes over a tp axis."""
     if fn is None:
         return functools.partial(lane_parallel, stripes=stripes)
 
@@ -343,20 +388,76 @@ def lane_parallel(fn=None, *, stripes=False):
     return run
 
 
+def localize_multirhs(A, Bmat, rest):
+    """``solve_lasso_multirhs``'s placed arguments on this rank, as GSPMD
+    takes them: ``(A, Bmat, rest, group, lanes)``.  Where A is in row
+    stripes over one mesh axis (``Shard(0)`` there, ``Replicate`` on the
+    others), ``A`` is this rank's stripe, ``Bmat`` its lanes' columns of
+    the stripe's rows (``Bmat`` columns ``Replicate`` on A's axis are
+    narrowed here, ``Shard(1)`` there are the stripe's already) and
+    ``group`` the stripes' process group; otherwise ``group`` is ``None``
+    and every argument is localized as :func:`localize` does.  ``rest``
+    (lam, x0, ...) is localized by :func:`localize`; ``lanes`` is the
+    lanes' ``(mesh, placements)``, or ``None``.  Layouts that disagree
+    raise ``ValueError``."""
+    axis = _stripe_axis(A)
+    if axis is None:
+        (A, Bmat, rest), lanes = localize((A, Bmat, rest))
+        return A, Bmat, rest, None, lanes
+    mesh, dim = axis
+    stripe = A.to_local()
+    rows = stripe.shape[0]
+    offset = mesh.get_local_rank(dim) * rows
+    lanes = None
+    if _is_dtensor(Bmat):
+        p = Bmat.placements
+        if (Bmat.device_mesh != mesh
+                or not (p[dim].is_replicate() or p[dim].is_shard(1))
+                or any(not (q.is_replicate() or q.is_shard(0))
+                       for i, q in enumerate(p) if i != dim)):
+            raise ValueError(
+                f"solve_lasso_multirhs: A in row stripes {tuple(A.placements)}"
+                f" and Bmat {tuple(p)}: Bmat's lanes go Shard(0) on the other"
+                " mesh axes, its columns Replicate or Shard(1) on A's")
+        local = Bmat.to_local()
+        if p[dim].is_replicate():
+            local = local.narrow(1, offset, rows)
+        placed = [q if i != dim else _dtensor().Replicate()
+                  for i, q in enumerate(p)]
+        if any(q.is_shard() for q in placed):
+            lanes = (mesh, tuple(placed))
+    else:
+        local = Bmat.narrow(1, offset, rows)
+    rest, placed = localize(rest)
+    if placed is not None and placed != lanes:
+        raise ValueError(
+            f"solve_lasso_multirhs: lanes placed two ways: Bmat "
+            f"{None if lanes is None else lanes[1]} and {placed[1]}")
+    return stripe, local, rest, mesh.get_group(dim), lanes
+
+
 # ---------------------------------------------------------------------------
 # a Shared operand in row stripes over a tp axis
 
 
+def _stripe_axis(t):
+    """``(mesh, mesh dim)`` of a DTensor in row stripes (``Shard(0)`` on
+    exactly one mesh dim, ``Replicate`` on the others), else ``None``."""
+    if not _is_dtensor(t):
+        return None
+    cut = [i for i, p in enumerate(t.placements) if not p.is_replicate()]
+    if len(cut) == 1 and t.placements[cut[0]].is_shard(0):
+        return t.device_mesh, cut[0]
+    return None
+
+
 def _stripe(t, owner, name):
-    """``(local stripe, mesh, mesh dim)`` of ``t``, a DTensor that is
-    ``Shard(0)`` on exactly one mesh dim and ``Replicate`` on the others;
-    anything else raises ``ValueError`` naming ``owner`` and the
-    placements."""
-    if _is_dtensor(t):
-        cut = [i for i, p in enumerate(t.placements)
-               if not p.is_replicate()]
-        if len(cut) == 1 and t.placements[cut[0]].is_shard(0):
-            return t.to_local(), t.device_mesh, cut[0]
+    """``(local stripe, mesh, mesh dim)`` of ``t``, a DTensor in row
+    stripes (see :func:`_stripe_axis`); anything else raises
+    ``ValueError`` naming ``owner`` and the placements."""
+    axis = _stripe_axis(t)
+    if axis is not None:
+        return (t.to_local(),) + axis
     placements = tuple(t.placements) if _is_dtensor(t) else "not placed"
     raise ValueError(
         f"{owner} under a Shared marker: {name} has placements "
@@ -368,11 +469,24 @@ def _local(v):
     return v.to_local() if _is_dtensor(v) else v
 
 
-def _row_sharded(value):
+def _operator_stripes(tree):
+    """The ``(mesh, mesh dim)`` of every ``Shared(MatrixOperator)`` of
+    ``tree`` whose matrix is sharded, which must be in row stripes (else
+    ``ValueError``, naming the placements)."""
+    return {_stripe(v.A, "MatrixOperator", "A")[1:]
+            for v in shared_values(tree) if isinstance(v, MatrixOperator)
+            and _is_dtensor(v.A) and not _is_replicated(v.A)}
+
+
+def _row_sharded(value, operator_axes=()):
     """``Shared(value)`` with a ``LeastSquaresLoss`` or a
-    ``MatrixOperator`` in row stripes as its row-sharded form; any other
-    class with a sharded tensor raises ``ValueError``."""
-    leaves, _ = flatten(value)
+    ``MatrixOperator`` in row stripes as its row-sharded form.  Another
+    class whose sharded tensors are row stripes on the axis of a
+    row-sharded operator in the same call (``operator_axes``, see
+    :func:`_operator_stripes`) is gathered whole, one counted
+    :func:`all_gather` a tensor: the operator's ``matvec`` gives whole
+    rows.  Anything else with a sharded tensor raises ``ValueError``."""
+    leaves, spec = flatten(value)
     sharded = [tuple(l.placements) for l in leaves
                if _is_dtensor(l) and not _is_replicated(l)]
     if not sharded:
@@ -393,16 +507,25 @@ def _row_sharded(value):
         return Shared(RowShardedMatrixOperator(
             A, mesh.get_group(dim), mesh.get_local_rank(dim) * A.shape[0],
             value.A.shape[0]))
-    raise ValueError(
-        f"{owner} under a Shared marker holds sharded tensors {sharded}; "
-        "the tp layout covers LeastSquaresLoss and MatrixOperator in row "
-        "stripes only")
+    axes = {_stripe_axis(l) for l in leaves
+            if _is_dtensor(l) and not _is_replicated(l)}
+    if None in axes or not axes <= set(operator_axes):
+        raise ValueError(
+            f"{owner} under a Shared marker holds sharded tensors {sharded};"
+            " the tp layout covers LeastSquaresLoss and MatrixOperator in "
+            "row stripes, and another class only in the row stripes of a "
+            "MatrixOperator beside it (gathered whole)")
+    return Shared(spec.unflatten([
+        all_gather(l.to_local(), l.device_mesh.get_group(_stripe_axis(l)[1]))
+        if _is_dtensor(l) and not _is_replicated(l) else _local(l)
+        for l in leaves]))
 
 
 def holds_row_stripes(tree):
     """Whether ``tree`` holds an operand in row stripes (the dp x tp
-    composition after :func:`localize`): the kernel and flat routes
-    decline such a problem."""
+    composition after :func:`localize`): the stacked-A and box-QP legs of
+    the kernel matcher, the TV matcher and the flat DRLS leg decline such
+    a problem."""
     return any(isinstance(v, (RowShardedLeastSquaresLoss,
                               RowShardedMatrixOperator))
                for v in shared_values(tree))

@@ -3,7 +3,9 @@ layouts (counterparts of ``__graft_entry__.py``'s ``entry`` and
 ``dryrun_multichip``).
 
 ``entry()`` returns one vmapped FISTA step on the flagship workload's
-batched solver (a batch of lasso instances) and its example arguments.
+batched solver (a batch of lasso instances) and its example arguments, on
+the card unless the caller asks for the CPU (``entry("cpu")``); with no
+card it raises.
 
 ``dryrun_multichip(n)`` builds an n-rank ``("dp", "tp")`` mesh over the
 default process group (``initialize_distributed`` first; every rank calls
@@ -28,7 +30,7 @@ import torch
 STEPS = 3  # let any partitioning divergence compound before comparing
 
 
-def _lasso_batch_iteration(batch, m, n, dtype, device="cpu"):
+def _lasso_batch_iteration(batch, m, n, dtype, device="cuda"):
     from ..algorithms import make_fast_forward_backward_iteration
     from ..parallel import batch_problems
     from ..prox import LeastSquaresLoss, NormL1
@@ -50,10 +52,16 @@ def _lasso_batch_iteration(batch, m, n, dtype, device="cpu"):
     return batch_problems(make_fast_forward_backward_iteration, problems)
 
 
-def entry(device="cpu"):
+def entry(device="cuda"):
     """``(fn, example_args)``: one vmapped FISTA step on a 64-problem
-    batch (128 x 256, float32)."""
+    batch (128 x 256, float32) on ``device``; a CUDA device and no card
+    raise ``RuntimeError`` (no fallback to the CPU)."""
     from ..parallel.batch import _Lanes
+
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "entry: no CUDA device; the entry point runs on the card unless "
+            "the caller asks for the CPU (entry('cpu'))")
 
     iteration = _lasso_batch_iteration(64, 128, 256, np.float32, device)
     state = _Lanes(iteration, 0.0).init()

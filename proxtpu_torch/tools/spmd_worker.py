@@ -27,7 +27,12 @@ package the same inputs.
 ``sharded_solve_lasso_batch_packed``, a row-sharded PANOC and a consensus
 with a block a rank, each against its run on one rank.  ``--cases
 shared_tp`` (four ranks) runs ``benchmarks/scaling.py --path shared_tp``
-at full width and times it.
+at full width and times it.  ``--cases tp`` (four ranks) runs the tp
+layout on the shared-A solver and the flat machines on the JAX dp x tp
+test's problem (``multirhs_tp``, ``flat_tp``: the design's all-reduces a
+step or trip, tp ranks bit-equal, the bits of the stripes emulated in one
+process); ``--cases tp_legs`` runs them at ``shared_tp``'s width and
+times them.
 """
 
 from __future__ import annotations
@@ -279,6 +284,8 @@ CPU_CASES = ("operator", "panoc", "consensus", "dp_batch", "global_mesh",
              "lasso_kernel", "blocked", "multirhs", "box_qp",
              "restart_warm", "tv", "shared_operand", "flat", "packed",
              "errors", "multiprocess", "dp_x_tp", "dryrun")
+# the tp legs on the CPU (tests/test_torch_tp_legs.py runs them alone)
+TP_CASES = ("multirhs_tp", "flat_tp")
 CARD_CASES = ("flagship", "rows_panoc", "blocks_consensus")
 
 
@@ -581,7 +588,8 @@ class EmulatedStripes:
     """``lam/2 ||A x - b||^2`` as ``RowShardedLeastSquaresLoss`` computes
     it over a tp group of ``parts`` ranks, in one process: each stripe's
     ``A_i^H r_i`` and ``||r_i||^2`` in one buffer, the buffers summed in
-    rank order (two ranks' sum has the same bits in either order)."""
+    rank order (two ranks' sum has the same bits in either order) and
+    laid out as the collective returns them (``lanes_last``)."""
 
     A: object
     b: object
@@ -594,6 +602,7 @@ class EmulatedStripes:
         return self.value_and_gradient(x)[0]
 
     def value_and_gradient(self, x):
+        from ..parallel.sharded_ops import lanes_last
         from ..prox.functions import _rparam, _vdot_real
         from ..utils.precision import pdot
 
@@ -604,6 +613,7 @@ class EmulatedStripes:
             part = torch.cat([grad.reshape(-1),
                               _vdot_real(r, r).to(grad.dtype).reshape(1)])
             total = part if total is None else total + part
+        total = lanes_last(total)
         lam = _rparam(1.0, x)
         return (lam / 2 * torch.real(total[-1]),
                 lam * total[:-1].reshape(grad.shape))
@@ -662,9 +672,11 @@ def dp_x_tp_solve(mesh, iteration, maxit, tol, check_every):
 @case
 def dp_x_tp(ctx):
     """The JAX package's dp x tp test on a (2, 2) mesh in float32 and
-    float64, through ``batched_run_loop`` and ``BatchedAlgorithm`` (the
-    same bits), held against the port's unplaced run under the JAX test's
-    contract (the test holds both against the JAX package)."""
+    float64, through ``batched_run_loop`` and ``BatchedAlgorithm``'s
+    generic driver (``use_kernels=False``; the same bits), held against the
+    port's unplaced run under the JAX test's contract (the test holds both
+    against the JAX package).  ``BatchedAlgorithm``'s default route on it
+    is the shared-A leg: case ``multirhs_tp``."""
     from ..algorithms import make_fast_forward_backward_iteration
     from ..parallel import (
         BatchedAlgorithm,
@@ -682,7 +694,8 @@ def dp_x_tp(ctx):
         it = dp_x_tp_iteration(A, b, lam, Lf, ctx.device)
         got = dp_x_tp_solve(mesh, it, 3000, 1e-5, 1)[0]
         placed = BatchedAlgorithm(
-            make_fast_forward_backward_iteration, maxit=3000, tol=1e-5)(
+            make_fast_forward_backward_iteration, maxit=3000, tol=1e-5,
+            use_kernels=False)(
             x0=shard_batch(it.x0, mesh, "dp"),
             f=shard_rows(Shared(LeastSquaresLoss(ctx.t(A), ctx.t(b))), mesh,
                          "tp"),
@@ -751,6 +764,362 @@ def shared_tp(ctx):
             "both": np.asarray(both), "reduces": _per_rank(ctx, reduces),
             "steps": _per_rank(ctx, steps),
             "reduce_us": _per_rank(ctx, reduce_us)}
+
+
+# ---------------------------------------------------------------------------
+# the tp legs: one Shared operand in row stripes over tp, lanes over dp, on
+# the shared-A solver and the flat machines
+
+# BatchedAlgorithm's routes on one Shared problem, each with its
+# all-reduces over tp a step (the shared-A leg) or a trip (the flat
+# machines: an oracle round of the line searches is two, whole rows out of
+# matvec and rmatvec's sum, and PANOCplus makes two rounds a trip, at the
+# trial point and at its prox point; the adaptive machine sums a
+# gradient's N + 1 entries at its candidate, FISTA's also at the
+# extrapolated point)
+TP_ROUTES = {"multirhs": 1, "panoc": 2, "zerofpr": 2, "panocplus": 4,
+             "adaptive_fb": 1, "adaptive_fista": 2, "logistic_zerofpr": 2}
+# the CPU cases on dp_x_tp_data; the card's routes (aa) (the shared-A leg)
+# and (ab) (the flat machines) at benchmarks/scaling.py --path shared_tp's
+# width, with route (n)'s flat_zerofpr_shared on tools/families.py's
+# logistic data
+TP_LEGS_TOL, TP_LEGS_MAXIT = 1e-5, 3000
+TP_CARD_ROUTES = ("multirhs", "panoc", "zerofpr", "adaptive_fista",
+                  "logistic_zerofpr")
+
+
+@dataclass(frozen=True)
+class EmulatedRowOperator:
+    """``RowShardedMatrixOperator`` over a tp group of ``parts`` ranks, in
+    one process: ``matvec`` the stripes' products stacked (whole rows, as
+    the sum of zero-padded stripes gives them), ``rmatvec`` the stripes'
+    ``A_i^H y_i`` summed in rank order."""
+
+    A: object
+    parts: int
+
+    def matvec(self, x):
+        from ..parallel.sharded_ops import lanes_last
+        from ..utils.precision import pdot
+
+        return lanes_last(torch.cat([pdot(A, x)
+                                     for A in self.A.chunk(self.parts)]))
+
+    def rmatvec(self, y):
+        from ..parallel.sharded_ops import lanes_last
+        from ..utils.precision import pdot
+
+        total = None
+        for A, part in zip(self.A.chunk(self.parts), y.chunk(self.parts)):
+            out = pdot(A.mH, part)
+            total = out if total is None else total + out
+        return lanes_last(total)
+
+
+def tp_card_data():
+    """``{route: numpy problem}`` of ``TP_CARD_ROUTES``: one
+    ``shared_tp_data(SHARED_TP_LANES)`` (seconds to make) for the lasso
+    routes, tools/families.py's logistic data for the logistic one."""
+    from .families import logistic_data
+
+    shared = shared_tp_data(SHARED_TP_LANES)
+    return {route: logistic_data() if route == "logistic_zerofpr"
+            else shared for route in TP_CARD_ROUTES}
+
+
+def tp_problem(route, data, device, maxit, tol, parts=None):
+    """``(solve, kwargs)`` of a tp-legs route, unplaced: ``solve(**kwargs)``
+    returns ``(z, iters, done)``.  ``data`` is ``(A, b, lam, Lf)`` (one A
+    for every lane) or the logistic data.  With ``parts``, the operands
+    are emulated in one process over a tp group of that many ranks
+    (:class:`EmulatedStripes`, :class:`EmulatedRowOperator`); the shared-A
+    leg has no such form (see :func:`emulated_tp`)."""
+    from functools import partial
+
+    from .. import algorithms as alg
+    from ..ops.linops import MatrixOperator
+    from ..parallel import BatchedAlgorithm, Shared, batched_zerofpr
+    from ..prox import (
+        LeastSquaresLoss,
+        LogisticLoss,
+        NormL1,
+        SqrDistance,
+        Translate,
+    )
+
+    t = lambda v: torch.as_tensor(v, device=device)  # noqa: E731
+    if route == "logistic_zerofpr":
+        A, b, lam = t(data["A"]), t(data["b"]), t(data["lams"])
+    else:
+        A, b, lam, Lf = (t(v) if isinstance(v, np.ndarray) else v
+                         for v in data)
+    op = Shared(MatrixOperator(A) if parts is None
+                else EmulatedRowOperator(A, parts))
+    x0 = A.new_zeros((len(lam), A.shape[1]))
+    if route == "logistic_zerofpr":
+        # route (n)'s flat_zerofpr_shared, gamma = 0.95 / Lf a lane
+        return partial(batched_zerofpr, tol=tol, maxit=maxit), dict(
+            f=Shared(Translate(LogisticLoss(1.0), -b)), A=op, g=NormL1(lam),
+            x0=x0, gamma=torch.full((len(lam),), 0.95 / data["Lf"],
+                                    device=device))
+    if route in ("panoc", "zerofpr", "panocplus"):
+        return (BatchedAlgorithm(getattr(alg, f"make_{route}_iteration"),
+                                 maxit=maxit, tol=tol),
+                dict(x0=x0, f=Shared(SqrDistance(b)), A=op, g=NormL1(lam),
+                     Lf=Lf))
+    f = Shared(LeastSquaresLoss(A, b) if parts is None
+               else EmulatedStripes(A, b, parts))
+    kwargs = dict(x0=x0, f=f, g=NormL1(lam))
+    if route == "multirhs":
+        kwargs["Lf"] = Lf
+    factory = (alg.make_forward_backward_iteration if route == "adaptive_fb"
+               else alg.make_fast_forward_backward_iteration)
+    return BatchedAlgorithm(factory, maxit=maxit, tol=tol), kwargs
+
+
+def _lane_block(tree, i, n):
+    """Block ``i`` of ``n`` of the lanes of ``tree``: every tensor not
+    under a ``Shared`` marker cut along its batch dim."""
+    from ..utils.tree import flatten
+
+    leaves, spec = flatten(tree)
+    return spec.unflatten([l if s or l.dim() == 0 else l.chunk(n)[i]
+                           for l, s in zip(leaves, spec.shared)])
+
+
+def emulated_tp(route, data, device, mesh_shape, maxit, tol):
+    """The placed solve of a tp-legs route on ``mesh_shape = (dp, tp)``
+    emulated in one process, one dp block of lanes at a time: the bits
+    the placed solve must give.  The shared-A leg runs the solver's core
+    on the stripes as the matcher hands them over.  Returns ``(z, iters,
+    done)``."""
+    from ..kernels import lasso
+
+    dp, tp = mesh_shape
+    if route == "multirhs":
+        A, b, lam, Lf = data
+        A, b, lam = (torch.as_tensor(v, device=device) for v in (A, b, lam))
+        Lf = torch.tensor(Lf, dtype=torch.float64, device=device)
+        outs = [lasso._solve_multirhs(
+            tuple((A_i, b_i.expand(len(block), -1))
+                  for A_i, b_i in zip(A.chunk(tp), b.chunk(tp))),
+            block, Lf, tol, maxit=maxit) for block in lam.chunk(dp)]
+    else:
+        solve, kwargs = tp_problem(route, data, device, maxit, tol, parts=tp)
+        outs = [solve(**_lane_block(kwargs, i, dp)) for i in range(dp)]
+    return tuple(torch.cat(parts) for parts in zip(*outs))
+
+
+@contextlib.contextmanager
+def tp_route_seen():
+    """What a tp-legs solve ran, in a dict: the process group of every call
+    of the shared-A solver's core (``"multirhs"``) and the helper's
+    all-reduces in each trip of the flat machines (``"trips"``)."""
+    from ..kernels import lasso
+    from ..parallel import adaptive_batch, flat_ls
+    from ..parallel.sharded_ops import COLLECTIVES
+
+    seen = {"multirhs": [], "trips": []}
+    core, host_while = lasso._solve_multirhs, flat_ls._host_while
+
+    def core_spy(*args, **kwargs):
+        seen["multirhs"].append(kwargs.get("group"))
+        return core(*args, **kwargs)
+
+    def counting_while(active_of, body, s, check_every, cap):
+        def trip(s):
+            before = COLLECTIVES["all_reduce"]
+            s = body(s)
+            seen["trips"].append(COLLECTIVES["all_reduce"] - before)
+            return s
+
+        return host_while(active_of, trip, s, check_every, cap)
+
+    lasso._solve_multirhs = core_spy
+    flat_ls._host_while = adaptive_batch._host_while = counting_while
+    try:
+        yield seen
+    finally:
+        lasso._solve_multirhs = core
+        flat_ls._host_while = adaptive_batch._host_while = host_while
+
+
+def place_tp(tree, mesh):
+    """``tree`` with its Shared operands in row stripes over ``tp`` and its
+    lanes over ``dp``."""
+    from ..parallel import shard_batch
+    from ..parallel.sharded_ops import shard_rows
+
+    return shard_batch(shard_rows(tree, mesh, "tp"), mesh, "dp")
+
+
+def tp_leg_solve(mesh, route, solve, kwargs, maxit):
+    """``solve(**kwargs)`` placed by :func:`place_tp`.  Asserts the route
+    taken (the shared-A core called once with the tp group, or the flat
+    machine's trips), every all-reduce over tp (none over dp), the
+    all-reduces a step (the shared-A leg: one at init and one a step) or
+    a trip (``TP_ROUTES``), and tp ranks that end with the same bits.
+    Returns ``(outputs, seconds, all-reduces, steps or trips)``."""
+    from ..parallel.sharded_ops import COLLECTIVES, all_gather
+    from ..utils.host_loop import CHECK_EVERY
+
+    placed = place_tp(kwargs, mesh)
+    device = kwargs["x0"].device
+    tp_group = mesh.get_group("tp")
+    before = COLLECTIVES["all_reduce"]
+    with groups_reduced() as groups, tp_route_seen() as seen:
+        t0 = time.perf_counter()
+        out = solve(**placed)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        wall = time.perf_counter() - t0
+    reduces = COLLECTIVES["all_reduce"] - before
+    assert len(groups) == reduces, (len(groups), reduces)
+    assert all(g is tp_group for g in groups), "an all-reduce not over tp"
+    if route == "multirhs":
+        assert seen["multirhs"] == [tp_group], seen["multirhs"]
+        steps = steps_run(out[1].to_local(), CHECK_EVERY, maxit)
+        assert reduces == 1 + steps, (reduces, steps)
+    else:
+        trips = seen["trips"]
+        assert trips and set(trips) == {TP_ROUTES[route]}, (route, trips)
+        steps = len(trips)
+    x = out[0].to_local()
+    both = all_gather(x[None], tp_group)
+    assert all(torch.equal(both[0], xr) for xr in both[1:]), (
+        f"{route}: the ranks of a tp group hold different solutions")
+    return out, wall, reduces, steps
+
+
+def _tp_legs_case(ctx, routes):
+    """``routes`` on ``dp_x_tp_data`` in float32 and float64 on the (dp, tp)
+    mesh: the collectives and tp ranks asserted by :func:`tp_leg_solve`,
+    the bits of :func:`emulated_tp`, every lane done.  Returns the
+    gathered outputs by route and dtype."""
+    from ..parallel.sharded_ops import full_tensor
+
+    mesh = ctx.dp_tp()
+    out = {}
+    for dtype in (np.float32, np.float64):
+        data = dp_x_tp_data(dtype)
+        name = np.dtype(dtype).name
+        for route in routes:
+            solve, kwargs = tp_problem(route, data, ctx.device,
+                                       TP_LEGS_MAXIT, TP_LEGS_TOL)
+            got, _, reduces, steps = tp_leg_solve(mesh, route, solve, kwargs,
+                                                  TP_LEGS_MAXIT)
+            _equal_lanes(f"{route} {name}, the stripes emulated in one "
+                         "process", got, emulated_tp(
+                             route, data, ctx.device, tuple(mesh.shape),
+                             TP_LEGS_MAXIT, TP_LEGS_TOL))
+            z, k, done = (full_tensor(v) for v in got)
+            assert bool(done.all()), f"{route} {name}: lanes left"
+            out.update({f"{key}_{route}_{name}": v for key, v in
+                        _lasso_outputs(z, k, done).items()})
+            out[f"reduces_{route}_{name}"] = np.asarray([reduces, steps])
+    return out
+
+
+@case
+def multirhs_tp(ctx):
+    """The shared-A leg over tp: ``BatchedAlgorithm`` on a
+    ``Shared(LeastSquaresLoss)`` in row stripes takes
+    ``solve_lasso_multirhs``'s core (one all-reduce a step), and
+    ``solve_lasso_multirhs`` on DTensors (A ``Shard(0)`` over tp, Bmat's
+    lanes over dp with its columns replicated or ``Shard(1)`` over tp)
+    gives the same bits."""
+    from ..kernels.lasso import solve_lasso_multirhs
+    from ..parallel import shard_batch
+    from ..parallel.sharded_ops import _place, full_tensor
+
+    out = _tp_legs_case(ctx, ("multirhs",))
+    mesh = ctx.dp_tp()
+    for dtype in (np.float32, np.float64):
+        A, b, lam, Lf = (ctx.t(v) if isinstance(v, np.ndarray) else v
+                         for v in dp_x_tp_data(dtype))
+        name = np.dtype(dtype).name
+        want = [ctx.t(out[f"{key}_multirhs_{name}"])
+                for key in ("z", "it", "done")]
+        Bmat = b.expand(len(lam), -1).contiguous()
+        for cols in (None, "tp"):
+            got = solve_lasso_multirhs(
+                _place(A, mesh, ("tp", None)),
+                _place(Bmat, mesh, ("dp", cols)), shard_batch(lam, mesh, "dp"),
+                torch.tensor(Lf, dtype=torch.float64, device=ctx.device),
+                TP_LEGS_TOL, maxit=TP_LEGS_MAXIT)
+            _equal_lanes(f"solve_lasso_multirhs on DTensors, Bmat columns "
+                         f"over {cols} ({name})",
+                         [full_tensor(v) for v in got], want)
+    return out
+
+
+@case
+def flat_tp(ctx):
+    """The flat machines over tp through ``BatchedAlgorithm``: PANOC,
+    ZeroFPR and PANOCplus on ``Shared(SqrDistance(b))`` beside
+    ``Shared(MatrixOperator(A))``, both in row stripes (b gathered whole
+    once), two all-reduces a trip; adaptive FB and FISTA on a
+    ``Shared(LeastSquaresLoss)`` in row stripes, one a trip."""
+    return _tp_legs_case(ctx, ("panoc", "zerofpr", "panocplus",
+                               "adaptive_fb", "adaptive_fista"))
+
+
+@case
+def tp_legs(ctx):
+    """Routes (aa) and (ab): ``TP_CARD_ROUTES`` at full width
+    (:func:`tp_card_data`) on the (dp, tp) mesh,
+    each after a warm-up of a few steps: a rank's wall, the wall from
+    barrier to barrier, the all-reduces and the steps or trips, and the
+    time of one all-reduce over tp at each size the routes reduce."""
+    import torch.distributed as dist
+
+    from ..parallel.sharded_ops import all_reduce, full_tensor
+
+    mesh = ctx.dp_tp()
+    tp_group = mesh.get_group("tp")
+    out = {}
+    problems = tp_card_data()
+    for route, data in problems.items():
+        tp_leg_solve(mesh, route, *tp_problem(route, data, ctx.device, 10,
+                                              SHARED_TP_TOL), 10)
+        solve, kwargs = tp_problem(route, data, ctx.device, SHARED_TP_MAXIT,
+                                   SHARED_TP_TOL)
+        dist.barrier()
+        t0 = time.perf_counter()
+        got, wall, reduces, steps = tp_leg_solve(mesh, route, solve, kwargs,
+                                                 SHARED_TP_MAXIT)
+        dist.barrier()
+        both = time.perf_counter() - t0
+        unit = "steps" if route == "multirhs" else "trips"
+        print(f"rank {ctx.rank}: {route} {got[0].to_local().shape[0]} lanes, "
+              f"{wall:.4f} s, {steps} {unit}, {reduces} all-reduces",
+              flush=True)
+        z, k, done = (full_tensor(v) for v in got)
+        out.update({f"{key}_{route}": v for key, v in
+                    _lasso_outputs(z, k, done).items()})
+        out.update({f"walls_{route}": _per_rank(ctx, wall),
+                    f"both_{route}": np.asarray(both),
+                    f"reduces_{route}": _per_rank(ctx, reduces),
+                    f"steps_{route}": _per_rank(ctx, steps)})
+    # one all-reduce over tp at each size the routes reduce: a lane's N
+    # (multirhs, rmatvec), M (matvec's whole rows) and N + 1 (the adaptive
+    # machine's value and gradient) entries
+    M, N = problems["multirhs"][0].shape
+    lanes = SHARED_TP_LANES // mesh.size(0)
+    sizes = (N, M, N + 1)
+    us = []
+    for n in sizes:
+        buf = torch.zeros((lanes, n), dtype=torch.float32, device=ctx.device)
+        all_reduce(buf, tp_group)
+        _sync(ctx)
+        t0 = time.perf_counter()
+        for _ in range(50):
+            all_reduce(buf, tp_group)
+        _sync(ctx)
+        us.append(1e6 * (time.perf_counter() - t0) / 50)
+    out["reduce_sizes"] = np.asarray([[lanes, n] for n in sizes])
+    out["reduce_us"] = np.stack([_per_rank(ctx, u) for u in us])
+    return out
 
 
 @case
@@ -1060,7 +1429,8 @@ def rank_main(args):
 
 
 def _case_names(cases):
-    names = {"cpu": CPU_CASES, "card": CARD_CASES}.get(cases)
+    names = {"cpu": CPU_CASES, "card": CARD_CASES,
+             "tp": TP_CASES}.get(cases)
     names = names or tuple(cases.split(","))
     unknown = [n for n in names if n not in CASES]
     if unknown:
@@ -1131,7 +1501,7 @@ def main(argv=None):
     p.add_argument("--backend", choices=("gloo", "nccl"), required=True)
     p.add_argument("--device", choices=("cpu", "cuda"), required=True)
     p.add_argument("--cases", default="cpu",
-                   help="'cpu', 'card' or a comma-separated list")
+                   help="'cpu', 'card', 'tp' or a comma-separated list")
     p.add_argument("--out", required=True)
     p.add_argument("--timeout", type=float, default=240.0)
     p.add_argument("--rank", type=int, help=argparse.SUPPRESS)

@@ -114,20 +114,32 @@ def test_world_one_dp_x_tp_is_the_unplaced_run(mesh, dtype, check_every):
     assert reduces == 1 + w.steps_run(plain[1], check_every, MAXIT)
 
 
-def test_batched_algorithm_takes_the_dp_x_tp_kwargs(mesh):
+@pytest.mark.parametrize("use_kernels", [False, "auto"])
+def test_batched_algorithm_takes_the_dp_x_tp_kwargs(mesh, use_kernels):
+    """The generic driver (``use_kernels=False``) at its default K = 8,
+    bit-equal to ``batched_run_loop``; by default the shared-A leg
+    (``solve_lasso_multirhs`` on the stripe: one all-reduce at init and
+    one a step, the host's test every 16), bit-equal to its unplaced
+    run."""
+    from proxtpu_torch.utils.host_loop import CHECK_EVERY
+
     A, b, lam, Lf = w.dp_x_tp_data(np.float32)
     it, _ = _placed_iteration(mesh, np.float32)
-    plain = tpar.batched_run_loop(it, MAXIT, TOL)
-    out, reduces = _reduces(lambda: tpar.BatchedAlgorithm(
-        pt.make_fast_forward_backward_iteration, maxit=MAXIT, tol=TOL)(
-        x0=tpar.shard_batch(it.x0, mesh, "dp"),
-        f=shard_rows(tpar.Shared(LeastSquaresLoss(torch.tensor(A),
-                                                  torch.tensor(b))),
-                     mesh, "tp"),
-        g=NormL1(tpar.shard_batch(torch.tensor(lam), mesh, "dp")), Lf=Lf))
+    solver = tpar.BatchedAlgorithm(pt.make_fast_forward_backward_iteration,
+                                   maxit=MAXIT, tol=TOL,
+                                   use_kernels=use_kernels)
+    f = tpar.Shared(LeastSquaresLoss(torch.tensor(A), torch.tensor(b)))
+    lam = torch.tensor(lam)
+    plain = solver(x0=it.x0, f=f, g=NormL1(lam), Lf=Lf)
+    if not use_kernels:
+        assert all(torch.equal(o, p) for o, p in zip(
+            plain, tpar.batched_run_loop(it, MAXIT, TOL)))
+    out, reduces = _reduces(lambda: solver(
+        x0=tpar.shard_batch(it.x0, mesh, "dp"), f=shard_rows(f, mesh, "tp"),
+        g=NormL1(tpar.shard_batch(lam, mesh, "dp")), Lf=Lf))
     assert all(torch.equal(full_tensor(o), p) for o, p in zip(out, plain))
-    # the generic driver at its default K = 8: no matcher took the stripes
-    assert reduces == 1 + w.steps_run(plain[1], 8, MAXIT)
+    assert reduces == 1 + w.steps_run(
+        plain[1], CHECK_EVERY if use_kernels else 8, MAXIT)
 
 
 def test_world_one_dp_x_tp_matches_jax_float64(mesh):
@@ -191,15 +203,16 @@ def test_row_sharded_forms(mesh):
 
 def test_row_sharded_operator_under_the_generic_driver(mesh):
     """PANOC with ``A = Shared(MatrixOperator)`` in row stripes and a
-    per-lane ``SqrDistance``: the flat matcher declines, the generic
-    driver's masked search runs, bit-equal to the unplaced generic run."""
+    per-lane ``SqrDistance`` on the generic driver (``use_kernels=False``;
+    by default the flat machine takes it, tests/test_torch_tp_legs.py):
+    the masked search runs, bit-equal to the unplaced generic run."""
     A, b, lam, Lf = w.flat_data()
     A1 = torch.tensor(A[0])
     kw = dict(x0=torch.zeros((4, A.shape[2]), dtype=torch.float64),
               f=SqrDistance(torch.tensor(b[:4])),
               g=NormL1(torch.tensor(lam[:4])), Lf=float(Lf[0]))
     solver = tpar.BatchedAlgorithm(pt.make_panoc_iteration, maxit=400,
-                                   tol=1e-6)
+                                   tol=1e-6, use_kernels=False)
     plain = tpar.BatchedAlgorithm(pt.make_panoc_iteration, maxit=400,
                                   tol=1e-6, use_kernels=False)(
         A=tpar.Shared(MatrixOperator(A1)), **kw)
@@ -246,35 +259,73 @@ def test_refused_layouts_name_class_and_placements(mesh):
 
 
 def test_kernel_and_flat_routes_refuse_the_stripes(mesh):
-    """Only the generic driver runs the collective in its step: the flat
-    machines refuse the stripes, and every matcher declines them."""
+    """The routes that still refuse row stripes, each beside the same
+    problem unplaced, which it takes: the stacked-A and box-QP legs of
+    ``match_kernel_solver``, ``match_tv_solver``, DRLS (its matcher and
+    ``batched_drls``).  The shared-A leg and the flat matchers now take
+    the stripes (their runs: tests/test_torch_tp_legs.py)."""
     from proxtpu_torch.kernels import dispatch
+    from proxtpu_torch.ops.linops import Grad2DOperator
+    from proxtpu_torch.prox import IndBox, NormL21, Quadratic
 
     A, b, lam, Lf = w.dp_x_tp_data(np.float32)
     A, b = torch.tensor(A), torch.tensor(b)
+    lam4 = NormL1(torch.tensor(lam[:4]))
+    x0 = torch.zeros((4, A.shape[1]))
     f_rows = shard_rows(tpar.Shared(LeastSquaresLoss(A, b)), mesh, "tp")
     op_rows = shard_rows(tpar.Shared(MatrixOperator(A)), mesh, "tp")
-    x0 = torch.zeros((4, A.shape[1]))
-    with pytest.raises(ValueError, match="runs only on the generic"):
-        tpar.batched_panoc(tpar.Shared(SqrDistance(b)), op_rows,
-                           NormL1(torch.full((4,), 0.1)), x0,
-                           torch.full((4,), 0.5), TOL, maxit=10)
-    kw, _ = localize(dict(x0=x0, f=f_rows, g=NormL1(torch.tensor(lam[:4])),
-                          Lf=Lf), stripes=True)
-    assert dispatch.match_kernel_solver(
-        pt.make_fast_forward_backward_iteration, kw, tol=TOL,
-        maxit=10) is None
-    for match in (dispatch.match_flat_adaptive,
-                  dispatch.match_flat_linesearch):
-        assert match(pt.make_fast_forward_backward_iteration,
-                     {**kw, "Lf": None}, tol=TOL, maxit=10) is None
-    kw_op, _ = localize(dict(x0=x0, f=tpar.Shared(SqrDistance(b)), A=op_rows,
-                             g=NormL1(torch.tensor(lam[:4])), Lf=Lf),
-                        stripes=True)
-    assert dispatch.match_flat_linesearch(
-        pt.make_panoc_iteration, kw_op, tol=TOL, maxit=10) is None
-    assert dispatch.match_tv_solver(
-        pt.make_chambolle_pock_iteration, kw_op, tol=TOL, maxit=10) is None
+    stripes = localize(op_rows, stripes=True)[0]
+    ffb = pt.make_fast_forward_backward_iteration
+
+    def both(match, factory, kw, **opts):
+        """(unplaced match, match beside an operand in row stripes)"""
+        return (match(factory, kw, tol=TOL, maxit=10, **opts),
+                match(factory, {**kw, "stripes": stripes}, tol=TOL,
+                      maxit=10, **opts))
+
+    # now taken: the shared-A leg and the flat machines
+    kw, _ = localize(dict(x0=x0, f=f_rows, g=lam4, Lf=Lf), stripes=True)
+    assert dispatch.match_kernel_solver(ffb, kw, tol=TOL, maxit=10)
+    assert dispatch.match_flat_adaptive(ffb, {**kw, "Lf": None}, tol=TOL,
+                                        maxit=10)
+    kw_op, _ = localize(dict(x0=x0, f=tpar.Shared(SqrDistance(b)),
+                             A=op_rows, g=lam4, Lf=Lf), stripes=True)
+    for factory in (pt.make_panoc_iteration, pt.make_zerofpr_iteration,
+                    pt.make_panocplus_iteration):
+        assert dispatch.match_flat_linesearch(factory, kw_op, tol=TOL,
+                                              maxit=10)
+    # the stacked-A lasso leg
+    As = A.expand(4, *A.shape).contiguous()
+    kw_st = dict(x0=x0, f=LeastSquaresLoss(As, b.expand(4, -1)), g=lam4,
+                 Lf=torch.full((4,), Lf))
+    plain, placed = both(dispatch.match_kernel_solver, ffb, kw_st)
+    assert plain is not None and placed is None
+    # the box-QP leg
+    kw_qp = dict(x0=torch.zeros((4, 8)), f=Quadratic(
+        torch.eye(8).expand(4, 8, 8).contiguous(), torch.ones((4, 8))),
+        g=IndBox(-1.0, 1.0), Lf=1.0)
+    plain, placed = both(dispatch.match_kernel_solver,
+                         pt.make_forward_backward_iteration, kw_qp)
+    assert plain is not None and placed is None
+    # TV
+    kw_tv = dict(x0=torch.zeros((2, 6, 5)), y0=torch.zeros((2, 2, 6, 5)),
+                 g=SqrDistance(torch.ones((2, 6, 5))),
+                 h=NormL21(0.1, axis=0), L=Grad2DOperator((6, 5)))
+    plain, placed = both(dispatch.match_tv_solver,
+                         pt.make_chambolle_pock_iteration, kw_tv)
+    assert plain is not None and placed is None
+    # DRLS: the matcher declines, batched_drls raises
+    kw_dr = dict(x0=x0, f=LeastSquaresLoss(As, b.expand(4, -1)), g=lam4,
+                 Lf=torch.full((4,), Lf))
+    plain, placed = both(dispatch.match_flat_linesearch,
+                         pt.make_drls_iteration, kw_dr)
+    assert plain is not None and placed is None
+    kw_dr, _ = localize(dict(x0=x0, f=f_rows, g=lam4, Lf=Lf), stripes=True)
+    assert dispatch.match_flat_linesearch(pt.make_drls_iteration, kw_dr,
+                                          tol=TOL, maxit=10) is None
+    with pytest.raises(ValueError, match="replicate the Shared operand"):
+        tpar.batched_drls(f_rows, lam4, x0, torch.full((4,), 0.5),
+                          torch.ones(4), torch.ones(4), TOL, maxit=10)
 
 
 def main():

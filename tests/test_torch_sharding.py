@@ -297,7 +297,7 @@ def test_entry_step_matches_jax():
     from proxtpu_torch.tools import graft_entry
 
     jfn, (jit, js) = jentry.entry()
-    tfn, (tit, ts) = graft_entry.entry()
+    tfn, (tit, ts) = graft_entry.entry("cpu")
     sj, st = jfn(jit, js), tfn(tit, ts)
     for name in ("x", "z", "res"):
         np.testing.assert_allclose(getattr(st, name).numpy(),
