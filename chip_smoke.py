@@ -164,10 +164,7 @@ Phases, in order; any failure raises and exits non-zero:
         ``dryrun_multichip``'s sizes against their unsharded runs;
         ``dryrun_multichip(1)``; route (y)'s problem unplaced (timed) and at
         a (1, 1) ``("dp", "tp")`` mesh, where the vmap-aware all-reduce runs
-        on NCCL: bit-equal, one all-reduce at init and one a step; routes
-        (aa) and (ab) unplaced (timed, phase 15's reference) and at the
-        (1, 1) mesh on NCCL: bit-equal, the route taken and its
-        all-reduces a step or trip;
+        on NCCL: bit-equal, one all-reduce at init and one a step;
     (x) ``python -m proxtpu_torch.tools.spmd_worker --cases card``: two Gloo
         ranks sharing the card, 128 flagship lanes each, gathered and held
         against (w) lane for lane (bit for bit where ``step_plan`` at B =
@@ -185,10 +182,14 @@ Phases, in order; any failure raises and exits non-zero:
     float64 recheck <= 1.2 tol; each rank's wall, the four-rank wall, the
     one-rank wall, the lanes apart in count, µs a Gloo all-reduce; the
     phase fails past its 120 s budget;
-15. drive the tp layout on the shared-A solver and the flat machines
-    (phase "tp legs"): ``python -m proxtpu_torch.tools.spmd_worker --ranks
-    4 --cases tp_legs``, four Gloo ranks sharing the card as a (2, 2)
-    mesh, each route after a warm-up of a few steps:
+15. drive the tp layout on the shared-A solver, the flat machines and
+    DRLS: phase "tp legs at (1, 1)", each route unplaced (timed, the
+    reference) and at a (1, 1) ``("dp", "tp")`` mesh on a one-rank NCCL
+    group (bit-equal, the route taken and its all-reduces a step or trip;
+    it fails past its 60 s budget); then phase "tp legs", ``python -m
+    proxtpu_torch.tools.spmd_worker --ranks 4 --cases tp_legs``, four Gloo
+    ranks sharing the card as a (2, 2) mesh, each route after a warm-up of
+    a few steps:
     (aa) route (y)'s problem through ``BatchedAlgorithm(
          make_fast_forward_backward_iteration)`` with ``Shared(
          LeastSquaresLoss)`` in row stripes: ``solve_lasso_multirhs``'s
@@ -199,9 +200,15 @@ Phases, in order; any failure raises and exits non-zero:
          FastForwardBackward with no step (the adaptive FISTA machine, two
          a trip), and route (n)'s ``flat_zerofpr_shared`` on the
          families' logistic data with A in row stripes;
+    (ac) the same problem through ``BatchedAlgorithm(make_drls_iteration)``
+         with ``Shared(make_least_squares(A, b))`` in row stripes
+         (``RowShardedLeastSquares``: the wide A's factors from the
+         stripes gathered once; DRLS's flat machine, three all-reduces a
+         trip: Woodbury's two sums and the prox's value);
     each: none over dp, tp ranks bit-equal, every lane done, bit-equal to
-    the stripes emulated in this process, within 1e-3 of (w)'s unplaced
-    run and every lane's float64 recheck <= 1.2 tol (the logistic route:
+    the stripes emulated in this process, within 1e-3 of its unplaced
+    run and every lane's float64 recheck <= 1.2 tol (DRLS: the
+    Douglas-Rachford residual at its gamma 0.95 / Lf; the logistic route:
     both runs under the families' gate, the distance printed), the lanes
     apart in count printed; each rank's
     wall, the four-rank wall, the steps or trips, the all-reduces a rank,
@@ -3304,43 +3311,59 @@ def dp_tp_one_rank(card):
     return ref, wall
 
 
-def tp_legs_one_rank(card):
-    """Routes (aa) and (ab) unplaced on the card (a warm-up of a few steps,
-    then one timed solve each): phase "tp legs"'s reference.  Then each at
-    a (1, 1) mesh on the one-rank NCCL group: bit-equal to the unplaced
-    run, the route taken and its all-reduces a step or trip
-    (``spmd_worker.tp_leg_solve``).  Returns ``{route: (numpy problem,
-    outputs, seconds)}``."""
+TP_ONE_RANK_BUDGET_S = 60.0
+# the tp legs' routes by spmd_worker.TP_CARD_ROUTES' name
+TP_LEG_NAMES = {"multirhs": "(aa)", "panoc": "(ab)", "zerofpr": "(ab)",
+                "adaptive_fista": "(ab)", "logistic_zerofpr": "(ab)",
+                "drls": "(ac)"}
+
+
+def phase_tp_one_rank(card):
+    """Routes (aa), (ab) and (ac) unplaced on the card (a warm-up of a few
+    steps, then one timed solve each): phase "tp legs"'s reference.  Then
+    each at a (1, 1) mesh on a one-rank NCCL group: bit-equal to the
+    unplaced run, the route taken and its all-reduces a step or trip
+    (``spmd_worker.tp_leg_solve``).  The phase must end within
+    TP_ONE_RANK_BUDGET_S.  Returns ``{route: (numpy problem, outputs,
+    seconds)}``."""
     from proxtpu_torch.parallel import make_mesh
     from proxtpu_torch.parallel.sharded_ops import full_tensor
     from proxtpu_torch.tools import spmd_worker as w
 
-    mesh = make_mesh((1, 1), ("dp", "tp"))
+    t_phase = time.perf_counter()
     out = {}
-    for route, data in w.tp_card_data().items():
-        warm, kw_warm = w.tp_problem(route, data, DEVICE, 10,
+    with nccl_one_rank():
+        mesh = make_mesh((1, 1), ("dp", "tp"))
+        for route, data in w.tp_card_data().items():
+            name = TP_LEG_NAMES[route]
+            warm, kw_warm = w.tp_problem(route, data, DEVICE, 10,
+                                         w.SHARED_TP_TOL)
+            warm(**kw_warm)
+            solve, kw = w.tp_problem(route, data, DEVICE, w.SHARED_TP_MAXIT,
                                      w.SHARED_TP_TOL)
-        warm(**kw_warm)
-        solve, kw = w.tp_problem(route, data, DEVICE, w.SHARED_TP_MAXIT,
-                                 w.SHARED_TP_TOL)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        ref = solve(**kw)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        got, wall_11, reduces, steps = w.tp_leg_solve(
-            mesh, route, solve, kw, w.SHARED_TP_MAXIT)
-        assert all(torch.equal(full_tensor(o), r) for o, r in zip(got, ref)), (
-            f"(w) tp leg {route} at (1, 1): differs from the unplaced run")
-        assert bool(ref[2].all()), (
-            f"(w) tp leg {route}: {int((~ref[2]).sum())} lanes left")
-        unit = "steps" if route == "multirhs" else "trips"
-        print(f"(w) tp leg {route} at a (1, 1) mesh on NCCL, {len(ref[1])} "
-              f"lanes: bit-equal to the unplaced run; {reduces} all-reduces "
-              f"over tp in {steps} {unit}; iterations mean "
-              f"{ref[1].float().mean():.2f} max {int(ref[1].max())}; placed "
-              f"{wall_11:.4f} s, unplaced {wall:.4f} s  [{card}]")
-        out[route] = (data, ref, wall)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ref = solve(**kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got, wall_11, reduces, steps = w.tp_leg_solve(
+                mesh, route, solve, kw, w.SHARED_TP_MAXIT)
+            assert all(torch.equal(full_tensor(o), r)
+                       for o, r in zip(got, ref)), (
+                f"{name} {route} at (1, 1): differs from the unplaced run")
+            assert bool(ref[2].all()), (
+                f"{name} {route}: {int((~ref[2]).sum())} lanes left")
+            unit = "steps" if route == "multirhs" else "trips"
+            print(f"{name} {route} at a (1, 1) mesh on NCCL, {len(ref[1])} "
+                  f"lanes: bit-equal to the unplaced run; {reduces} "
+                  f"all-reduces over tp in {steps} {unit}; iterations mean "
+                  f"{ref[1].float().mean():.2f} max {int(ref[1].max())}; "
+                  f"placed {wall_11:.4f} s, unplaced {wall:.4f} s  [{card}]")
+            out[route] = (data, ref, wall)
+    dt = time.perf_counter() - t_phase
+    print(f"  tp legs at (1, 1): {dt:.1f} s (budget "
+          f"{TP_ONE_RANK_BUDGET_S:.0f} s)  [{card}]")
+    assert dt <= TP_ONE_RANK_BUDGET_S, (dt, TP_ONE_RANK_BUDGET_S)
     return out
 
 
@@ -3412,33 +3435,39 @@ def sharding_two_ranks(card, packed):
           f"{dt:.1f} s  [{card}]")
 
 
-def phase_sharding(card):
-    """Routes (w) and (x): the sharding layer on the card; the phase must
-    end within SHARDING_BUDGET_S.  Returns the kernel launches of (w),
-    route (y)'s and routes (aa), (ab)'s unplaced references."""
+@contextlib.contextmanager
+def nccl_one_rank():
+    """A one-rank NCCL process group (this process) around the block."""
     import socket
 
     import torch.distributed as dist
 
     from proxtpu_torch.parallel import initialize_distributed
 
-    t_phase = time.perf_counter()
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
         port = sock.getsockname()[1]
     assert initialize_distributed(f"localhost:{port}", 1, 0) == 1
     assert dist.get_backend() == "nccl"
     try:
-        launches, packed, dp_tp = sharding_one_rank(card)
-        tp_legs = tp_legs_one_rank(card)
+        yield
     finally:
         dist.destroy_process_group()
+
+
+def phase_sharding(card):
+    """Routes (w) and (x): the sharding layer on the card; the phase must
+    end within SHARDING_BUDGET_S.  Returns the kernel launches of (w) and
+    route (y)'s unplaced reference."""
+    t_phase = time.perf_counter()
+    with nccl_one_rank():
+        launches, packed, dp_tp = sharding_one_rank(card)
     sharding_two_ranks(card, packed)
     dt = time.perf_counter() - t_phase
     print(f"  sharding: {dt:.1f} s (budget {SHARDING_BUDGET_S:.0f} s)  "
           f"[{card}]")
     assert dt <= SHARDING_BUDGET_S, (dt, SHARDING_BUDGET_S)
-    return launches, dp_tp, tp_legs
+    return launches, dp_tp
 
 
 DP_TP_BUDGET_S = 120.0
@@ -3537,16 +3566,19 @@ TP_LEGS_DIR = os.path.join("build", "chip_smoke_tp_legs")
 
 
 def phase_tp_legs(card, one_rank, y_walls):
-    """Routes (aa) and (ab): ``python -m proxtpu_torch.tools.spmd_worker
-    --ranks 4 --cases tp_legs``, the tp layout on the shared-A solver and
-    the flat machines at route (y)'s width on a (2, 2) mesh of Gloo ranks
-    sharing the card (the worker asserts the route taken, the all-reduces
-    a step or trip, none over dp, tp ranks bit-equal).  Held here: every
-    lane done; the bits of the stripes emulated in this process
-    (``spmd_worker.emulated_tp``); against the unplaced run on one rank
-    (``one_rank``, from phase "sharding"), solutions within 1e-3 and every
-    lane's float64 recheck <= 1.2 tol at the route's step (1 / Lf; the line
-    searches' 0.95 / Lf).  The logistic route is held, both runs, to the
+    """Routes (aa), (ab) and (ac): ``python -m proxtpu_torch.tools.
+    spmd_worker --ranks 4 --cases tp_legs``, the tp layout on the shared-A
+    solver, the flat machines and DRLS on the least squares' prox at route
+    (y)'s width on a (2, 2) mesh of Gloo ranks sharing the card (the
+    worker asserts the route taken, the all-reduces a step or trip, none
+    over dp, tp ranks bit-equal).  Held here: every lane done; the bits of
+    the stripes emulated in this process (``spmd_worker.emulated_tp``);
+    against the unplaced run on one rank (``one_rank``, from phase "tp
+    legs at (1, 1)"), solutions within 1e-3 and every lane's float64 recheck <= 1.2 tol at
+    the route's step (1 / Lf; the line searches' and DRLS's 0.95 / Lf: at a
+    step gamma the recheck of z is the Douglas-Rachford residual ``||u -
+    v|| / gamma`` at the point ``x = z + gamma grad f(z)``, whose ``u =
+    prox_f(x)`` is z).  The logistic route is held, both runs, to the
     families' float64 gate, and its distance from the unplaced run is
     printed: two certified float32 answers of that problem sit a few 1e-3
     apart (on the CPU the unplaced run is 2.5e-3 from the float64 optimum,
@@ -3572,7 +3604,7 @@ def phase_tp_legs(card, one_rank, y_walls):
     shutil.rmtree(TP_LEGS_DIR, ignore_errors=True)
     for route, (data, (z1, it1, _), wall1) in one_rank.items():
         z, it, done = (out[f"{k}_{route}"] for k in ("z", "it", "done"))
-        name = "(aa)" if route == "multirhs" else "(ab)"
+        name = TP_LEG_NAMES[route]
         assert done.all(), f"{name} {route}: {int((~done).sum())} lanes left"
         emulated = [v.cpu().numpy() for v in w.emulated_tp(
             route, data, DEVICE, (DP_TP_RANKS // 2, 2), w.SHARED_TP_MAXIT,
@@ -3589,7 +3621,7 @@ def phase_tp_legs(card, one_rank, y_walls):
             limit = 2 * fam.LOG_TOL
         else:
             A, b, lams, Lf = data
-            step = 0.95 if route in ("panoc", "zerofpr") else 1.0
+            step = 0.95 if route in ("panoc", "zerofpr", "drls") else 1.0
             worst = float(shared_residuals64(A, b, lams, Lf / step, z).max())
             limit = 1.2 * w.SHARED_TP_TOL
             assert dz <= 1e-3, (route, dz)
@@ -3806,13 +3838,14 @@ def main():
     print("batched Li-Lin, route (z):")
     phase("batched Li-Lin", phase_li_lin, card)
     print("the sharding layer, routes (w) and (x):")
-    sharded, dp_tp, tp_legs = phase("sharding", phase_sharding, card)
+    sharded, dp_tp = phase("sharding", phase_sharding, card)
     for k, n in sharded.items():
         launches[k] = launches.get(k, 0) + n
     print("the dp x tp composition, route (y):")
     y_walls = phase("dp x tp", phase_dp_tp, card, dp_tp)
-    print("the tp layout on the shared-A solver and the flat machines, "
-          "routes (aa), (ab):")
+    print("the tp layout on the shared-A solver, the flat machines and "
+          "DRLS, routes (aa), (ab), (ac):")
+    tp_legs = phase("tp legs at (1, 1)", phase_tp_one_rank, card)
     phase("tp legs", phase_tp_legs, card, tp_legs, y_walls)
     phase("entry", check_entry, card)
     launches["read_reduce"] = floor_launches

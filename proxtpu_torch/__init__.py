@@ -65,6 +65,8 @@ from .utils.fb_tools import (
 )
 from .utils.shared import Shared
 
+__version__ = "0.5.0"
+
 __all__ = [
     "accel", "algorithms", "convert", "kernels", "ops", "parallel", "prox",
     "utils", "LBFGS", "AdaptiveNesterovSequence", "AdaptiveRestartSequence",

@@ -21,6 +21,19 @@ def rscalar(v, R, device):
     return torch.as_tensor(v, dtype=R, device=device)
 
 
+def resolve_gamma(gamma, Lf, scale=1.0):
+    """``gamma = scale / Lf`` when only ``Lf`` is given (a Python or numpy
+    ``Lf`` in float64, as the JAX package's under x64); ``None`` when
+    neither is."""
+    if gamma is not None:
+        return gamma
+    if Lf is not None:
+        Lf = Lf if isinstance(Lf, torch.Tensor) else torch.as_tensor(
+            Lf, dtype=torch.float64)
+        return torch.as_tensor(scale, dtype=Lf.dtype, device=Lf.device) / Lf
+    return None
+
+
 def real_dtype(x0):
     return real_dtype_of(x0)
 

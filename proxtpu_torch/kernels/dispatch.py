@@ -30,9 +30,10 @@ A problem that holds an operand in row stripes over a tp mesh axis (the dp
 x tp composition, after ``lane_parallel(stripes=True)`` has localized it)
 takes the shared-A leg (one all-reduce over tp a step), the flat PANOC,
 ZeroFPR, PANOCplus and adaptive FB / FISTA machines (their operator's and
-gradient's sums over tp inside each oracle round) or the generic driver.
-The stacked-A lasso and box-QP legs, the TV matcher and the flat DRLS leg
-decline it.
+gradient's sums over tp inside each oracle round), the flat DRLS leg (a
+least squares f in row stripes: its prox sums over tp) or the generic
+driver.  The stacked-A lasso and box-QP legs and the TV matcher decline
+it.
 """
 
 from __future__ import annotations
@@ -548,7 +549,8 @@ def match_flat_linesearch(factory, kwargs, *, tol, maxit, stop=None,
     elsewhere, as the JAX package; the counts do not depend on it.  A
     ``Shared`` operator in row stripes over tp
     (``RowShardedMatrixOperator``: whole rows out of ``matvec``) costs two
-    all-reduces over tp an oracle round; DRLS declines the stripes."""
+    all-reduces over tp an oracle round; DRLS takes only a least squares
+    f in row stripes (see :func:`_match_flat_drls`)."""
     if stop is not None or solution is not None:
         return None
     name = getattr(factory, "__name__", "")
@@ -653,10 +655,21 @@ def match_flat_linesearch(factory, kwargs, *, tol, maxit, stop=None,
 def _match_flat_drls(kwargs, *, tol, maxit, check_every=1):
     """The DRLS leg of :func:`match_flat_linesearch` (no operator; f has a
     prox; gamma and c per lane by the factory's own helpers,
-    ``drls.jl:11-22``); row stripes decline: DRLS needs ``prox_f`` of
-    the whole problem."""
+    ``drls.jl:11-22``).  Of the operands in row stripes it takes only a
+    ``Shared`` f that is a least squares with its prox
+    (``RowShardedLeastSquares``: its prox sums over tp, three all-reduces
+    where A is wide, one where it is tall); any other stripes decline,
+    since DRLS needs ``prox_f``."""
+    from ..parallel.sharded_ops import RowShardedLeastSquares
+    from ..utils.shared import Shared
+
     x0, f, g = kwargs.get("x0"), kwargs.get("f"), kwargs.get("g")
-    if x0 is None or f is None or g is None or holds_row_stripes(kwargs):
+    if x0 is None or f is None or g is None:
+        return None
+    if holds_row_stripes({k: v for k, v in kwargs.items() if k != "f"}) or (
+            holds_row_stripes(f) and not (
+                isinstance(f, Shared)
+                and isinstance(f.value, RowShardedLeastSquares))):
         return None
     x0 = torch.as_tensor(x0)
     if x0.dim() != 2:

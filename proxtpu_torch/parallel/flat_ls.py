@@ -42,8 +42,9 @@ zero-padded (B, m) products) and ends ``rmatvec`` in one (B, n)
 all-reduce, so an oracle round costs two collectives and f, its gradient
 and the y-space dot products stay local.  Every rank of a tp group holds
 the same bits after each collective, so the host's test ends every rank's
-loop at the same trip.  DRLS takes no stripes: it needs ``prox_f`` of the
-whole least squares.
+loop at the same trip.  DRLS takes a least squares in row stripes
+(``RowShardedLeastSquares``), whose prox sums over tp: three all-reduces
+a trip where A is wide, one where it is tall.
 """
 
 from __future__ import annotations
@@ -1098,7 +1099,7 @@ def _rvec(v, R, B, device):
     return torch.as_tensor(v, dtype=R, device=device).expand(B)
 
 
-@lane_parallel
+@lane_parallel(stripes=True)
 def batched_drls(f, g, x0, gamma, lam, c, tol, maxit=1000,
                  max_backtracks=20, directions=None, dre_sign=1,
                  trip_cap=None, check_every=1):

@@ -27,17 +27,18 @@ as they are.
   own lanes are done.
 * The dp x tp composition (``lane_parallel(stripes=True)``: the generic
   batched driver, ``BatchedAlgorithm`` and the flat PANOC, ZeroFPR,
-  PANOCplus and adaptive FB / FISTA machines): one ``Shared`` operand
-  whose tensors are row stripes over a ``tp`` mesh axis, inside lanes
-  placed over ``dp``.  The operand becomes
-  :class:`RowShardedLeastSquaresLoss` or :class:`RowShardedMatrixOperator`,
-  which hold this rank's stripe and end their products in
-  :func:`sum_over`: one all-reduce over ``tp`` for the whole stacked batch
-  inside the vmapped step.  Another ``Shared`` function in the same
-  stripes as a row-sharded operator beside it (``SqrDistance(b)``) is
-  gathered whole once, before the solve.  The ranks of a ``tp`` group
-  hold the same bits after every collective, so they stop at the same
-  step.  :func:`localize_multirhs` takes
+  PANOCplus, DRLS and adaptive FB / FISTA machines): one ``Shared``
+  operand whose tensors are row stripes over a ``tp`` mesh axis, inside
+  lanes placed over ``dp``.  The operand becomes
+  :class:`RowShardedLeastSquaresLoss`, :class:`RowShardedLeastSquares`
+  (with a prox, from factors made once from the stripes) or
+  :class:`RowShardedMatrixOperator`, which hold this rank's stripe and end
+  their products in :func:`sum_over`: one all-reduce over ``tp`` for the
+  whole stacked batch inside the vmapped step.  Another ``Shared``
+  function in the same stripes as a row-sharded operator beside it
+  (``SqrDistance(b)``) is gathered whole once, before the solve.  The
+  ranks of a ``tp`` group hold the same bits after every collective, so
+  they stop at the same step.  :func:`localize_multirhs` takes
   ``solve_lasso_multirhs``'s placed arrays (A in row stripes; its step
   ends in one :func:`all_reduce` over ``tp``).
 """
@@ -53,10 +54,16 @@ import torch
 import torch.distributed as dist
 
 from ..ops.linops import MatrixOperator
-from ..prox.functions import LeastSquaresLoss, _rparam, _vdot_real
+from ..prox.functions import (
+    LeastSquares,
+    LeastSquaresLoss,
+    _rparam,
+    _vdot_real,
+    make_least_squares,
+)
 from ..utils.precision import pdot
 from ..utils.shared import Shared, map_shared, shared_values
-from ..utils.tree import flatten, tree_map
+from ..utils.tree import flatten, real_dtype_of, tree_map
 from .distributed import world_mesh
 
 # calls of the collective helper by name; a test or a smoke run sets them
@@ -343,9 +350,9 @@ def localize(tree, lanes=True, stripes=False):
                     "marker: one operand split inside data-parallel lanes "
                     "runs only on the entry points that take row stripes "
                     "(batched_run_loop, BatchedAlgorithm, the flat PANOC, "
-                    "ZeroFPR, PANOCplus and adaptive FB / FISTA machines, "
-                    "solve_lasso_multirhs); replicate the Shared operand "
-                    "here")
+                    "ZeroFPR, PANOCplus, DRLS and adaptive FB / FISTA "
+                    "machines, solve_lasso_multirhs); replicate the Shared "
+                    "operand here")
             if any(p.is_shard() and p.dim != 0 or p.is_partial()
                    for p in leaf.placements):
                 raise ValueError(
@@ -478,10 +485,23 @@ def _operator_stripes(tree):
             and _is_dtensor(v.A) and not _is_replicated(v.A)}
 
 
+def _same_stripes(A, b, owner):
+    """``(A_i, b_i, mesh, mesh dim)``: the row stripes of ``A`` and ``b``,
+    which must be split alike (else ``ValueError``, naming ``owner``)."""
+    A_i, mesh, dim = _stripe(A, owner, "A")
+    b_i, mesh_b, dim_b = _stripe(b, owner, "b")
+    if (mesh_b, dim_b) != (mesh, dim) or b_i.shape[0] != A_i.shape[0]:
+        raise ValueError(
+            f"{owner} under a Shared marker: A {tuple(A.placements)}"
+            f" and b {tuple(b.placements)} are split differently;"
+            " the tp layout takes the same row stripes of both")
+    return A_i, b_i, mesh, dim
+
+
 def _row_sharded(value, operator_axes=()):
-    """``Shared(value)`` with a ``LeastSquaresLoss`` or a
-    ``MatrixOperator`` in row stripes as its row-sharded form.  Another
-    class whose sharded tensors are row stripes on the axis of a
+    """``Shared(value)`` with a ``LeastSquares``, a ``LeastSquaresLoss``
+    or a ``MatrixOperator`` in row stripes as its row-sharded form.
+    Another class whose sharded tensors are row stripes on the axis of a
     row-sharded operator in the same call (``operator_axes``, see
     :func:`_operator_stripes`) is gathered whole, one counted
     :func:`all_gather` a tensor: the operator's ``matvec`` gives whole
@@ -492,16 +512,20 @@ def _row_sharded(value, operator_axes=()):
     if not sharded:
         return Shared(value)
     owner = type(value).__name__
-    if isinstance(value, LeastSquaresLoss):
-        A, mesh, dim = _stripe(value.A, owner, "A")
-        b, mesh_b, dim_b = _stripe(value.b, owner, "b")
-        if (mesh_b, dim_b) != (mesh, dim) or b.shape[0] != A.shape[0]:
-            raise ValueError(
-                f"{owner} under a Shared marker: A {tuple(value.A.placements)}"
-                f" and b {tuple(value.b.placements)} are split differently;"
-                " the tp layout takes the same row stripes of both")
-        return Shared(RowShardedLeastSquaresLoss(
-            A, b, _local(value.lam), mesh.get_group(dim)))
+    if isinstance(value, (LeastSquares, LeastSquaresLoss)):
+        A, b, mesh, dim = _same_stripes(value.A, value.b, owner)
+        lam, group = _local(value.lam), mesh.get_group(dim)
+        if isinstance(value, LeastSquaresLoss):
+            return Shared(RowShardedLeastSquaresLoss(A, b, lam, group))
+        if _is_dtensor(value.s) and _is_replicated(value.s):
+            # made by make_least_squares on the stripes: the stripes' own
+            factors = (_local(value.U), _local(value.s), _local(value.Atb),
+                       value.wide)
+        else:
+            # shard_rows cut the whole problem's factors into stripes,
+            # which no rank can use: made again from the stripes of A, b
+            factors = _least_squares_factors(A, b, mesh, dim)
+        return Shared(RowShardedLeastSquares(A, b, lam, group, *factors))
     if isinstance(value, MatrixOperator):
         A, mesh, dim = _stripe(value.A, owner, "A")
         return Shared(RowShardedMatrixOperator(
@@ -512,9 +536,9 @@ def _row_sharded(value, operator_axes=()):
     if None in axes or not axes <= set(operator_axes):
         raise ValueError(
             f"{owner} under a Shared marker holds sharded tensors {sharded};"
-            " the tp layout covers LeastSquaresLoss and MatrixOperator in "
-            "row stripes, and another class only in the row stripes of a "
-            "MatrixOperator beside it (gathered whole)")
+            " the tp layout covers LeastSquares, LeastSquaresLoss and "
+            "MatrixOperator in row stripes, and another class only in the "
+            "row stripes of a MatrixOperator beside it (gathered whole)")
     return Shared(spec.unflatten([
         all_gather(l.to_local(), l.device_mesh.get_group(_stripe_axis(l)[1]))
         if _is_dtensor(l) and not _is_replicated(l) else _local(l)
@@ -524,11 +548,67 @@ def _row_sharded(value, operator_axes=()):
 def holds_row_stripes(tree):
     """Whether ``tree`` holds an operand in row stripes (the dp x tp
     composition after :func:`localize`): the stacked-A and box-QP legs of
-    the kernel matcher, the TV matcher and the flat DRLS leg decline such
-    a problem."""
+    the kernel matcher and the TV matcher decline such a problem, and the
+    flat DRLS leg takes only a row-sharded least squares."""
     return any(isinstance(v, (RowShardedLeastSquaresLoss,
                               RowShardedMatrixOperator))
                for v in shared_values(tree))
+
+
+def _least_squares_factors(A, b, mesh, dim):
+    """``(U, s, Atb, wide)`` of :func:`~proxtpu_torch.prox.functions.
+    make_least_squares` on the whole problem whose row stripes ``A``,
+    ``b`` the ranks of mesh dim ``dim`` hold, each rank's ``U`` as
+    :class:`RowShardedLeastSquares` keeps it.  Tall A (M >= N): the Gram
+    matrix ``A^H A`` (in double precision) and ``A^H b`` summed in one
+    counted :func:`all_reduce`, then ``eigh`` on every rank (the same
+    bits everywhere).  Wide A: ``A A^H`` needs every stripe, so the
+    stripes are gathered once (one counted :func:`all_gather`; equal
+    heights) and factored as ``make_least_squares`` factors the whole,
+    and a rank keeps its stripe's rows of ``U``."""
+    group, parts = mesh.get_group(dim), mesh.size(dim)
+    m, n = A.shape
+    if m * parts < n:
+        both = all_gather(torch.cat([A, b.unsqueeze(1).to(A.dtype)], 1),
+                          group)
+        whole = make_least_squares(both[:, :n].contiguous(),
+                                   both[:, n].to(b.dtype).contiguous())
+        return (whole.U.narrow(0, mesh.get_local_rank(dim) * m, m), whole.s,
+                whole.Atb, True)
+    Ad = A.to(torch.complex128 if A.is_complex() else torch.float64)
+    Atb = pdot(A.mH, b)
+    total = all_reduce(torch.cat([pdot(Ad.mH, Ad).reshape(-1),
+                                  Atb.to(Ad.dtype)]), group)
+    s, U = torch.linalg.eigh(total[:n * n].reshape(n, n))
+    return (U.to(A.dtype), s.to(real_dtype_of(A)),
+            total[n * n:].to(Atb.dtype), False)
+
+
+def least_squares_on_stripes(A, b, lam=1.0):
+    """:func:`~proxtpu_torch.prox.functions.make_least_squares` on DTensors
+    ``A``, ``b`` in the same row stripes over one mesh axis (the JAX
+    package's spelling of the tp layout): the factors are made from the
+    stripes by :func:`_least_squares_factors` (nothing gathers A into
+    ``eigh``) and placed as each rank holds them: ``U`` in A's stripes
+    where A is wide, else whole, ``s`` and ``Atb`` whole.  Under a
+    ``Shared`` marker it runs as :class:`RowShardedLeastSquares` with
+    these factors: the bits of ``shard_rows(Shared(make_least_squares(A,
+    b)), mesh, axis)``."""
+    A_i, b_i, mesh, dim = _same_stripes(A, b, "LeastSquares")
+    rows = mesh.size(dim) * A_i.shape[0]
+    if rows != A.shape[0]:
+        raise ValueError(
+            f"LeastSquares on row stripes: A's {A.shape[0]} rows are not "
+            f"split evenly over {mesh.size(dim)} ranks")
+    U, s, Atb, wide = _least_squares_factors(A_i, b_i, mesh, dim)
+    dt = _dtensor()
+    whole = [dt.Replicate()] * mesh.ndim
+
+    def place(t, placements):
+        return dt.DTensor.from_local(t, mesh, placements, run_check=False)
+
+    return LeastSquares(A, b, lam, place(U, A.placements if wide else whole),
+                        place(s, whole), place(Atb, whole), wide)
 
 
 @dataclass(frozen=True)
@@ -561,6 +641,39 @@ class RowShardedLeastSquaresLoss:
         lam = _rparam(self.lam, x)
         return (lam / 2 * torch.real(total[-1]),
                 lam * total[:-1].reshape(grad.shape))
+
+
+@dataclass(frozen=True)
+class RowShardedLeastSquares(RowShardedLeastSquaresLoss):
+    """``f(x) = lam/2 ||A x - b||^2`` with its prox (the tp form of
+    :class:`~proxtpu_torch.prox.functions.LeastSquares`), from this rank's
+    row stripe ``A_i``, ``b_i`` and the factors of
+    :func:`_least_squares_factors`: ``U`` the eigenvectors of the smaller
+    Gram matrix (whole where A is tall, this stripe's rows where it is
+    wide), ``s`` its eigenvalues and ``A^H b``, both whole.  The value and
+    the gradient are :class:`RowShardedLeastSquaresLoss`'s.  A prox costs
+    one :func:`sum_over` for its value where A is tall (the solve is local)
+    and three where A is wide: Woodbury's ``U^H A v`` (M entries a lane),
+    ``A^H U w`` (N) and the value."""
+
+    U: object
+    s: object
+    Atb: object
+    wide: bool
+
+    def prox(self, x, gamma):
+        c = _rparam(self.lam, x) * gamma
+        rhs = x + c * self.Atb
+        if self.wide:
+            # (I + c A^H A)^{-1} v = v - c A^H (I + c A A^H)^{-1} A v
+            w = pdot(self.A, rhs)
+            w = pdot(self.U, (sum_over(pdot(self.U.mH, w), self.group)
+                              / (1 + c * self.s)).to(w.dtype))
+            z = rhs - c * sum_over(pdot(self.A.mH, w), self.group)
+        else:
+            z = pdot(self.U, (pdot(self.U.mH, rhs) / (1 + c * self.s))
+                     .to(rhs.dtype))
+        return z, self(z)
 
 
 @dataclass(frozen=True)

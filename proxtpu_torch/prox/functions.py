@@ -287,7 +287,16 @@ def make_least_squares(A, b, lam=1.0):
     kept in A's dtype: the prox is only as exact as the eigen-pairs.  With
     single-precision factors, DRLS's float32 answer on ``lasso_medium``
     rechecked at 5.6e-3 on an H100, against the JAX package's 2.8e-4 on
-    the CPU."""
+    the CPU.
+
+    On DTensors in row stripes over one mesh axis (the JAX package's
+    spelling of the tp layout) the factors are made from the stripes
+    (:func:`~proxtpu_torch.parallel.sharded_ops.least_squares_on_stripes`).
+    """
+    from ..parallel import sharded_ops
+
+    if sharded_ops._is_dtensor(A) or sharded_ops._is_dtensor(b):
+        return sharded_ops.least_squares_on_stripes(A, b, lam)
     A = torch.as_tensor(A)
     b = torch.as_tensor(b)
     m, n = A.shape

@@ -28,11 +28,11 @@ package the same inputs.
 with a block a rank, each against its run on one rank.  ``--cases
 shared_tp`` (four ranks) runs ``benchmarks/scaling.py --path shared_tp``
 at full width and times it.  ``--cases tp`` (four ranks) runs the tp
-layout on the shared-A solver and the flat machines on the JAX dp x tp
-test's problem (``multirhs_tp``, ``flat_tp``: the design's all-reduces a
-step or trip, tp ranks bit-equal, the bits of the stripes emulated in one
-process); ``--cases tp_legs`` runs them at ``shared_tp``'s width and
-times them.
+layout on the shared-A solver, the flat machines, DRLS and Douglas-Rachford
+on the JAX dp x tp test's problem (``multirhs_tp``, ``flat_tp``,
+``drls_tp``: the design's all-reduces a step or trip, tp ranks bit-equal,
+the bits of the stripes emulated in one process); ``--cases tp_legs`` runs
+them at ``shared_tp``'s width and times them.
 """
 
 from __future__ import annotations
@@ -155,12 +155,13 @@ def multiprocess_batch():
     return lasso_problems(16, 12, 20, seed=11)
 
 
-def dp_x_tp_data(dtype=np.float32):
+def dp_x_tp_data(dtype=np.float32, M=24):
     """``tests/test_sharding.py::test_generic_driver_shared_operand_dp_x_tp
     _sharded``'s problem: one A (24, 32) and b, 16 lanes of lam, seed 11;
-    ``Lf`` a number."""
+    ``Lf`` a number.  ``M=48``: a tall A (48, 32) from the same seed, on
+    which the least squares' prox factors ``A^H A`` (N x N)."""
     rng = np.random.default_rng(11)
-    B, M, N = 16, 24, 32
+    B, N = 16, 32
     A = (rng.standard_normal((M, N)) / np.sqrt(M)).astype(dtype)
     b = rng.standard_normal(M).astype(dtype)
     lam = (0.1 + 0.2 * rng.random(B)).astype(dtype)
@@ -285,7 +286,7 @@ CPU_CASES = ("operator", "panoc", "consensus", "dp_batch", "global_mesh",
              "restart_warm", "tv", "shared_operand", "flat", "packed",
              "errors", "multiprocess", "dp_x_tp", "dryrun")
 # the tp legs on the CPU (tests/test_torch_tp_legs.py runs them alone)
-TP_CASES = ("multirhs_tp", "flat_tp")
+TP_CASES = ("multirhs_tp", "flat_tp", "drls_tp")
 CARD_CASES = ("flagship", "rows_panoc", "blocks_consensus")
 
 
@@ -777,15 +778,31 @@ def shared_tp(ctx):
 # trial point and at its prox point; the adaptive machine sums a
 # gradient's N + 1 entries at its candidate, FISTA's also at the
 # extrapolated point)
+# DRLS (a trip of its flat machine) and Douglas-Rachford (a step of the
+# generic driver) run one prox of a least squares in row stripes
+# (RowShardedLeastSquares): three all-reduces where A is wide (Woodbury's
+# U^H A v and A^H U w, and the value), one where it is tall (the value;
+# the routes "*_tall", on dp_x_tp_data(M=48))
 TP_ROUTES = {"multirhs": 1, "panoc": 2, "zerofpr": 2, "panocplus": 4,
-             "adaptive_fb": 1, "adaptive_fista": 2, "logistic_zerofpr": 2}
+             "adaptive_fb": 1, "adaptive_fista": 2, "logistic_zerofpr": 2,
+             "drls": 3, "douglas_rachford": 3, "drls_tall": 1,
+             "douglas_rachford_tall": 1}
 # the CPU cases on dp_x_tp_data; the card's routes (aa) (the shared-A leg)
 # and (ab) (the flat machines) at benchmarks/scaling.py --path shared_tp's
 # width, with route (n)'s flat_zerofpr_shared on tools/families.py's
 # logistic data
 TP_LEGS_TOL, TP_LEGS_MAXIT = 1e-5, 3000
+# Douglas-Rachford's gamma times Lf: about 80 iterations on the wide
+# problem, where DRLS's own 0.95 / Lf takes about 900
+DR_GAMMA_LF = 10.0
 TP_CARD_ROUTES = ("multirhs", "panoc", "zerofpr", "adaptive_fista",
-                  "logistic_zerofpr")
+                  "logistic_zerofpr", "drls")
+
+
+def tp_data(route, dtype):
+    """The CPU problem of a tp-legs route: ``dp_x_tp_data``, tall for the
+    routes "*_tall"."""
+    return dp_x_tp_data(dtype, M=48 if route.endswith("_tall") else 24)
 
 
 @dataclass(frozen=True)
@@ -816,6 +833,69 @@ class EmulatedRowOperator:
         return lanes_last(total)
 
 
+@dataclass(frozen=True)
+class EmulatedLeastSquares(EmulatedStripes):
+    """``RowShardedLeastSquares`` over a tp group of ``parts`` ranks, in one
+    process (see :func:`emulated_least_squares` for the factors): the
+    prox's sums over the stripes in rank order, laid out as the collective
+    returns them; the value and gradient of :class:`EmulatedStripes`."""
+
+    U: object
+    s: object
+    Atb: object
+    wide: bool
+
+    def prox(self, x, gamma):
+        from ..parallel.sharded_ops import lanes_last
+        from ..prox.functions import _rparam
+        from ..utils.precision import pdot
+
+        c = _rparam(1.0, x) * gamma
+        rhs = x + c * self.Atb
+        if not self.wide:
+            z = pdot(self.U, (pdot(self.U.mH, rhs) / (1 + c * self.s))
+                     .to(rhs.dtype))
+            return z, self(z)
+        stripes = list(zip(self.A.chunk(self.parts),
+                           self.U.chunk(self.parts)))
+        total = None
+        for A, U in stripes:
+            w = pdot(A, rhs)
+            part = pdot(U.mH, w)
+            total = part if total is None else total + part
+        w = (lanes_last(total) / (1 + c * self.s)).to(w.dtype)
+        total = None
+        for A, U in stripes:
+            part = pdot(A.mH, pdot(U, w))
+            total = part if total is None else total + part
+        z = rhs - c * lanes_last(total)
+        return z, self(z)
+
+
+def emulated_least_squares(A, b, parts):
+    """:class:`EmulatedLeastSquares` with the factors of
+    ``sharded_ops._least_squares_factors``: a wide A's are the whole
+    problem's (``make_least_squares``); a tall A's come from the stripes'
+    Gram matrices (in double precision) and ``A_i^H b_i``, summed in rank
+    order."""
+    from ..prox.functions import make_least_squares
+    from ..utils.precision import pdot
+
+    m, n = A.shape
+    if m < n:
+        whole = make_least_squares(A, b)
+        return EmulatedLeastSquares(A, b, parts, whole.U, whole.s,
+                                    whole.Atb, True)
+    total = None
+    for A_i, b_i in zip(A.chunk(parts), b.chunk(parts)):
+        Ad, Atb = A_i.double(), pdot(A_i.mH, b_i)
+        part = torch.cat([pdot(Ad.mH, Ad).reshape(-1), Atb.double()])
+        total = part if total is None else total + part
+    s, U = torch.linalg.eigh(total[:n * n].reshape(n, n))
+    return EmulatedLeastSquares(A, b, parts, U.to(A.dtype), s.to(A.dtype),
+                                total[n * n:].to(Atb.dtype), False)
+
+
 def tp_card_data():
     """``{route: numpy problem}`` of ``TP_CARD_ROUTES``: one
     ``shared_tp_data(SHARED_TP_LANES)`` (seconds to make) for the lasso
@@ -832,8 +912,11 @@ def tp_problem(route, data, device, maxit, tol, parts=None):
     returns ``(z, iters, done)``.  ``data`` is ``(A, b, lam, Lf)`` (one A
     for every lane) or the logistic data.  With ``parts``, the operands
     are emulated in one process over a tp group of that many ranks
-    (:class:`EmulatedStripes`, :class:`EmulatedRowOperator`); the shared-A
-    leg has no such form (see :func:`emulated_tp`)."""
+    (:class:`EmulatedStripes`, :class:`EmulatedRowOperator`,
+    :func:`emulated_least_squares`); the shared-A leg has no such form (see
+    :func:`emulated_tp`).  DRLS and Douglas-Rachford take
+    ``Shared(make_least_squares(A, b))``; Douglas-Rachford's gamma is
+    ``DR_GAMMA_LF / Lf``."""
     from functools import partial
 
     from .. import algorithms as alg
@@ -845,6 +928,7 @@ def tp_problem(route, data, device, maxit, tol, parts=None):
         NormL1,
         SqrDistance,
         Translate,
+        make_least_squares,
     )
 
     t = lambda v: torch.as_tensor(v, device=device)  # noqa: E731
@@ -867,6 +951,16 @@ def tp_problem(route, data, device, maxit, tol, parts=None):
                                  maxit=maxit, tol=tol),
                 dict(x0=x0, f=Shared(SqrDistance(b)), A=op, g=NormL1(lam),
                      Lf=Lf))
+    if route.removesuffix("_tall") in ("drls", "douglas_rachford"):
+        f = Shared(make_least_squares(A, b) if parts is None
+                   else emulated_least_squares(A, b, parts))
+        if route.startswith("drls"):
+            return (BatchedAlgorithm(alg.make_drls_iteration, maxit=maxit,
+                                     tol=tol),
+                    dict(x0=x0, f=f, g=NormL1(lam), Lf=Lf))
+        return (BatchedAlgorithm(alg.make_douglas_rachford_iteration,
+                                 maxit=maxit, tol=tol),
+                dict(x0=x0, f=f, g=NormL1(lam), gamma=DR_GAMMA_LF / Lf))
     f = Shared(LeastSquaresLoss(A, b) if parts is None
                else EmulatedStripes(A, b, parts))
     kwargs = dict(x0=x0, f=f, g=NormL1(lam))
@@ -914,13 +1008,15 @@ def emulated_tp(route, data, device, mesh_shape, maxit, tol):
 def tp_route_seen():
     """What a tp-legs solve ran, in a dict: the process group of every call
     of the shared-A solver's core (``"multirhs"``) and the helper's
-    all-reduces in each trip of the flat machines (``"trips"``)."""
+    all-reduces in each trip of the flat machines (``"trips"``) and in
+    each step of the generic driver (``"steps"``)."""
     from ..kernels import lasso
-    from ..parallel import adaptive_batch, flat_ls
+    from ..parallel import adaptive_batch, batch, flat_ls
     from ..parallel.sharded_ops import COLLECTIVES
 
-    seen = {"multirhs": [], "trips": []}
+    seen = {"multirhs": [], "trips": [], "steps": []}
     core, host_while = lasso._solve_multirhs, flat_ls._host_while
+    host_loop = batch.run_host_loop
 
     def core_spy(*args, **kwargs):
         seen["multirhs"].append(kwargs.get("group"))
@@ -935,13 +1031,24 @@ def tp_route_seen():
 
         return host_while(active_of, trip, s, check_every, cap)
 
+    def counting_loop(body, *args, **kwargs):
+        def step(k, state):
+            before = COLLECTIVES["all_reduce"]
+            state = body(k, state)
+            seen["steps"].append(COLLECTIVES["all_reduce"] - before)
+            return state
+
+        return host_loop(step, *args, **kwargs)
+
     lasso._solve_multirhs = core_spy
     flat_ls._host_while = adaptive_batch._host_while = counting_while
+    batch.run_host_loop = counting_loop
     try:
         yield seen
     finally:
         lasso._solve_multirhs = core
         flat_ls._host_while = adaptive_batch._host_while = host_while
+        batch.run_host_loop = host_loop
 
 
 def place_tp(tree, mesh):
@@ -955,11 +1062,12 @@ def place_tp(tree, mesh):
 
 def tp_leg_solve(mesh, route, solve, kwargs, maxit):
     """``solve(**kwargs)`` placed by :func:`place_tp`.  Asserts the route
-    taken (the shared-A core called once with the tp group, or the flat
-    machine's trips), every all-reduce over tp (none over dp), the
-    all-reduces a step (the shared-A leg: one at init and one a step) or
-    a trip (``TP_ROUTES``), and tp ranks that end with the same bits.
-    Returns ``(outputs, seconds, all-reduces, steps or trips)``."""
+    taken (the shared-A core called once with the tp group, the generic
+    driver's steps for Douglas-Rachford, or the flat machine's trips),
+    every all-reduce over tp (none over dp), the all-reduces a step (the
+    shared-A leg: one at init and one a step) or a trip or generic step
+    (``TP_ROUTES``), and tp ranks that end with the same bits.  Returns
+    ``(outputs, seconds, all-reduces, steps or trips)``."""
     from ..parallel.sharded_ops import COLLECTIVES, all_gather
     from ..utils.host_loop import CHECK_EVERY
 
@@ -981,9 +1089,12 @@ def tp_leg_solve(mesh, route, solve, kwargs, maxit):
         steps = steps_run(out[1].to_local(), CHECK_EVERY, maxit)
         assert reduces == 1 + steps, (reduces, steps)
     else:
-        trips = seen["trips"]
-        assert trips and set(trips) == {TP_ROUTES[route]}, (route, trips)
-        steps = len(trips)
+        kind, other = (("steps", "trips") if route.startswith("douglas")
+                       else ("trips", "steps"))
+        counts = seen[kind]
+        assert counts and set(counts) == {TP_ROUTES[route]}, (route, counts)
+        assert not seen[other], route
+        steps = len(counts)
     x = out[0].to_local()
     both = all_gather(x[None], tp_group)
     assert all(torch.equal(both[0], xr) for xr in both[1:]), (
@@ -992,26 +1103,33 @@ def tp_leg_solve(mesh, route, solve, kwargs, maxit):
 
 
 def _tp_legs_case(ctx, routes):
-    """``routes`` on ``dp_x_tp_data`` in float32 and float64 on the (dp, tp)
+    """``routes`` on ``tp_data`` in float32 and float64 on the (dp, tp)
     mesh: the collectives and tp ranks asserted by :func:`tp_leg_solve`,
-    the bits of :func:`emulated_tp`, every lane done.  Returns the
-    gathered outputs by route and dtype."""
+    the bits of :func:`emulated_tp` (each rank emulates its own lanes'
+    block), every lane done.  Returns the gathered outputs by route and
+    dtype."""
     from ..parallel.sharded_ops import full_tensor
 
     mesh = ctx.dp_tp()
+    dp, tp = mesh.shape
+    block = mesh.get_local_rank("dp")
     out = {}
     for dtype in (np.float32, np.float64):
-        data = dp_x_tp_data(dtype)
         name = np.dtype(dtype).name
         for route in routes:
+            data = tp_data(route, dtype)
             solve, kwargs = tp_problem(route, data, ctx.device,
                                        TP_LEGS_MAXIT, TP_LEGS_TOL)
             got, _, reduces, steps = tp_leg_solve(mesh, route, solve, kwargs,
                                                   TP_LEGS_MAXIT)
-            _equal_lanes(f"{route} {name}, the stripes emulated in one "
-                         "process", got, emulated_tp(
-                             route, data, ctx.device, tuple(mesh.shape),
-                             TP_LEGS_MAXIT, TP_LEGS_TOL))
+            A, b, lam, Lf = data
+            want = emulated_tp(route, (A, b, np.split(lam, dp)[block], Lf),
+                               ctx.device, (1, tp), TP_LEGS_MAXIT,
+                               TP_LEGS_TOL)
+            assert all(torch.equal(g.to_local(), e)
+                       for g, e in zip(got, want)), (
+                f"{route} {name}: differs from the stripes emulated in one "
+                "process")
             z, k, done = (full_tensor(v) for v in got)
             assert bool(done.all()), f"{route} {name}: lanes left"
             out.update({f"{key}_{route}_{name}": v for key, v in
@@ -1065,8 +1183,36 @@ def flat_tp(ctx):
 
 
 @case
+def drls_tp(ctx):
+    """DRLS (its flat machine) and Douglas-Rachford (the generic driver)
+    over tp through ``BatchedAlgorithm`` on ``Shared(make_least_squares(A,
+    b))`` in row stripes, on the wide and the tall problem; and the JAX
+    package's spelling of DRLS's problem, ``make_least_squares`` on
+    DTensors in row stripes, with the same bits (float64)."""
+    from ..parallel import Shared
+    from ..parallel.sharded_ops import _place, full_tensor
+    from ..prox import make_least_squares
+
+    out = _tp_legs_case(ctx, ("drls", "douglas_rachford", "drls_tall",
+                              "douglas_rachford_tall"))
+    mesh = ctx.dp_tp()
+    for route in ("drls", "drls_tall"):
+        solve, kwargs = tp_problem(route, tp_data(route, np.float64),
+                                   ctx.device, TP_LEGS_MAXIT, TP_LEGS_TOL)
+        ls = kwargs.pop("f").value
+        f = Shared(make_least_squares(_place(ls.A, mesh, ("tp", None)),
+                                      _place(ls.b, mesh, ("tp",))))
+        _equal_lanes(f"{route} float64: make_least_squares on DTensors",
+                     [full_tensor(v)
+                      for v in solve(f=f, **place_tp(kwargs, mesh))],
+                     [ctx.t(out[f"{key}_{route}_float64"])
+                      for key in ("z", "it", "done")])
+    return out
+
+
+@case
 def tp_legs(ctx):
-    """Routes (aa) and (ab): ``TP_CARD_ROUTES`` at full width
+    """Routes (aa), (ab) and (ac): ``TP_CARD_ROUTES`` at full width
     (:func:`tp_card_data`) on the (dp, tp) mesh,
     each after a warm-up of a few steps: a rank's wall, the wall from
     barrier to barrier, the all-reduces and the steps or trips, and the
@@ -1102,11 +1248,12 @@ def tp_legs(ctx):
                     f"reduces_{route}": _per_rank(ctx, reduces),
                     f"steps_{route}": _per_rank(ctx, steps)})
     # one all-reduce over tp at each size the routes reduce: a lane's N
-    # (multirhs, rmatvec), M (matvec's whole rows) and N + 1 (the adaptive
-    # machine's value and gradient) entries
+    # (multirhs, rmatvec, A^H U w in the least squares' prox), M (matvec's
+    # whole rows, U^H A v), N + 1 (the adaptive machine's value and
+    # gradient) and 1 (the prox's value) entries
     M, N = problems["multirhs"][0].shape
     lanes = SHARED_TP_LANES // mesh.size(0)
-    sizes = (N, M, N + 1)
+    sizes = (N, M, N + 1, 1)
     us = []
     for n in sizes:
         buf = torch.zeros((lanes, n), dtype=torch.float32, device=ctx.device)

@@ -40,7 +40,12 @@ from proxtpu_torch.parallel.sharded_ops import (
     shard_rows,
     sum_over,
 )
-from proxtpu_torch.prox import LeastSquaresLoss, NormL1, SqrDistance
+from proxtpu_torch.prox import (
+    LeastSquaresLoss,
+    NormL1,
+    SqrDistance,
+    make_least_squares,
+)
 from proxtpu_torch.tools import spmd_worker as w
 
 TOL, MAXIT = 1e-5, 3000
@@ -261,9 +266,11 @@ def test_refused_layouts_name_class_and_placements(mesh):
 def test_kernel_and_flat_routes_refuse_the_stripes(mesh):
     """The routes that still refuse row stripes, each beside the same
     problem unplaced, which it takes: the stacked-A and box-QP legs of
-    ``match_kernel_solver``, ``match_tv_solver``, DRLS (its matcher and
-    ``batched_drls``).  The shared-A leg and the flat matchers now take
-    the stripes (their runs: tests/test_torch_tp_legs.py)."""
+    ``match_kernel_solver``, ``match_tv_solver``, and DRLS beside stripes
+    of another operand or on a least squares without a prox.  The
+    shared-A leg, the flat matchers and DRLS on a least squares with its
+    prox now take the stripes (their runs: tests/test_torch_tp_legs.py,
+    tests/test_torch_tp_drls.py)."""
     from proxtpu_torch.kernels import dispatch
     from proxtpu_torch.ops.linops import Grad2DOperator
     from proxtpu_torch.prox import IndBox, NormL21, Quadratic
@@ -314,7 +321,10 @@ def test_kernel_and_flat_routes_refuse_the_stripes(mesh):
     plain, placed = both(dispatch.match_tv_solver,
                          pt.make_chambolle_pock_iteration, kw_tv)
     assert plain is not None and placed is None
-    # DRLS: the matcher declines, batched_drls raises
+    # DRLS: the matcher declines stripes beside f, and a least squares in
+    # stripes without a prox (batched_drls raises on it, naming its
+    # row-sharded form, as it names LeastSquaresLoss unplaced); it takes
+    # make_least_squares' in stripes
     kw_dr = dict(x0=x0, f=LeastSquaresLoss(As, b.expand(4, -1)), g=lam4,
                  Lf=torch.full((4,), Lf))
     plain, placed = both(dispatch.match_flat_linesearch,
@@ -323,9 +333,14 @@ def test_kernel_and_flat_routes_refuse_the_stripes(mesh):
     kw_dr, _ = localize(dict(x0=x0, f=f_rows, g=lam4, Lf=Lf), stripes=True)
     assert dispatch.match_flat_linesearch(pt.make_drls_iteration, kw_dr,
                                           tol=TOL, maxit=10) is None
-    with pytest.raises(ValueError, match="replicate the Shared operand"):
+    with pytest.raises(AttributeError, match=(
+            "'RowShardedLeastSquaresLoss' object has no attribute 'prox'")):
         tpar.batched_drls(f_rows, lam4, x0, torch.full((4,), 0.5),
                           torch.ones(4), torch.ones(4), TOL, maxit=10)
+    kw_ls, _ = localize(dict(x0=x0, f=shard_rows(tpar.Shared(
+        make_least_squares(A, b)), mesh, "tp"), g=lam4, Lf=Lf), stripes=True)
+    assert dispatch.match_flat_linesearch(pt.make_drls_iteration, kw_ls,
+                                          tol=TOL, maxit=10)
 
 
 def main():

@@ -1,6 +1,6 @@
-"""The tp layout on the shared-A solver and the flat machines: one
-``Shared`` operand in row stripes over a ``tp`` mesh axis, lanes over
-``dp``, through ``BatchedAlgorithm``.
+"""The tp layout on the shared-A solver, the flat machines and the
+least squares' prox: one ``Shared`` operand in row stripes over a ``tp``
+mesh axis, lanes over ``dp``, through ``BatchedAlgorithm``.
 
 In this process, on a module-scoped Gloo group of world size 1 (a (1, 1)
 mesh, as ``tests/test_torch_dp_tp.py``): every route placed is
@@ -12,7 +12,9 @@ of the line searches, so two a trip of PANOC and ZeroFPR and four of
 PANOCplus; one a trip of adaptive FB, two of adaptive FISTA);
 ``solve_lasso_multirhs`` on DTensors gives the same bits; in float64 the
 port gives the JAX package's counts and its solutions within 1e-9; the
-refusals that remain name what they refuse.
+refusals that remain name what they refuse.  DRLS and Douglas-Rachford
+on the least squares' prox (``LS_ROUTES``) are held so at (1, 1) in
+``tests/test_torch_tp_drls.py``.
 
 On 4 Gloo ranks as a (2, 2) mesh (``python -m
 proxtpu_torch.tools.spmd_worker --ranks 4 --cases tp``, started once, which
@@ -22,6 +24,13 @@ emulated in one process), rank 0's outputs against the JAX package on its
 lanes on ``P("dp")``: float64 equal counts and 1e-9; float32 the JAX dp x
 tp test's contract (``tests/test_sharding.py:520-535``: 75% of counts
 equal, 1e-3, and every lane's float64 recheck within 1.2 tol).
+
+The worker also runs ``LS_ROUTES``: DRLS (a trip) and Douglas-Rachford (a
+step of the generic driver) make one prox of ``Shared(make_least_squares(A,
+b))``, three all-reduces on the wide problem, one on the tall one (routes
+"*_tall", ``spmd_worker.dp_x_tp_data(M=48)``, whose least squares sums
+``A^H A`` over the stripes), and ``make_least_squares`` on DTensors gives
+the same bits.
 """
 
 import os
@@ -46,13 +55,26 @@ from proxtpu_torch.parallel.sharded_ops import (
     full_tensor,
     shard_rows,
 )
-from proxtpu_torch.prox import LeastSquaresLoss, NormL1, SqrDistance
+from proxtpu_torch.prox import NormL1, SqrDistance
 from proxtpu_torch.tools import spmd_worker as w
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL, MAXIT = w.TP_LEGS_TOL, w.TP_LEGS_MAXIT
 ROUTES = ("multirhs", "panoc", "zerofpr", "panocplus", "adaptive_fb",
           "adaptive_fista")
+# the least squares' prox over tp; at (1, 1) in tests/test_torch_tp_drls.py
+LS_ROUTES = ("drls", "douglas_rachford", "drls_tall",
+             "douglas_rachford_tall")
+# more routes on Shared(make_least_squares(A, b)) (and "*_tall"), at (1, 1)
+# in tests/test_torch_tp_drls.py: (factory, Lf given, use_kernels)
+LS_MORE_ROUTES = {
+    "panoc_ls": ("make_panoc_iteration", True, "auto"),
+    "zerofpr_ls": ("make_zerofpr_iteration", True, "auto"),
+    "fista_ls": ("make_fast_forward_backward_iteration", True, "auto"),
+    "adaptive_fista_ls": ("make_fast_forward_backward_iteration", False,
+                          "auto"),
+    "drls_generic": ("make_drls_iteration", True, False),
+}
 DTYPES = (np.float32, np.float64)
 TIMEOUT = 240
 
@@ -119,11 +141,15 @@ _JAX = {}
 
 def jax_run(route, dtype):
     """The JAX package's ``BatchedAlgorithm`` on the route's problem
-    (``spmd_worker.dp_x_tp_data``) on its (4, 2) mesh, A in row stripes
-    over tp and the lanes over dp; cached."""
+    (``spmd_worker.tp_data``) on its (4, 2) mesh, A in row stripes over tp
+    and the lanes over dp; cached.  ``LS_MORE_ROUTES``: on
+    ``Shared(make_least_squares(A, b))``."""
     key = (route, np.dtype(dtype).name)
     if key not in _JAX:
+        from proxtpu import algorithms as jalg
         from proxtpu.algorithms import (
+            make_douglas_rachford_iteration,
+            make_drls_iteration,
             make_fast_forward_backward_iteration,
             make_forward_backward_iteration,
             make_panoc_iteration,
@@ -135,9 +161,10 @@ def jax_run(route, dtype):
         from proxtpu.prox import LeastSquaresLoss as JLeastSquaresLoss
         from proxtpu.prox import NormL1 as JNormL1
         from proxtpu.prox import SqrDistance as JSqrDistance
+        from proxtpu.prox import make_least_squares as jmake_least_squares
 
         jmesh = make_mesh((4, 2), ("dp", "tp"))
-        A, b, lam, Lf = w.dp_x_tp_data(dtype)
+        A, b, lam, Lf = w.tp_data(route, dtype)
 
         def put(v, *spec):
             return jax.device_put(jnp.asarray(v), NamedSharding(jmesh,
@@ -146,7 +173,22 @@ def jax_run(route, dtype):
         A, b, lam = put(A, "tp", None), put(b, "tp"), put(lam, "dp")
         kw = dict(x0=put(np.zeros((len(lam), A.shape[1]), dtype), "dp",
                          None), g=JNormL1(lam))
-        if route in ("panoc", "zerofpr", "panocplus"):
+        base, opts = route.removesuffix("_tall"), {}
+        if base in LS_MORE_ROUTES:
+            name, with_lf, opts["use_kernels"] = LS_MORE_ROUTES[base]
+            factory = getattr(jalg, name)
+            kw["f"] = Shared(jmake_least_squares(A, b))
+            if with_lf:
+                kw["Lf"] = Lf
+        elif base in ("drls", "douglas_rachford"):
+            factory = (make_drls_iteration if base == "drls"
+                       else make_douglas_rachford_iteration)
+            kw["f"] = Shared(jmake_least_squares(A, b))
+            if base == "douglas_rachford":
+                kw["gamma"] = w.DR_GAMMA_LF / Lf
+            else:
+                kw["Lf"] = Lf
+        elif route in ("panoc", "zerofpr", "panocplus"):
             factory = {"panoc": make_panoc_iteration,
                        "zerofpr": make_zerofpr_iteration,
                        "panocplus": make_panocplus_iteration}[route]
@@ -160,18 +202,26 @@ def jax_run(route, dtype):
             if route == "multirhs":
                 kw["Lf"] = Lf
         _JAX[key] = tuple(np.asarray(v) for v in BatchedAlgorithm(
-            factory, maxit=MAXIT, tol=TOL)(**kw))
+            factory, maxit=MAXIT, tol=TOL, **opts)(**kw))
     return _JAX[key]
 
 
 def recheck(route, dtype, z):
     """Every lane's float64 forward-backward residual at the route's
-    fixed step: ``1 / Lf`` for FISTA, the line searches' ``0.95 / Lf``;
-    the adaptive machines are held at ``1 / Lf``, the largest step the
-    smoothness certifies."""
-    A, b, lam, Lf = w.dp_x_tp_data(dtype)
-    gamma = 0.95 / Lf if route in ("panoc", "zerofpr", "panocplus") \
-        else 1.0 / Lf
+    fixed step: ``1 / Lf`` for FISTA, the line searches' and DRLS's
+    ``0.95 / Lf``, Douglas-Rachford's ``DR_GAMMA_LF / Lf``; the adaptive
+    machines are held at ``1 / Lf``, the largest step the smoothness
+    certifies.  At a step gamma it is the Douglas-Rachford residual
+    ``||u - v|| / gamma`` at the point ``x = z + gamma grad f(z)``, whose
+    ``u = prox_f(x)`` is ``z``."""
+    A, b, lam, Lf = w.tp_data(route, dtype)
+    if route.startswith("douglas"):
+        gamma = w.DR_GAMMA_LF / Lf
+    elif route in ("panoc", "zerofpr", "panocplus") or route.startswith(
+            "drls"):
+        gamma = 0.95 / Lf
+    else:
+        gamma = 1.0 / Lf
     A, b, x = (np.asarray(v, np.float64) for v in (A, b, z))
     y = x - gamma * ((x @ A.T - b) @ A)
     zz = np.sign(y) * np.maximum(np.abs(y) - gamma * lam[:, None], 0.0)
@@ -182,40 +232,51 @@ def recheck(route, dtype, z):
 # one process: a (1, 1) mesh
 
 
-@pytest.mark.parametrize("dtype", DTYPES, ids=["float32", "float64"])
-@pytest.mark.parametrize("route", ROUTES)
-def test_world_one_route_is_the_unplaced_run(mesh, route, dtype):
-    solve, kwargs = w.tp_problem(route, w.dp_x_tp_data(dtype), "cpu", MAXIT,
-                                 TOL)
+def world_one_is_the_unplaced_run(mesh, route, dtype):
+    """The route placed on the (1, 1) mesh: ``torch.equal`` to its
+    unplaced run, on the same route, with the design's collectives."""
+    solve, kwargs = w.tp_problem(route, w.tp_data(route, dtype), "cpu",
+                                 MAXIT, TOL)
     with w.tp_route_seen() as seen:
         plain = solve(**kwargs)
-    # unplaced, the same route: the core without a group, or the trips
-    # with no collective
+    # unplaced, the same route: the core without a group, or the trips or
+    # generic steps with no collective
+    kind = "steps" if route.startswith("douglas") else "trips"
     if route == "multirhs":
         assert seen["multirhs"] == [None]
     else:
-        assert seen["trips"] and set(seen["trips"]) == {0}
+        assert seen[kind] and set(seen[kind]) == {0}
     gathers = COLLECTIVES["all_gather"]
     out, _, reduces, steps = w.tp_leg_solve(mesh, route, solve, kwargs,
                                             MAXIT)
     # the all-gathers: the line searches' SqrDistance b, whole once before
-    # the trips, and the solution gathered over tp by tp_leg_solve
+    # the trips, the wide least squares' stripes once at set-up, and the
+    # solution gathered over tp by tp_leg_solve
     assert COLLECTIVES["all_gather"] - gathers == 1 + (
-        route in ("panoc", "zerofpr", "panocplus"))
+        route in ("panoc", "zerofpr", "panocplus", "drls",
+                  "douglas_rachford"))
     assert [str(p) for p in out[0].placements] == ["S(0)", "R"]
     assert all(torch.equal(full_tensor(o), p) for o, p in zip(out, plain))
     assert bool(plain[2].all())
     if route == "multirhs":
         assert steps == w.steps_run(plain[1], 16, MAXIT)
     else:
-        # as many trips as unplaced, and the init's all-reduces beside
-        assert steps == len(seen["trips"])
+        # as many trips or steps as unplaced, and the init's and the
+        # set-up's all-reduces beside
+        assert steps == len(seen[kind])
         assert reduces >= w.TP_ROUTES[route] * steps
 
 
+@pytest.mark.parametrize("dtype", DTYPES, ids=["float32", "float64"])
 @pytest.mark.parametrize("route", ROUTES)
-def test_world_one_route_matches_jax_float64(mesh, route):
-    solve, kwargs = w.tp_problem(route, w.dp_x_tp_data(np.float64), "cpu",
+def test_world_one_route_is_the_unplaced_run(mesh, route, dtype):
+    world_one_is_the_unplaced_run(mesh, route, dtype)
+
+
+def world_one_matches_jax_float64(mesh, route):
+    """The route placed on the (1, 1) mesh in float64: the JAX package's
+    counts on its (4, 2) mesh, solutions within 1e-9."""
+    solve, kwargs = w.tp_problem(route, w.tp_data(route, np.float64), "cpu",
                                  MAXIT, TOL)
     z, k, d = (full_tensor(v).numpy()
                for v in solve(**w.place_tp(kwargs, mesh)))
@@ -223,6 +284,11 @@ def test_world_one_route_matches_jax_float64(mesh, route):
     assert d.all() and dj.all()
     np.testing.assert_array_equal(k, kj)
     np.testing.assert_allclose(z, zj, atol=1e-9)
+
+
+@pytest.mark.parametrize("route", ROUTES)
+def test_world_one_route_matches_jax_float64(mesh, route):
+    world_one_matches_jax_float64(mesh, route)
 
 
 @pytest.mark.parametrize("cols", [None, "tp"])
@@ -274,14 +340,13 @@ def _rows(value, mesh, axis="tp"):
 
 
 @pytest.mark.parametrize("layout", [
-    "drls", "column stripes", "b over dp", "no operator beside",
+    "column stripes", "b over dp", "no operator beside",
     "multirhs b over dp"])
 def test_refusals_name_what_they_refuse(mesh, layout):
-    """What still refuses row stripes, by message: DRLS (it needs
-    ``prox_f`` of the whole least squares), a column-sharded operator, b
-    in other stripes than A, another class in stripes with no row-sharded
-    operator beside it, and ``solve_lasso_multirhs`` with Bmat's columns
-    split over another axis than A's rows."""
+    """What still refuses row stripes, by message: a column-sharded
+    operator, b in other stripes than A, another class in stripes with no
+    row-sharded operator beside it, and ``solve_lasso_multirhs`` with
+    Bmat's columns split over another axis than A's rows."""
     import torch.distributed.tensor as dt
 
     from proxtpu_torch.kernels.lasso import solve_lasso_multirhs
@@ -292,12 +357,7 @@ def test_refusals_name_what_they_refuse(mesh, layout):
                                                  dtype=A.dtype),
                                   g=NormL1(lam)), mesh, "dp")
     panoc = tpar.BatchedAlgorithm(pt.make_panoc_iteration, maxit=10, tol=TOL)
-    if layout == "drls":
-        with pytest.raises(ValueError, match=r"replicate the Shared operand"):
-            tpar.batched_drls(_rows(LeastSquaresLoss(A, b), mesh),
-                              lanes["g"], lanes["x0"], 0.5, 1.0, 1.0, TOL,
-                              maxit=10)
-    elif layout == "column stripes":
+    if layout == "column stripes":
         cols = dt.DTensor.from_local(A, mesh, [dt.Replicate(), dt.Shard(1)],
                                      run_check=False)
         with pytest.raises(ValueError, match=(
@@ -333,7 +393,7 @@ def test_refusals_name_what_they_refuse(mesh, layout):
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["float32", "float64"])
-@pytest.mark.parametrize("route", ROUTES)
+@pytest.mark.parametrize("route", ROUTES + LS_ROUTES)
 def test_four_ranks_match_jax(run, route, dtype):
     """Float64: equal counts and 1e-9.  Float32: every lane done in both
     packages, 1e-3, every lane of both under 1.2 tol by the float64
@@ -345,14 +405,20 @@ def test_four_ranks_match_jax(run, route, dtype):
     PANOC and PANOCplus, 6 for adaptive FB; the L-BFGS directions and the
     step search amplify last bits), so there the lanes apart in count
     are held by the recheck, as ``tests/test_torch_multiprocess.py``'s
-    ``_lanes_close`` holds knife-edge lanes."""
+    ``_lanes_close`` holds knife-edge lanes.  On the least squares' prox
+    (``LS_ROUTES``) only the port's float32 answer is held by the
+    recheck: the JAX package factors the Gram matrix in float32 (the port
+    in float64), and its prox is only as exact as those factors (its
+    Douglas-Rachford answer on the wide problem rechecks at 1.31e-5, its
+    DRLS on the tall one at 1.22e-5)."""
     name = np.dtype(dtype).name
+    # the JAX package's run first: it overlaps the worker's
+    zj, kj, dj = jax_run(route, dtype)
     port = run.result()
     z, k, done = (port[f"{key}_{route}_{name}"]
                   for key in ("z", "it", "done"))
     reduces, steps = port[f"reduces_{route}_{name}"]
     assert steps > 0 and reduces >= w.TP_ROUTES[route] * steps
-    zj, kj, dj = jax_run(route, dtype)
     assert done.all() and dj.all()
     if dtype == np.float64:
         np.testing.assert_array_equal(k, kj)
@@ -361,5 +427,5 @@ def test_four_ranks_match_jax(run, route, dtype):
         if route in ("multirhs", "adaptive_fista"):
             assert (k == kj).mean() >= 0.75, (k, kj)
         np.testing.assert_allclose(z, zj, atol=1e-3)
-        for x in (z, zj):
+        for x in (z,) if route in LS_ROUTES else (z, zj):
             assert recheck(route, dtype, x).max() <= 1.2 * TOL
