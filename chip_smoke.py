@@ -89,8 +89,10 @@ Phases, in order; any failure raises and exits non-zero:
    graphical lasso, 1-D TV (the prox under vmap, with the cost of its
    masked trips) and sparse logistic, each at its benchmark script's
    published size in float32 through ``BatchedAlgorithm``'s generic driver,
-   timed after a short warm-up and held to its script's gate; no kernel
-   lies on this path, and the phase fails past its 90 s budget;
+   timed after a short warm-up and held to its script's gate (matrix
+   completion also to 1.25 x the 9.840 s a solve it took with cuSOLVER's
+   float32 SVD); no kernel lies on this path, and the phase fails past its
+   90 s budget;
 10. run the flat machines and the warm start (phase "flat machines",
     ``proxtpu_torch/parallel/flat_ls.py``, ``adaptive_batch.py``,
     ``warm.py``), each route timed after a short warm-up with its trips
@@ -216,7 +218,18 @@ Phases, in order; any failure raises and exits non-zero:
     fails past its 180 s budget;
 16. ``tools/graft_entry.entry()`` with no argument: its FISTA step built on
     the card, against the same step on a CPU copy within 1e-5;
-17. print the kernels' JSON line (time, plain version's time, bound and,
+17. run the JAX package's example scripts and its guides' code on the card
+    (phase "examples", ``proxtpu_torch/examples``): the 14 scripts at
+    their sizes, seeds, dtypes and caps, each held to its own oracle (the
+    assertions of ``tests/test_docs_examples.py``), its wall and
+    iterations printed beside the JAX package's counts on the CPU and how
+    far they are apart; the ten guide blocks, each held to what it claims;
+    the nuclear-norm prox in float32 within 5e-6 of float64 LAPACK on the
+    host at robust PCA's ``L + S`` and a normal 60 x 50; a complex64 lasso
+    through ``BatchedAlgorithm``'s default route, no kernel launched and
+    bit-equal to ``use_kernels=False``; the phase fails past its 120 s
+    budget;
+18. print the kernels' JSON line (time, plain version's time, bound and,
     where one PyTorch call computes the same function, that call's time),
     the seconds of every phase, then the result line.
 
@@ -2185,6 +2198,12 @@ def families_cvar(card):
     assert all(-1e-6 <= g <= 2 * CVAR_JAX_GAP for g in gaps.values()), gaps
 
 
+# 1.25 x the 9.840 s a solve this family took with cuSOLVER's float32 SVD
+# (PERF.md, cell (l)): the accurate SVD of the nuclear-norm prox must not
+# slow it more
+MC_WALL_LIMIT_S = 1.25 * 9.840
+
+
 def families_mc(card):
     from proxtpu_torch.tools import families as fam
 
@@ -2198,9 +2217,11 @@ def families_mc(card):
     family_line(f"matrix completion, B {B}, {m} x {n}, FISTA + "
                 "NuclearNorm", wall, iters, done, card,
                 f"held-out relative error median {np.median(rel):.4e} "
-                f"max {rel.max():.4e} (< 0.25)")
+                f"max {rel.max():.4e} (< 0.25); wall limit "
+                f"{MC_WALL_LIMIT_S:.2f} s")
     assert bool(done.all()) and np.median(rel) < 0.25, (
         int((~done).sum()), np.median(rel))
+    assert wall <= MC_WALL_LIMIT_S, (wall, MC_WALL_LIMIT_S)
 
 
 def families_glasso(card):
@@ -3743,6 +3764,205 @@ def phase_li_lin(card):
     assert dt <= LILIN_BUDGET_S, (dt, LILIN_BUDGET_S)
 
 
+EXAMPLES_BUDGET_S = 120.0
+SVD_LIMIT = 5e-6  # LAPACK's float32 accuracy, against float64 on the host
+COMPLEX_LASSO = (4, 24, 32)  # B, M, N (ROADMAP queue 3 fault 1's probe)
+
+
+def _counts_text(counts):
+    """A script's iteration counts, every 8th of a long list."""
+    if isinstance(counts, dict):
+        return "{" + ", ".join(f"{k}: {_counts_text(v)}"
+                               for k, v in counts.items()) + "}"
+    if isinstance(counts, list) and len(counts) > 16:
+        return f"lanes 0, 8, ..: {counts[::8]}"
+    return str(counts)
+
+
+def _example_facts(name, out):
+    """The numbers each script prints, for its line."""
+    if name == "lasso_path":
+        return (f"nnz lanes 0, 8, ..: {out['nnz'][::8].tolist()}, multirhs "
+                f"against the batched drive {out['multirhs_gap']:.3e}")
+    if name == "svm_path":
+        return f"train accuracy {out['train_acc'][0]:.3f} .. " \
+            f"{out['train_acc'][-1]:.3f}"
+    if name == "multitask_lasso":
+        return f"selected {out['selected'].tolist()} (the true support)"
+    if name == "convergence_curves":
+        return ", ".join(f"{k} last residual {float(v['curve'][-1]):.3e}"
+                         for k, v in out.items())
+    if name == "reference_tolerances":
+        return f"worst float64 recheck {out['worst_residual']:.3e}"
+    if name == "tv_denoise":
+        return (f"PSNR {out['psnr_noisy']:.2f} -> "
+                f"{out['psnr_denoised']:.2f} dB")
+    if name == "tv1d_denoising":
+        return f"SNR {out['snr_noisy']:.2f} -> {out['snr_denoised']:.2f} dB"
+    if name == "isotonic_regression":
+        return (f"MSE {out['mse_noisy']:.4f} -> {out['mse_vs_truth']:.4f}, "
+                "both fits monotone")
+    if name == "leading_eigenvector":
+        return (f"rayleigh - lam_max {out['rayleigh'] - out['lam_max']:.3e}"
+                f", 1 - align {1 - out['align']:.3e}")
+    if name == "graphical_lasso":
+        return (f"KKT diag {out['kkt_diag']:.3e}, nonzero "
+                f"{out['kkt_nz']:.3e}, min eig {out['min_eig']:.4f}, no "
+                "false edge on the path")
+    if name == "portfolio_cvar":
+        return (f"CVaR {out['cvar_opt']:.5f} against equal weights "
+                f"{out['cvar_equal_weight']:.5f}, sum w - 1 "
+                f"{np.sum(out['weights']) - 1:.3e}")
+    if name == "phase_retrieval":
+        return f"relative error {out['rel_error']:.3e}"
+    if name == "robust_pca":
+        return (f"rank {out['rank']} (true {out['true_rank']}), "
+                f"{int(out['support_hat'].sum())} sparse entries, every "
+                "corruption hit")
+    if name == "sparse_linear_regression":
+        return (f"selected {[n for n, _ in out['selected']]}, test MSE "
+                f"{out['test_mse']:.2f}")
+    return ""
+
+
+def examples_svd(card, rpca):
+    """A2: ``NuclearNorm(0.25).prox`` at gamma 1 / 2 on the card, float32,
+    against the same prox by LAPACK in float64 on the host, at robust PCA's
+    ``L + S`` (the card's last iterate) and a normal 60 x 50 (numpy rng
+    0); each within SVD_LIMIT."""
+    from proxtpu_torch.prox import NuclearNorm
+    from proxtpu_torch.tools import svd_ways
+
+    inputs = {"L + S of robust_pca": rpca["L"] + rpca["S"],
+              "a normal 60 x 50": np.random.default_rng(0).standard_normal(
+                  (60, 50)).astype(np.float32)}
+    errs = {}
+    for name, X in inputs.items():
+        Z, _ = NuclearNorm(svd_ways.LAM).prox(
+            torch.tensor(X, device=DEVICE), svd_ways.GAMMA)
+        errs[name] = float(np.abs(Z.double().cpu().numpy()
+                                  - svd_ways.host_prox(X)).max())
+    print("  SVD of the nuclear-norm prox on the card, float32 against "
+          "float64 LAPACK on the host: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f" (limit {SVD_LIMIT:.0e})  [{card}]")
+    assert max(errs.values()) <= SVD_LIMIT, errs
+
+
+def examples_complex_lasso(card):
+    """A1: a complex64 lasso through ``BatchedAlgorithm`` with the default
+    ``use_kernels`` takes the generic driver: no kernel launches, bit-equal
+    to ``use_kernels=False``."""
+    from proxtpu_torch import BatchedAlgorithm, \
+        make_fast_forward_backward_iteration
+    from proxtpu_torch.prox import LeastSquaresLoss, NormL1
+
+    B, M, N = COMPLEX_LASSO
+    rng = np.random.default_rng(3)
+    A = ((rng.standard_normal((B, M, N)) + 1j * rng.standard_normal(
+        (B, M, N))) / np.sqrt(2 * M)).astype(np.complex64)
+    b = ((rng.standard_normal((B, M)) + 1j * rng.standard_normal((B, M)))
+         / np.sqrt(2)).astype(np.complex64)
+    lam = (0.1 * np.max(np.abs(np.einsum("bmn,bm->bn", A.conj(), b)),
+                        axis=1)).astype(np.float32)
+    Lf = np.array([np.linalg.norm(a, 2) ** 2 for a in A], np.float32)
+    counters = launch_counters()
+
+    def solve(use_kernels):
+        return BatchedAlgorithm(
+            make_fast_forward_backward_iteration, maxit=5000, tol=1e-5,
+            use_kernels=use_kernels)(
+            x0=torch.zeros(B, N, dtype=torch.complex64, device=DEVICE),
+            f=LeastSquaresLoss(torch.tensor(A, device=DEVICE),
+                               torch.tensor(b, device=DEVICE)),
+            g=NormL1(torch.tensor(lam, device=DEVICE)),
+            Lf=torch.tensor(Lf, device=DEVICE))
+
+    before = {k: getattr(wr, a) for k, (wr, a) in counters.items()}
+    t0 = time.perf_counter()
+    x, it, done = solve("auto")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    after = {k: getattr(wr, a) for k, (wr, a) in counters.items()}
+    x_g, it_g, done_g = solve(False)
+    assert after == before, "a kernel launched on the complex lasso"
+    assert bool(done.all()), it
+    assert torch.equal(x, x_g) and torch.equal(it, it_g) and torch.equal(
+        done, done_g), "the default route differs from use_kernels=False"
+    print(f"  complex64 lasso {COMPLEX_LASSO} through BatchedAlgorithm, "
+          f"default use_kernels: no kernel launched, bit-equal to "
+          f"use_kernels=False, iterations {it.tolist()}, {wall:.3f} s  "
+          f"[{card}]")
+
+
+def phase_examples(card):
+    """The JAX package's example scripts and its guides' code on the card
+    (``proxtpu_torch/examples``): each of the 14 scripts' ``main`` at the
+    script's size, seed, dtype and cap, held to the script's own oracle
+    (``examples.check``), its wall and iterations printed beside the JAX
+    package's counts on the CPU (``examples.JAX_ITERATIONS``) and how far
+    they are apart (not held: the card sums in another order); the ten
+    guide blocks (``examples/guides.py``), each held to what its block
+    claims; the SVD check of the nuclear-norm prox (:func:`examples_svd`);
+    the complex lasso on the default route (:func:`examples_complex_lasso`).
+    The phase must end within EXAMPLES_BUDGET_S."""
+    import importlib
+
+    from proxtpu_torch import examples as ex
+    from proxtpu_torch.examples import guides
+
+    t_phase = time.perf_counter()
+    counters = launch_counters()
+    before = {k: getattr(wr, a) for k, (wr, a) in counters.items()}
+    walls, rpca = {}, None
+    for name in ex.SCRIPTS:
+        mod = importlib.import_module(f"proxtpu_torch.examples.{name}")
+        t0 = time.perf_counter()
+        out = mod.main(device=DEVICE)
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        again = mod.main(device=DEVICE) if name == "multitask_lasso" else None
+        ex.check(name, out, again)
+        got, want = ex.iterations(name, out), ex.JAX_ITERATIONS[name]
+        g, w = (np.array(ex.flat_counts(c), np.int64) for c in (got, want))
+        apart = (f"{int((g != w).sum())} of {g.size} counts apart from the "
+                 f"JAX package's, by at most {int(np.abs(g - w).max())}"
+                 if g.size else "no count")
+        print(f"  {name} ({ex.DTYPES[name]}): {walls[name]:.3f} s, "
+              f"iterations {_counts_text(got)} (JAX on the CPU: "
+              f"{_counts_text(want)}); {apart}; {_example_facts(name, out)}"
+              f"  [{card}]")
+        if name == "robust_pca":
+            rpca = out
+    t_guides = time.perf_counter()
+    lines = []
+    for key, fn in guides.BLOCKS.items():
+        t0 = time.perf_counter()
+        out = fn(device=DEVICE)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        guides.check(key, out)
+        label = f"{key[0]}:{key[1]}"
+        jax_it = ex.GUIDES_JAX_ITERATIONS.get(label)
+        its = ("" if jax_it is None else
+               f", iterations {out['iterations']} (JAX {jax_it})")
+        lines.append(f"{label} {dt:.3f} s{its}")
+    print(f"  the guides' ten blocks on the card, float64: "
+          + "; ".join(lines) + f"  [{card}]")
+    dt_guides = time.perf_counter() - t_guides
+    examples_svd(card, rpca)
+    examples_complex_lasso(card)
+    after = {k: getattr(wr, a) for k, (wr, a) in counters.items()}
+    launched = {k: after[k] - before[k] for k in after
+                if after[k] != before[k]}
+    dt = time.perf_counter() - t_phase
+    print(f"  examples: {dt:.1f} s (budget {EXAMPLES_BUDGET_S:.0f} s); the "
+          f"14 scripts {sum(walls.values()):.1f} s, the guides "
+          f"{dt_guides:.1f} s; kernel launches {launched or 'none'}  "
+          f"[{card}]")
+    assert dt <= EXAMPLES_BUDGET_S, (dt, EXAMPLES_BUDGET_S)
+
+
 def kernel_bounds():
     """``{kernel: (shape, ms, by)}``: the bound of each kernel at the shape
     its times in the JSON line are taken at.  Bytes: every operand read
@@ -3848,6 +4068,8 @@ def main():
     tp_legs = phase("tp legs at (1, 1)", phase_tp_one_rank, card)
     phase("tp legs", phase_tp_legs, card, tp_legs, y_walls)
     phase("entry", check_entry, card)
+    print("the examples and the guides' code on the card:")
+    phase("examples", phase_examples, card)
     launches["read_reduce"] = floor_launches
     kernels = {
         "fista_step": ("lasso_step.cu", "proxtpu/kernels/lasso.py:156"),

@@ -165,7 +165,7 @@ def match_tv_solver(factory, kwargs, *, tol, maxit, stop=None, solution=None,
     if int(h.axis) != 0:
         return None
     b = torch.as_tensor(g.b)
-    if b.dim() != 3:
+    if b.dim() != 3 or b.is_complex():
         return None
     B, H, W = b.shape
     if tuple(L.shape) != (H, W):
@@ -173,8 +173,9 @@ def match_tv_solver(factory, kwargs, *, tol, maxit, stop=None, solution=None,
     x0, y0 = kwargs.get("x0"), kwargs.get("y0")
     if x0 is None or y0 is None:
         return None
-    if (tuple(torch.as_tensor(x0).shape) != (B, H, W)
-            or tuple(torch.as_tensor(y0).shape) != (B, 2, H, W)):
+    x0, y0 = torch.as_tensor(x0), torch.as_tensor(y0)
+    if (tuple(x0.shape) != (B, H, W) or tuple(y0.shape) != (B, 2, H, W)
+            or x0.is_complex() or y0.is_complex()):
         return None
     if not (_all_zero(x0) and _all_zero(y0)):
         return None
@@ -287,6 +288,8 @@ def match_kernel_solver(factory, kwargs, *, tol, maxit, stop=None,
     if x0 is None:
         return None
     x0 = torch.as_tensor(x0)
+    if x0.is_complex():
+        return None  # the kernel legs solve real problems only
     x0_pass = x0 if bool(x0.any()) else None
 
     from ..utils.shared import Shared
@@ -323,6 +326,8 @@ def match_kernel_solver(factory, kwargs, *, tol, maxit, stop=None,
         if g_lam2 is not None and mf is not None:
             return None
         A, b = torch.as_tensor(f.A), torch.as_tensor(f.b)
+        if A.is_complex() or b.is_complex():
+            return None
         if A.dim() == 2 and b.dim() == 1:
             # a Shared f (the regularisation path): one (A, b) for every
             # lane, lam per lane; b is broadcast to x0's lanes
@@ -393,6 +398,8 @@ def match_kernel_solver(factory, kwargs, *, tol, maxit, stop=None,
         if not isinstance(f, Quadratic) or not isinstance(g, IndBox):
             return None
         Q, q = torch.as_tensor(f.Q), torch.as_tensor(f.q)
+        if Q.is_complex() or q.is_complex():
+            return None
         if Q.dim() != 3 or q.dim() != 2 or Q.shape[1] != Q.shape[2]:
             return None
         B = Q.shape[0]

@@ -558,6 +558,18 @@ def _validate_step_mult(step_mult, restart, mf):
                          "strongly-convex constant-beta variant)")
 
 
+def _real_operands(*tensors):
+    """The lasso solvers take real operands: a complex one raises
+    ``ValueError`` naming its dtype (``match_kernel_solver`` sends complex
+    problems to the generic driver)."""
+    for t in tensors:
+        if isinstance(t, torch.Tensor) and t.is_complex():
+            raise ValueError(
+                f"the batched lasso solvers take real operands, got {t.dtype}"
+                "; solve a complex lasso through BatchedAlgorithm, whose "
+                "generic driver takes it")
+
+
 def _check_options(mf, restart, lam2, step_mult):
     """The reference's ``ValueError`` for options that do not compose."""
     _validate_step_mult(step_mult, restart, mf)
@@ -624,6 +636,7 @@ def solve_lasso_batch(A, b, lam, Lf, tol, maxit=1000, use_kernel=True,
     ``step_mult == 1`` takes the textbook path unchanged.
 
     Returns ``(xs (B, N), iters (B,) int32, done (B,) bool)``."""
+    _real_operands(A, b, x0)
     _check_options(mf, restart, lam2, step_mult)
     B, M, N = A.shape
     dtype = A.dtype
@@ -806,6 +819,7 @@ def solve_lasso_batch_packed(A, b, lam, Lf, tol, maxit=1000, restart=False,
     the place of the JAX ``interpret`` flag).  ``mf``, ``step_mult`` and
     ``stall_patience`` as in :func:`solve_lasso_batch`; the over-relaxed
     solve starts, as every solve here, with the full step at beta = 0."""
+    _real_operands(A, b, x0)
     _check_options(mf, restart, lam2, step_mult)
     B, M, N = A.shape
     if pack is not None and not (pack >= 1 and B % pack == 0):
@@ -876,6 +890,7 @@ def solve_lasso_batch_packed_tail(A, b, lam, Lf, tol, maxit=2000, k1=192,
     The branch is chosen on the host from one count.  Reported counts are
     ``k1 + phase 2`` for continued lanes.  ``use_kernel=False`` runs the
     plain route.  Returns ``(xs (B, N), iters (B,), done (B,))``."""
+    _real_operands(A, b)
     B, M, N = A.shape
     if not 0 < tail <= B:
         raise ValueError(f"tail must be in (0, {B}], got {tail}")
@@ -921,6 +936,7 @@ def solve_lasso_batch_blocked(A, b, lam, Lf, tol, maxit=2000, iter_block=8,
     dips below tol between samples runs on) and are clamped to ``maxit``.
     ``use_kernel=False`` runs the plain route.  Returns
     ``(xs (B, N), iters (B,) int32, done (B,) bool)``."""
+    _real_operands(A, b, x0)
     B, M, N = A.shape
     dtype = A.dtype
     gamma = 1.0 / _per_lane(Lf, B, A)
@@ -972,6 +988,7 @@ def solve_lasso_batch_compacting(A, b, lam, Lf, tol, maxit=1000,
     marked done (frozen), so that the tail reads only the live lanes' A.
     The finished lanes' results go into buffers on A's device.  Returns
     ``(xs (B, N), iters (B,) int32, done (B,) bool)``."""
+    _real_operands(A, b, x0)
     B, M, N = A.shape
     dtype, dev = A.dtype, A.device
     segment = max(1, int(segment))  # segment <= 0 would spin forever
@@ -1078,6 +1095,7 @@ def _solve_multirhs(stripes, lam, Lf, tol, maxit=2000, iter_block=1,
     ``res``, the restart test, ``t`` and ``done`` come from X and Z, which
     every rank of the group holds whole."""
     require_full_f32_matmul()
+    _real_operands(*(t for stripe in stripes for t in stripe), x0)
     A0, B0 = stripes[0]
     B, N = B0.shape[0], A0.shape[1]
     dtype = A0.dtype
@@ -1149,6 +1167,7 @@ def solve_lasso_batch_mixed(A, b, lam, Lf, tol, maxit=1000, warm_tol=None,
     ``use_kernel`` with another ``warm_dtype`` raises; the plain route
     (``use_kernel=False``) computes at ``A.to(warm_dtype).to(A.dtype)``.
     Returns ``(xs (B, N), iters (B,) int32, done (B,) bool)``."""
+    _real_operands(A, b)
     B, M, N = A.shape
     dtype, dev = A.dtype, A.device
     if use_kernel and warm_dtype not in STEP_A_DTYPES:

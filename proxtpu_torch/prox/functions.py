@@ -461,10 +461,58 @@ class NormL2:
         return z, self(z)
 
 
+_WIDER = {torch.float32: torch.float64, torch.complex64: torch.complex128}
+
+
+def _singular(X, fn=None, floor=None):
+    """``(U diag(fn(s)) V^H, s)`` of the thin SVD ``X = U diag(s) V^H``
+    (s descending, in X's real dtype); ``fn=None`` returns ``(None, s)``.
+    The one way ``NuclearNorm``, ``IndStiefel`` and ``IndRank`` (and their
+    values) decompose X.
+
+    On the CPU it is ``torch.linalg.svd`` (LAPACK) in X's dtype.  On the
+    card a float32 or complex64 X is decomposed in float64 or complex128
+    and the result cast back: cuSOLVER's default float32 driver is about
+    ten times less accurate than LAPACK in float32, enough to hold robust
+    PCA at its cap (PERF.md, the table of SVD ways;
+    ``tools/svd_ways.py``).  Where ``fn`` vanishes at and under ``floor``
+    (the nuclear norm's shrinkage) the card takes the Gram form instead:
+    a batched ``eigh`` of ``X^H X`` (or ``X X^H``) gives V and s^2, and
+    ``Z = X V diag(fn(s) / s) V^H``; every singular value under the floor
+    drops out, so the small ones, which the Gram matrix resolves poorly,
+    never matter.  It needs no U and is the fastest of the ways measured."""
+    wide = _WIDER.get(X.dtype) if X.device.type != "cpu" else None
+    R = real_dtype_of(X)
+    if wide is not None and fn is not None and floor is not None:
+        Z, s = _gram_form(X.to(wide), fn, floor)
+        return Z.to(X.dtype), s.to(R)
+    Xw = X if wide is None else X.to(wide)
+    if fn is None:
+        return None, torch.linalg.svdvals(Xw).to(R)
+    U, s, Vh = torch.linalg.svd(Xw, full_matrices=False)
+    Z = pdot(U * fn(s).unsqueeze(-2).to(U.dtype), Vh)
+    return Z.to(X.dtype), s.to(R)
+
+
+def _gram_form(X, fn, floor):
+    """``(X V diag(fn(s) / s) V^H, s)`` from ``eigh`` of the smaller Gram
+    matrix of X (``X^H X``, or ``X X^H`` for a wide X, whose eigenvectors
+    are then U and the product is taken from the left); the singular values
+    at or under ``floor`` get 0."""
+    tall = X.shape[-2] >= X.shape[-1]
+    w, V = torch.linalg.eigh(pdot(X.mH, X) if tall else pdot(X, X.mH))
+    s = torch.sqrt(torch.clamp(w, min=0)).flip(-1)
+    V = V.flip(-1)
+    big = s > floor
+    scale = torch.where(big, fn(s) / torch.where(big, s, 1), 0)
+    P = pdot(V * scale.unsqueeze(-2).to(V.dtype), V.mH)
+    return (pdot(X, P) if tall else pdot(P, X)), s
+
+
 @dataclass(frozen=True)
 class NuclearNorm:
     """f(X) = lam * ||X||_* (sum of singular values); the prox
-    soft-thresholds the singular values (``torch.linalg.svd``; X is a 2-D
+    soft-thresholds the singular values (:func:`_singular`; X is a 2-D
     leaf).  The SVD's signs and order of singular vectors do not change
     U diag(s') V^H."""
 
@@ -474,14 +522,13 @@ class NuclearNorm:
     is_generalized_quadratic = False
 
     def __call__(self, X):
-        return _rparam(self.lam, X) * torch.sum(torch.linalg.svdvals(X))
+        return _rparam(self.lam, X) * torch.sum(_singular(X)[1])
 
     def prox(self, X, gamma):
-        U, s, Vh = torch.linalg.svd(X, full_matrices=False)
         lam = _rparam(self.lam, X)
-        s_thr = torch.clamp(s - gamma * lam, min=0)
-        Z = pdot(U * s_thr.unsqueeze(-2).to(U.dtype), Vh)
-        return Z, lam * torch.sum(s_thr)
+        t = gamma * lam
+        Z, s = _singular(X, lambda s: torch.clamp(s - t, min=0), floor=t)
+        return Z, lam * torch.sum(torch.clamp(s - t, min=0))
 
 
 def _softplus(v):
@@ -1327,8 +1374,8 @@ class IndStiefel:
                           <= 100 * eps * max(1, X.shape[-2]), X)
 
     def prox(self, X, gamma):
-        U, _, Vh = torch.linalg.svd(X, full_matrices=False)
-        return pdot(U, Vh), _rzero(X)
+        Z, _ = _singular(X, torch.ones_like)
+        return Z, _rzero(X)
 
 
 @dataclass(frozen=True)
@@ -1344,17 +1391,19 @@ class IndRank:
     is_generalized_quadratic = False
 
     def __call__(self, X):
-        s = torch.linalg.svdvals(X)
+        _, s = _singular(X)
         eps = torch.finfo(real_dtype_of(X)).eps
         tail = torch.sum(torch.abs(s[..., self.k:]))
         return _indicator(tail <= 100 * eps * max(X.shape[-2:])
                           * (1 + torch.amax(s)), X)
 
     def prox(self, X, gamma):
-        U, s, Vh = torch.linalg.svd(X, full_matrices=False)
-        keep = torch.arange(s.shape[-1], device=s.device) < self.k
-        s_trunc = torch.where(keep, s, torch.zeros_like(s))
-        return pdot(U * s_trunc.unsqueeze(-2).to(U.dtype), Vh), _rzero(X)
+        def top_k(s):
+            keep = torch.arange(s.shape[-1], device=s.device) < self.k
+            return torch.where(keep, s, torch.zeros_like(s))
+
+        Z, _ = _singular(X, top_k)
+        return Z, _rzero(X)
 
 
 # the rank-ball indicator under ProximalOperators.jl's name
