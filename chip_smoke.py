@@ -74,14 +74,15 @@ Phases, in order; any failure raises and exits non-zero:
    ``benchmarks/run_benchmarks.py`` (FB, FISTA, ZeroFPR, PANOC, PANOCplus,
    Douglas-Rachford, DRLS, AFBA-1, AFBA-2, SFISTA;
    ``proxtpu_torch/tools/reference_suite.py``), each warmed up on
-   ``lasso_tiny.npz`` and timed once on ``lasso_medium.npz`` (500 x 1000;
+   ``lasso_tiny.npz`` (20 iterations) and timed once on
+   ``lasso_medium.npz`` (500 x 1000;
    Douglas-Rachford on ``lasso_small.npz``, 50 x 100) in float64 on the
    card, every one converged and its float64 host recheck
    (the FB fixed-point residual at gamma = 1 / ||A||^2) under twice the JAX
    package's own, beside the JAX CPU record's count; PANOC, ZeroFPR and DRLS
    once more in float32; and ``BatchedAlgorithm`` of PANOC, ZeroFPR and
    DRLS on 64 random 50 x 100 lassos under ``torch.func.vmap`` with the
-   masked searches, every lane rechecked and lanes 0-7 held against their
+   masked searches, every lane rechecked and lanes 0-1 held against their
    single solves.  No kernel lies on this path: every launch counter stays
    at 0;
 9. run the application families (``proxtpu_torch/tools/families.py``): the
@@ -229,7 +230,21 @@ Phases, in order; any failure raises and exits non-zero:
     through ``BatchedAlgorithm``'s default route, no kernel launched and
     bit-equal to ``use_kernels=False``; the phase fails past its 120 s
     budget;
-18. print the kernels' JSON line (time, plain version's time, bound and,
+18. run the code blocks of ``docs/tpu_scaling.md`` on the card (phase
+    "scaling guide", ``proxtpu_torch/examples/scaling_guide.py``) at the
+    scale their text gives: 4096 float64 lassos through ``batch_problems``
+    with a Python ``Lf`` a problem (their data made in a thread while
+    phase "examples" runs) and the same lanes by one factory call,
+    bit-equal; bounded adaptive FB; vmapped power iteration; the sharded
+    PANOC and consensus on a one-rank NCCL group; the TF32 guard; the warm
+    start on a shared A; ``solve_lasso_batch`` (``fb_step``,
+    ``fista_step``); the shared-A leg; ``stream_solve`` of the packed
+    solver (``fista_step``); two Gloo ranks sharing the card in
+    ``dryrun_multichip`` (started with the phase); each block held to what
+    its paragraph claims, its wall, lanes, iterations and launches printed;
+    no other block launches a kernel; the phase fails past its 90 s
+    budget;
+19. print the kernels' JSON line (time, plain version's time, bound and,
     where one PyTorch call computes the same function, that call's time),
     the seconds of every phase, then the result line.
 
@@ -1768,14 +1783,9 @@ def shared_problem():
     """The shared-A lasso path of benchmarks/shared_bench.py:43-60: one A of
     200 x 400 and one b (seed 0), 256 lambdas log-spaced from 0.02 to 0.5
     lambda_max, Lf = ||A||_2^2."""
-    M, N, B = 200, 400, 256
-    rng = np.random.default_rng(0)
-    A = (rng.standard_normal((M, N)) / np.sqrt(M)).astype(np.float32)
-    b = rng.standard_normal(M).astype(np.float32)
-    lam_max = float(np.max(np.abs(A.T @ b)))
-    lams = (lam_max * np.logspace(np.log10(0.02), np.log10(0.5), B)
-            ).astype(np.float32)
-    return A, b, lams, float(np.linalg.norm(A, 2) ** 2)
+    from proxtpu_torch.tools import problems
+
+    return problems.shared_lasso_problem()
 
 
 def shared_recheck(A, b, lams, Lf, xs):
@@ -1946,7 +1956,8 @@ SUITE_F32 = {"PANOC": 3.073568e-04, "ZeroFPR": 2.938888e-04,
              "DRLS": 5.542764e-04}
 SUITE_BUDGET_S = 120.0
 SUITE_BATCH = (64, 50, 100)  # lasso_small's shape, numpy rng 0
-SUITE_BATCH_CHECKED = 8
+SUITE_BATCH_CHECKED = 2  # lanes held against single solves (run time)
+SUITE_WARM_MAXIT = 20  # a warm-up's iterations: first uses, not a solve
 
 
 def suite_solve(solver, kw):
@@ -1961,6 +1972,17 @@ def suite_solve(solver, kw):
     assert x.device.type == torch.device(DEVICE).type, \
         "a reference-suite solve left the card"
     return x, it, time.perf_counter() - t0
+
+
+def suite_warm_up(solver, kw):
+    """``solver`` capped at SUITE_WARM_MAXIT iterations on ``kw``: the
+    timed solve's first uses (allocations, library handles) without its
+    cost."""
+    import copy
+
+    capped = copy.copy(solver)
+    capped.maxit = SUITE_WARM_MAXIT
+    suite_solve(capped, kw)
 
 
 def suite_on_card(workload, dtype):
@@ -1988,11 +2010,11 @@ def suite_batched(card):
     lasso_small's shape on the generic driver under torch.func.vmap, the
     masked searches injected (PANOC and ZeroFPR with the adaptive step, as
     in the suite; DRLS with Lf).  Every lane done and rechecked on the host
-    to 2 tol (the library routes' gate); lanes 0-7 against their single
-    host solves on the card, within 1e-5.  Under vmap a matvec is one
-    batched product, which adds in another order than a single one, so a
-    line search's near-tie decision can flip late in a solve: the count
-    agreement is printed, not gated."""
+    to 2 tol (the library routes' gate); the first SUITE_BATCH_CHECKED
+    lanes against their single host solves on the card, within 1e-5.
+    Under vmap a matvec is one batched product, which adds in another
+    order than a single one, so a line search's near-tie decision can flip
+    late in a solve: the count agreement is printed, not gated."""
     from proxtpu_torch.tools.reference_suite import fb_recheck
 
     import proxtpu_torch as pt
@@ -2053,10 +2075,11 @@ def suite_batched(card):
 
 def phase_reference_suite(card):
     """The reference's benchmark matrix on the port: the ten configurations
-    of benchmarks/run_benchmarks.py, each warmed up once on lasso_tiny and
-    timed once on lasso_medium, in float64 on the card; a float64 host
-    recheck of every answer against its bound; then PANOC, ZeroFPR and DRLS
-    in float32 (full float32 matmuls), and the batched line.  No kernel of
+    of benchmarks/run_benchmarks.py, each warmed up on lasso_tiny
+    (:func:`suite_warm_up`) and timed once on lasso_medium, in float64 on
+    the card; a float64 host recheck of every answer against its bound;
+    then PANOC, ZeroFPR and DRLS in float32 (full float32 matmuls), and the
+    batched line.  No kernel of
     the port lies on this path: every launch counter stays at 0."""
     import proxtpu_torch as pt
     from proxtpu_torch.tools import reference_suite as rs
@@ -2074,7 +2097,7 @@ def phase_reference_suite(card):
     for name in rs.CONFIGS:
         workload = rs.TIMED_ON.get(name, "lasso_medium")
         solver, kw = timed[workload][name]
-        suite_solve(*warm[name])
+        suite_warm_up(*warm[name])
         x, it, wall = suite_solve(solver, kw)
         rows[name] = (workload, x, it, wall, it < solver.maxit,
                       rs.fb_recheck(*rs.load_workload(workload),
@@ -2097,7 +2120,7 @@ def phase_reference_suite(card):
     timed32 = suite_on_card("lasso_medium", torch.float32)
     for name, limit in SUITE_F32.items():
         solver = getattr(pt, name)(tol=rs.FLOAT32_LINE[name])
-        suite_solve(solver, warm32[name][1])
+        suite_warm_up(solver, warm32[name][1])
         x, it, wall = suite_solve(solver, timed32[name][1])
         r = rs.fb_recheck(A, b, lam, x.cpu().numpy())
         print(f"  float32 {name:8s} tol {rs.FLOAT32_LINE[name]:.0e} "
@@ -3963,6 +3986,191 @@ def phase_examples(card):
     assert dt <= EXAMPLES_BUDGET_S, (dt, EXAMPLES_BUDGET_S)
 
 
+SCALING_BUDGET_S = 90.0
+# the blocks of docs/tpu_scaling.md that reach the kernels: 9
+# (solve_lasso_batch: fb_step, then fista_step) and 11
+# (solve_lasso_batch_packed under stream_solve: fista_step from the first
+# step, the packed kernel's port)
+SCALING_KERNELS = {9: {"fb_step", "fista_step"}, 11: {"fista_step"}}
+
+
+def _stats(iters):
+    it = torch.as_tensor(iters).double()
+    return f"max {int(it.max())}, mean {float(it.mean()):.1f}"
+
+
+def _apart(a, b):
+    d = (torch.as_tensor(a).cpu().long()
+         - torch.as_tensor(b).cpu().long()).abs()
+    return f"{int((d > 0).sum())} of {d.numel()} apart, by at most " \
+        f"{int(d.max())}"
+
+
+def _scaling_facts(i, out, outs):
+    """What block ``i`` of docs/tpu_scaling.md did and what it was held
+    to, for its line."""
+    from proxtpu_torch.examples import SCALING_POWER_JAX_WORST
+    from proxtpu_torch.examples import scaling_guide as sg
+
+    if i == 1:
+        k = len(out["iters_single"])
+        return (f"{out['iters'].numel()} lanes float64 (batch_problems "
+                f"and the solve {out['wall']:.3f} s), iterations "
+                f"{_stats(out['iters'])}, every lane done, worst recheck "
+                f"{float(out['recheck'].max()):.3e} (2 tol "
+                f"{2 * out['tol']:.0e}); lanes 0-{k - 1} alone through "
+                f"FastForwardBackward: iterations {out['iters_single']}, "
+                f"{_apart(out['iters_single'], out['iters'][:k])} from the "
+                f"batch, recheck {float(out['recheck_single'].max()):.3e}")
+    if i == 2:
+        return (f"{out['iters'].numel()} lanes, torch.equal to block 1 (xs, "
+                f"iters, done); block 1 {outs[1]['wall']:.3f} s")
+    if i == 3:
+        return (f"{out['iters'].numel()} lanes float64, backtrack_limit 32, "
+                f"iterations {_stats(out['iters'])}, every lane done")
+    if i == 4:
+        rel = (out["Lfs"] - out["Lfs_exact"]).abs() / out["Lfs_exact"]
+        loop = out["Lfs_looped"]
+        gap = (out["Lfs"][:loop.numel()] - loop).abs() / loop
+        return (f"{rel.numel()} lanes, 50 iterations: worst relative error "
+                f"{float(rel.max()):.4e}, {int((rel > sg.OPNORM_CLAIM).sum())}"
+                f" lanes past the text's 0.5% (held to the JAX block's own "
+                f"worst on these As, {SCALING_POWER_JAX_WORST:.4e}); lanes "
+                f"0-{loop.numel() - 1} against their unvmapped calls "
+                f"{float(gap.max()):.1e}")
+    if i in (5, 6):
+        extra = ("" if i == 5 else
+                 f", blocks {out['blocks']}, all-reduces "
+                 f"{out['all_reduces']} "
+                 f"({out['all_reduces'] // out['iterations']} an iteration: "
+                 "the mean and the residual's max)")
+        return (f"one-rank NCCL group, {out['iterations']} iterations in "
+                f"{out['wall']:.3f} s, bit-equal to the unsharded run "
+                f"({out['iterations_unsharded']}){extra}")
+    if i == 7:
+        return ("allow_tf32 on: the FISTA solve raised RuntimeError, the "
+                "flag restored")
+    if i == 8:
+        return (f"{out['iters'].numel()} lambdas float64 tol "
+                f"{out['tol']:.0e}: warm iterations {_stats(out['iters'])} in "
+                f"{out['wall']:.3f} s, cold {_stats(out['iters_cold'])} in "
+                f"{out['wall_cold']:.3f} s "
+                f"({out['wall_cold'] / out['wall']:.2f}x); recheck "
+                f"{float(out['recheck'].max()):.3e} (1.05 tol), "
+                f"warm - cold "
+                f"{float((out['xs'] - out['xs_cold']).abs().max()):.3e} "
+                "(50 tol)")
+    if i == 9:
+        return (f"{out['iters'].numel()} lanes float32, iterations "
+                f"{_stats(out['iters'])}, recheck "
+                f"{float(out['recheck'].max()):.3e} (2 tol); use_kernel=False "
+                f"{_apart(out['iters'], out['iters_plain'])}")
+    if i == 10:
+        return (f"{out['iters'].numel()} lambdas float32, iterations "
+                f"{_stats(out['iters'])}, recheck "
+                f"{float(out['recheck'].max()):.3e} (2 tol); stacked copies "
+                f"on the generic driver {out['wall_stacked']:.3f} s, "
+                f"{_apart(out['iters'], out['iters_stacked'])}")
+    if i == 11:
+        p = out["problems"]
+        worst = max(float(r.max()) for r in out["rechecks"])
+        iters = torch.cat([o[1] for o in out["streamed"]])
+        return (f"{len(out['streamed'])} payloads of "
+                f"{p // len(out['streamed'])} lanes float32, depth 2: "
+                f"{p / out['wall']:.0f} problems/s streamed, fenced one at a "
+                f"time {out['wall_fenced']:.3f} s "
+                f"({p / out['wall_fenced']:.0f} problems/s), torch.equal, "
+                f"in order; iterations "
+                f"{_stats(iters)}, recheck {worst:.3e} (2 tol)")
+    if i == 12:
+        return (f"{out['ranks']} Gloo ranks sharing the card ran "
+                "dryrun_multichip: every sharded layout equals its unsharded "
+                "run")
+    raise KeyError(i)
+
+
+def start_scaling_data():
+    """Block 1's 4096 lanes (``scaling_guide.prepare``) made in a thread
+    while the phases before "scaling guide" run: numpy's generator leaves
+    the interpreter free, and the draw takes seconds of the host."""
+    import concurrent.futures
+
+    from proxtpu_torch.examples import scaling_guide as sg
+
+    def make():
+        t0 = time.perf_counter()
+        sg.prepare()
+        return time.perf_counter() - t0
+
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    future = pool.submit(make)
+    pool.shutdown(wait=False)
+    return future
+
+
+def phase_scaling_guide(card, data):
+    """The code blocks of docs/tpu_scaling.md on the card
+    (``proxtpu_torch/examples/scaling_guide.py``), in order, each at the
+    scale its own text gives and held to what its paragraph claims
+    (``scaling_guide.check``); blocks 5 and 6 on a one-rank NCCL group,
+    block 12 on two Gloo ranks of its own, started with the phase.  Each
+    block's wall, lanes, iterations, what it was held to and its kernel
+    launches are printed; block 9 launches fb_step and fista_step, block
+    11 fista_step, no other block a kernel.  The phase must end within
+    SCALING_BUDGET_S.  Returns the launches.  ``data``:
+    :func:`start_scaling_data`'s future."""
+    import concurrent.futures
+
+    from proxtpu_torch.examples import scaling_guide as sg
+
+    t_phase = time.perf_counter()
+    made = data.result()
+    print(f"  block 1's lasso_data({sg.LANES}, {sg.M}, {sg.N}) in float64: "
+          f"made in a thread in {made:.1f} s, waited "
+          f"{time.perf_counter() - t_phase:.1f} s  [{card}]")
+    counters = launch_counters()
+    outs, walls, total = {}, {}, {}
+    group = contextlib.ExitStack()  # one NCCL group for blocks 5 and 6
+    # block 12's ranks are processes of their own: they start now and run
+    # beside blocks 1-11 (most of their wall is starting up)
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    dryrun = pool.submit(sg.BLOCKS[("tpu_scaling.md", 12)], device=DEVICE)
+    pool.shutdown(wait=False)
+    for key, fn in sg.BLOCKS.items():
+        i = key[1]
+        kw = {"scenario": outs[1]} if i == 2 else {}
+        before = {k: getattr(wr, a) for k, (wr, a) in counters.items()}
+        if i == 5:
+            group.enter_context(nccl_one_rank())
+        if i == 12:
+            out = dryrun.result()
+            walls[i] = out["wall"]
+        else:
+            out, walls[i] = timed(functools.partial(fn, device=DEVICE, **kw))
+        if i == 6:
+            group.close()
+        after = {k: getattr(wr, a) for k, (wr, a) in counters.items()}
+        launched = {k: after[k] - before[k] for k in after
+                    if after[k] != before[k]}
+        sg.check(key, out)
+        print(f"  tpu_scaling.md:{i} {fn.__name__}: {walls[i]:.3f} s; "
+              f"{_scaling_facts(i, out, outs)}; kernel launches "
+              f"{launched or 'none'}  [{card}]")
+        assert set(launched) == SCALING_KERNELS.get(i, set()), (i, launched)
+        for k, n in launched.items():
+            total[k] = total.get(k, 0) + n
+        outs[i] = out
+    sg._lassos.cache_clear()
+    sg.prepare.cache_clear()
+    del outs
+    dt = time.perf_counter() - t_phase
+    print(f"  scaling guide: {dt:.1f} s (budget {SCALING_BUDGET_S:.0f} s); "
+          "blocks " + ", ".join(f"{i} {w:.1f}" for i, w in walls.items())
+          + f"  [{card}]")
+    assert dt <= SCALING_BUDGET_S, (dt, SCALING_BUDGET_S)
+    return total
+
+
 def kernel_bounds():
     """``{kernel: (shape, ms, by)}``: the bound of each kernel at the shape
     its times in the JSON line are taken at.  Bytes: every operand read
@@ -4068,8 +4276,13 @@ def main():
     tp_legs = phase("tp legs at (1, 1)", phase_tp_one_rank, card)
     phase("tp legs", phase_tp_legs, card, tp_legs, y_walls)
     phase("entry", check_entry, card)
+    scaling_data = start_scaling_data()
     print("the examples and the guides' code on the card:")
     phase("examples", phase_examples, card)
+    print("the code blocks of docs/tpu_scaling.md on the card:")
+    for k, n in phase("scaling guide", phase_scaling_guide, card,
+                      scaling_data).items():
+        launches[k] = launches.get(k, 0) + n
     launches["read_reduce"] = floor_launches
     kernels = {
         "fista_step": ("lasso_step.cu", "proxtpu/kernels/lasso.py:156"),

@@ -135,7 +135,13 @@ def as_linop(A):
 def power_iteration_opnorm(op, x_like, iters=50, generator=None):
     """Estimate ||A||_2 by power iteration on A^H A, from a normal start
     drawn by ``generator`` (a ``torch.Generator`` on the iterate's device;
-    default: seeded with 0)."""
+    default: seeded with 0).
+
+    Under ``torch.func.vmap`` (one estimate a lane, as the JAX package's
+    ``jax.vmap`` of its fixed-key version) pass ``randomness="same"``:
+    ``vmap`` refuses the draw in its default mode, and ``"same"`` gives
+    every lane the start, and so the estimate, of its own unvmapped call
+    (to rounding: the batched products sum in another order)."""
     dev = tree_leaves(x_like)[0].device
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)

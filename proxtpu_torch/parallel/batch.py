@@ -27,7 +27,8 @@ import torch
 
 from ..utils.host_loop import run_host_loop
 from ..utils.shared import Shared, unwrap_shared
-from ..utils.tree import _children, flatten, tree_leaves, tree_map
+from ..utils.tree import _children, flatten, real_dtype_of, tree_leaves, \
+    tree_map
 from .sharded_ops import lane_parallel
 
 # steps between the host's all-done tests: the generic driver's default K
@@ -37,56 +38,134 @@ from .sharded_ops import lane_parallel
 _CHECK_EVERY = 8
 
 
-def _skeleton(node):
-    """A comparable picture of everything in ``node`` but its tensors."""
-    if isinstance(node, torch.Tensor):
-        return ("tensor",)
-    if isinstance(node, Shared):
-        return ("shared", _skeleton(object.__getattribute__(node, "value")))
-    if dataclasses.is_dataclass(node) and not isinstance(node, type):
-        return (type(node), tuple((f.name, _skeleton(getattr(node, f.name)))
-                                  for f in dataclasses.fields(node)))
-    kids = None if node is None else _children(node)
-    if kids is None:
-        return ("value", node)
-    keys = tuple(node) if isinstance(node, dict) else ()
-    return (type(node), keys, tuple(_skeleton(c) for c in kids[0]))
+# The fields the JAX package declares static (``proxclass``'s
+# ``meta_fields``), by class: there a number in such a field is part of the
+# structure, not a leaf, so problems that differ in it do not stack.
+_META = ("adaptive", "max_backtracks", "directions", "backtrack_limit")
+_STATIC_FIELDS = {
+    "FastForwardBackwardIteration": ("adaptive", "extrapolation",
+                                     "backtrack_limit"),
+    "ForwardBackwardIteration": ("adaptive", "backtrack_limit"),
+    "PANOCIteration": _META,
+    "ZeroFPRIteration": _META,
+    "PANOCplusIteration": _META,
+    "DRLSIteration": ("max_backtracks", "directions", "dre_sign",
+                      "backtrack_limit"),
+    "SFISTAIteration": ("termination_type",),
+    "LiLinIteration": ("theta_restart",),
+    "ConsensusADMMIteration": ("num_blocks",),
+    "ConstantNesterovSequence": ("m", "stepsize"),
+    "AdaptiveNesterovSequence": ("m",),
+    "NesterovExtrapolation": ("sequence",),
+    "AdaptiveRestartSequence": ("sequence",),
+    "LBFGS": ("mem",),
+    "AndersonAcceleration": ("mem",),
+    "Grad2DOperator": ("shape",),
+    "ShardedMatrixOperator": ("mesh", "row_axis", "col_axis"),
+    "NormL21": ("axis",),
+    "LeastSquares": ("wide",),
+    "IndBallL0": ("k",),
+    "IndCappedSimplex": ("k",),
+    "SumLargest": ("k",),
+    "IndRank": ("k",),
+    "IndPolyhedral": ("maxit",),
+    "TotalVariation1D": ("maxit", "restart"),
+    "AutoDifferentiable": ("fn",),
+    "SlicedSeparableSum": ("slices",),
+}
+
+
+def _is_number(v):
+    return isinstance(v, (int, float)) and not isinstance(v, bool)
+
+
+def _same(a, b):
+    return a is b or bool(a == b)
 
 
 def stack_iterations(iterations):
     """Stack iteration objects of one structure into one batched iteration:
     every tensor gains a leading batch axis.
 
-    Everything else (numbers, flags, strategy objects) must be equal across
-    the iterations, or this raises: a number is not a lane array in the
-    port (pass per-problem hyperparameters such as ``NormL1``'s ``lam`` as
-    tensors).  Shared-marked data cannot be stacked: stacking B copies
-    inside a Shared wrapper would batch data the drivers then treat as
-    lane-invariant.  Build the batched iteration through one factory call
-    with stacked kwargs (or :class:`BatchedAlgorithm`) instead."""
+    A number that differs across the iterations becomes a ``(B,)`` tensor
+    (in the real dtype of the iterations' tensors, on their device), as the
+    JAX package stacks a Python number that is a pytree leaf; numbers equal
+    in every iteration stay numbers.  Flags, strategies and the numbers of
+    the fields the JAX package holds static (``backtrack_limit``, a
+    memory, ``k``) must be equal, or this raises.  Shared-marked data
+    cannot be stacked: stacking B copies inside a Shared wrapper would
+    batch data the drivers then treat as lane-invariant.  Build the batched
+    iteration through one factory call with stacked kwargs (or
+    :class:`BatchedAlgorithm`) instead."""
     return _stack(iterations, "stack_iterations")
 
 
 def _stack(objs, name):
     """Stack objects of one structure (``name`` is the caller, for the
-    errors): every tensor gains a leading batch axis."""
+    errors): every tensor gains a leading batch axis, every number that
+    differs outside a static field becomes a lane tensor."""
     objs = list(objs)  # accept generators
-    flat = [flatten(o) for o in objs]
-    for _, spec in flat:
-        if any(spec.shared):
+    for o in objs:
+        if any(flatten(o)[1].shared):
             raise ValueError(
                 f"{name} cannot stack Shared-marked problem data; "
                 "call the factory once with stacked kwargs and keep the "
                 "Shared operand outside the stack (see BatchedAlgorithm)")
-    first = _skeleton(objs[0])
-    for i, o in enumerate(objs[1:], start=1):
-        if _skeleton(o) != first:
-            raise ValueError(
-                f"{name}: iteration {i} differs from iteration 0 "
-                "in a part that is not a tensor (a number, flag or "
-                "strategy); pass per-problem values as tensors")
-    leaves = [torch.stack(ls) for ls in zip(*(lv for lv, _ in flat))]
-    return flat[0][1].unflatten(leaves)
+    x0 = getattr(objs[0], "x0", None)
+    tensors = flatten(x0)[0] or flatten(objs[0])[0]
+    like = next((t for t in tensors if t.is_floating_point()
+                 or t.is_complex()), None)
+
+    def numbers(values):
+        if all(isinstance(v, int) for v in values):
+            dtype = torch.int64
+        else:
+            dtype = (torch.get_default_dtype() if like is None
+                     else real_dtype_of(like))
+        return torch.tensor(values, dtype=dtype,
+                            device=None if like is None else like.device)
+
+    def refuse(i):
+        raise ValueError(
+            f"{name}: iteration {i} differs from iteration 0 in a part "
+            "that is not a tensor or a number (a flag, a strategy, or a "
+            "number the JAX package holds static)")
+
+    def walk(nodes, static):
+        first = nodes[0]
+        kinds = [type(n) for n in nodes]
+        if isinstance(first, torch.Tensor):
+            for i, n in enumerate(nodes):
+                if not isinstance(n, torch.Tensor):
+                    refuse(i)
+            return torch.stack(nodes)
+        if dataclasses.is_dataclass(first) and not isinstance(first, type):
+            for i, k in enumerate(kinds):
+                if k is not kinds[0]:
+                    refuse(i)
+            meta = _STATIC_FIELDS.get(type(first).__name__, ())
+            return dataclasses.replace(first, **{
+                f.name: walk([getattr(n, f.name) for n in nodes],
+                             static or f.name in meta)
+                for f in dataclasses.fields(first)})
+        kids = None if first is None else _children(first)
+        if kids is not None:
+            keys = tuple(first) if isinstance(first, dict) else None
+            parts = []
+            for i, n in enumerate(nodes):
+                if (type(n) is not kinds[0] or len(n) != len(first)
+                        or (keys is not None and tuple(n) != keys)):
+                    refuse(i)
+                parts.append(_children(n)[0])
+            return kids[1]([walk(list(c), static) for c in zip(*parts)])
+        for i, n in enumerate(nodes):
+            if not _same(n, first):
+                if static or not all(_is_number(v) for v in nodes):
+                    refuse(i)
+                return numbers(nodes)
+        return first
+
+    return walk(objs, False)
 
 
 def broadcast_hyperparams(iteration):

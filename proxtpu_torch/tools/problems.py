@@ -5,7 +5,9 @@ port (numpy only, so a test can feed both packages the same arrays).
 m, n)`` and ``benchmarks/scaling.py::gen_problems(batch, m, n)`` are one
 generator at different arguments: :func:`lasso_problems` gives their arrays
 byte for byte (``tests/test_torch_problems.py``).  :func:`box_qp_problems`
-is the nonconvex box-QP family of ``benchmarks/families_bench.py``.
+is the nonconvex box-QP family of ``benchmarks/families_bench.py``,
+:func:`shared_lasso_problem` the lambda path of
+``benchmarks/shared_bench.py``.
 """
 
 from __future__ import annotations
@@ -21,14 +23,37 @@ def lasso_problems(batch, m=M, n=N, dtype=np.float32, seed=0):
     """``(As, bs, lams, Lfs)``: ``batch`` lassos with A (m, n) standard
     normal over sqrt(m), b standard normal, ``lam = 0.1 ||A^T b||_inf`` and
     ``Lf = ||A||_2^2``, from ``numpy.random.default_rng(seed)``."""
-    rng = np.random.default_rng(seed)
-    As = (rng.standard_normal((batch, m, n)) / np.sqrt(m)).astype(dtype)
-    bs = rng.standard_normal((batch, m)).astype(dtype)
-    lams = (0.1 * np.max(np.abs(np.einsum("bmn,bm->bn", As, bs)), axis=1)
-            ).astype(dtype)
+    As, bs, lams = lasso_data(batch, m, n, dtype, seed)
     Lfs = np.array([np.linalg.norm(As[i], 2) ** 2 for i in range(batch)],
                    dtype=dtype)
     return As, bs, lams, Lfs
+
+
+def lasso_data(batch, m=M, n=N, dtype=np.float32, seed=0):
+    """``(As, bs, lams)`` of :func:`lasso_problems`, without the norms (one
+    SVD a lane on the host, most of the generator's time at thousands of
+    lanes)."""
+    rng = np.random.default_rng(seed)
+    As = rng.standard_normal((batch, m, n))
+    As /= np.sqrt(m)  # in place: the same bits as a new array, one pass
+    As = As.astype(dtype, copy=False)
+    bs = rng.standard_normal((batch, m)).astype(dtype)
+    lams = (0.1 * np.max(np.abs(np.einsum("bmn,bm->bn", As, bs)), axis=1)
+            ).astype(dtype)
+    return As, bs, lams
+
+
+def shared_lasso_problem(batch=BATCH, m=M, n=N, dtype=np.float32, seed=0):
+    """The shared-A lasso path of ``benchmarks/shared_bench.py:43-60``:
+    ``(A, b, lams, Lf)``, one A (m, n) and one b, ``batch`` lambdas
+    log-spaced from 0.02 to 0.5 lambda_max, ``Lf = ||A||_2^2``."""
+    rng = np.random.default_rng(seed)
+    A = (rng.standard_normal((m, n)) / np.sqrt(m)).astype(dtype)
+    b = rng.standard_normal(m).astype(dtype)
+    lam_max = float(np.max(np.abs(A.T @ b)))
+    lams = (lam_max * np.logspace(np.log10(0.02), np.log10(0.5), batch)
+            ).astype(dtype)
+    return A, b, lams, float(np.linalg.norm(A, 2) ** 2)
 
 
 def box_qp_problems(B, n, seed):

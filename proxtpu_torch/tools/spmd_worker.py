@@ -32,7 +32,9 @@ layout on the shared-A solver, the flat machines, DRLS and Douglas-Rachford
 on the JAX dp x tp test's problem (``multirhs_tp``, ``flat_tp``,
 ``drls_tp``: the design's all-reduces a step or trip, tp ranks bit-equal,
 the bits of the stripes emulated in one process); ``--cases tp_legs`` runs
-them at ``shared_tp``'s width and times them.
+them at ``shared_tp``'s width and times them.  ``--cases scaling`` runs
+``docs/tpu_scaling.md``'s blocks 5 and 6 and the dry run
+(``examples/scaling_guide.py``; its block 12 starts the ranks).
 """
 
 from __future__ import annotations
@@ -288,6 +290,10 @@ CPU_CASES = ("operator", "panoc", "consensus", "dp_batch", "global_mesh",
 # the tp legs on the CPU (tests/test_torch_tp_legs.py runs them alone)
 TP_CASES = ("multirhs_tp", "flat_tp", "drls_tp")
 CARD_CASES = ("flagship", "rows_panoc", "blocks_consensus")
+# docs/tpu_scaling.md's blocks 5, 6 and 12 (examples/scaling_guide.py);
+# block 6 in eight blocks, one a device of the JAX tests' mesh
+SCALING_CASES = ("scaling_panoc", "scaling_consensus", "dryrun")
+SCALING_BLOCKS = 8
 
 
 def case(fn):
@@ -1391,6 +1397,28 @@ def multiprocess(ctx):
 
 
 @case
+def scaling_panoc(ctx):
+    """docs/tpu_scaling.md's block 5 on every rank."""
+    from ..examples import scaling_guide as sg
+
+    out = sg.sharded_panoc(ctx.device_type)
+    sg.check(("tpu_scaling.md", 5), out)
+    return {"x": _np(out["x"]), "it": np.asarray(out["iterations"])}
+
+
+@case
+def scaling_consensus(ctx):
+    """docs/tpu_scaling.md's block 6 on every rank, in SCALING_BLOCKS
+    blocks."""
+    from ..examples import scaling_guide as sg
+
+    out = sg.consensus(ctx.device_type, blocks=SCALING_BLOCKS)
+    sg.check(("tpu_scaling.md", 6), out)
+    return {"x": _np(out["x"]), "it": np.asarray(out["iterations"]),
+            "all_reduces": np.asarray(out["all_reduces"])}
+
+
+@case
 def dryrun(ctx):
     from .graft_entry import dryrun_multichip
 
@@ -1576,8 +1604,8 @@ def rank_main(args):
 
 
 def _case_names(cases):
-    names = {"cpu": CPU_CASES, "card": CARD_CASES,
-             "tp": TP_CASES}.get(cases)
+    names = {"cpu": CPU_CASES, "card": CARD_CASES, "tp": TP_CASES,
+             "scaling": SCALING_CASES}.get(cases)
     names = names or tuple(cases.split(","))
     unknown = [n for n in names if n not in CASES]
     if unknown:
@@ -1648,7 +1676,8 @@ def main(argv=None):
     p.add_argument("--backend", choices=("gloo", "nccl"), required=True)
     p.add_argument("--device", choices=("cpu", "cuda"), required=True)
     p.add_argument("--cases", default="cpu",
-                   help="'cpu', 'card', 'tp' or a comma-separated list")
+                   help="'cpu', 'card', 'tp', 'scaling' or a "
+                   "comma-separated list")
     p.add_argument("--out", required=True)
     p.add_argument("--timeout", type=float, default=240.0)
     p.add_argument("--rank", type=int, help=argparse.SUPPRESS)

@@ -256,12 +256,53 @@ def test_stack_iterations_accepts_generators():
     assert stacked.f.A.shape == (3, 8, 12)
 
 
+def _python_number_lasso(k, jax_side):
+    """``random_lasso(k)``'s data with Python ``lam`` and ``Lf`` (numbers
+    that differ from problem to problem) and the stacked-A loss."""
+    rng = np.random.default_rng(k)
+    A = rng.standard_normal((8, 12))
+    b = rng.standard_normal(8)
+    lam = 0.1 * float(np.max(np.abs(A.T @ b)))
+    Lf = float(np.linalg.norm(A, 2) ** 2)
+    if jax_side:
+        return dict(x0=jnp.zeros(12, jnp.float64),
+                    f=JLeastSquaresLoss(jnp.asarray(A), jnp.asarray(b)),
+                    g=JNormL1(lam), Lf=Lf)
+    return dict(x0=torch.zeros(12, dtype=torch.float64),
+                f=LeastSquaresLoss(torch.tensor(A), torch.tensor(b)),
+                g=NormL1(lam), Lf=Lf)
+
+
 def test_stack_iterations_refuses_differing_numbers():
-    """A number is not a lane array in the port: iterations whose
-    non-tensor parts differ are refused (the JAX package stacks Python
-    numbers as leaves; pass them as tensors here)."""
-    problems = [random_lasso(k) for k in range(2)]
-    for p, lam in zip(problems, (0.1, 0.2)):
-        p["g"] = NormL1(lam)
-    with pytest.raises(ValueError, match="not a tensor"):
-        batch_problems(make_fast_forward_backward_iteration, problems)
+    """Numbers that differ across problems become lanes, as the JAX package
+    stacks a Python number that is a pytree leaf: per-problem Python
+    ``lam`` and ``Lf`` give the JAX package's float64 counts, solutions
+    within 1e-12.  A flag, or a number the JAX package holds static
+    (``backtrack_limit``), that differs is still refused."""
+    port_it = batch_problems(make_fast_forward_backward_iteration,
+                             [_python_number_lasso(k, False)
+                              for k in range(4)])
+    assert port_it.g.lam.shape == (4,)
+    assert port_it.g.lam.dtype == torch.float64
+    xs, iters, done = batched_run_loop(port_it, 2000, TOL)
+    jax_it = jpar.batch_problems(j_make_fista,
+                                 [_python_number_lasso(k, True)
+                                  for k in range(4)])
+    xs_j, iters_j, done_j = jpar.batched_run_loop(jax_it, 2000, TOL)
+    np.testing.assert_array_equal(iters.numpy(), np.asarray(iters_j))
+    assert bool(done.all()) and bool(np.all(done_j))
+    np.testing.assert_allclose(xs.numpy(), np.asarray(xs_j), rtol=0,
+                               atol=1e-12)
+    for k, v in (("adaptive", (True, False)), ("backtrack_limit", (8, 16))):
+        problems = [dict(random_lasso(i), **{k: v[i]}) for i in range(2)]
+        with pytest.raises(ValueError, match="not a tensor or a number"):
+            batch_problems(make_fast_forward_backward_iteration, problems)
+
+
+def test_stack_iterations_keeps_equal_numbers():
+    """Numbers equal in every problem stay numbers, so problems that
+    batched before keep their routes and bits."""
+    problems = [dict(random_lasso(k), g=NormL1(0.25)) for k in range(3)]
+    it = batch_problems(make_fast_forward_backward_iteration, problems)
+    assert it.g.lam == 0.25 and isinstance(it.g.lam, float)
+    assert it.backtrack_limit is None and it.adaptive is False
