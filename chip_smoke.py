@@ -21,11 +21,16 @@ Phases, in order; any failure raises and exits non-zero:
    their plan; ``cp_k_steps`` at the device's pace over K = 1, 2, 4, 8
    (the intercept is the load, store and launch, the slope one step) with
    its plan; time the read-floor probe ``read_reduce`` at every step
-   kernel's shape, and its wrapper's host time by part; the bfloat16-A
-   instances of ``fb_step`` and ``fista_step`` at every check shape and
-   every branch of their plan at 2 bytes an entry, each bit-equal to the
+   kernel's shape, and its wrapper's host time by part; its bfloat16
+   instance against its plain version; the bfloat16-A instances of
+   ``fb_step`` and ``fista_step`` at every check shape and every branch of
+   their plan at 2 bytes an entry (and both choices of each pass: x in
+   registers or not, one or two columns a thread), each bit-equal to the
    float32 kernel on ``A16.float()`` and near the plain version there,
-   then timed at the main path's two shapes beside the float32 instances;
+   then timed at the main path's two shapes beside their bound, their read
+   floor (``read_reduce`` on the bf16 A, beside the library call
+   ``A16.sum(dim=(1, 2), dtype=torch.float32)``) and the float32
+   instances;
 4. run the main path at full size: 256 distinct-A lasso problems of
    200 x 400 (``bench.gen_problems``, seed 0, from the port's copy in
    ``proxtpu_torch/tools/problems.py``) through
@@ -280,9 +285,12 @@ STEP_SHAPES = MAIN_SHAPES + [(256, 400, 200), (64, 512, 1024),
 # too wide for three one-row stages beside x, g and r (the lane in place)
 CHECK_SHAPES = STEP_SHAPES + [(7, 33, 161), (5, 300, 250), (2, 24, 12000)]
 # the bfloat16-A instances at the same shapes (at 2 bytes an entry
-# (2, 24, 12000) walks a ring of one-row tiles) and at a lane whose bf16
-# rows are still too wide for a ring (read in place)
-BF16_CHECK_SHAPES = CHECK_SHAPES + [(2, 24, 20000)]
+# (2, 24, 12000) walks a ring of one-row tiles), at a lane whose bf16 rows
+# are still too wide for a ring (read in place), at an odd N through a ring
+# (one column a thread in pass 2) and at an N just too wide for x in
+# registers in pass 1
+BF16_CHECK_SHAPES = CHECK_SHAPES + [(2, 24, 20000), (9, 300, 251),
+                                    (16, 200, 520)]
 # One step against its plain version.  Both sum 200- to 1024-term f32
 # products in different orders (warp shuffles vs cuBLAS), so each output
 # carries a few ulps of its largest partial sums: iterates and residuals
@@ -343,6 +351,12 @@ PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
 
 
+# route (h)'s device ms per solve (launches x the kernels' times at the
+# device's pace), restart off and on, when the bf16 instances ran the
+# float32 kernels' body (NVIDIA H100 80GB HBM3, 700 W)
+H_DEVICE_MS_F32_DESIGN = {False: 19.9, True: 9.41}
+
+
 def bound(nbytes, ops):
     """``(ms, by)``: the least time the card could take to move ``nbytes``
     (each input read once, each output written once) or do ``ops`` float32
@@ -375,9 +389,10 @@ def lasso_bound(B, M, N, vecs, scalars, steps, a_bytes=4):
 STEP_OPERANDS = {"fb_step": (2, 3), "fista_step": (4, 6)}
 
 
-def read_bound(B, M, N):
-    """read_reduce: A -> out, one addition per entry."""
-    return bound(4 * (B * M * N + B), B * M * N)
+def read_bound(B, M, N, a_bytes=4):
+    """read_reduce: A (``a_bytes`` an entry) -> out, one addition per
+    entry."""
+    return bound(a_bytes * B * M * N + 4 * B, B * M * N)
 
 
 def run(cmd):
@@ -510,23 +525,27 @@ def raises(exc, fn):
 def check_bf16_kernels():
     """The bfloat16-A instances of fb_step and fista_step at every shape of
     BF16_CHECK_SHAPES, which reach every branch of their plan at 2 bytes an
-    entry, with and without shrink, restart off and on, with and without
-    frozen lanes: each result is equal to the last bit to the float32
-    kernel's on ``A16.float()`` (the same sums in the same order on the
-    same values), and within ATOL / RS_RTOL of the plain version there.
-    Operands they do not take raise.  Returns the largest error against the
-    plain version per instance."""
+    entry (and both choices of each of its passes: x in registers or in
+    shared memory, one or two columns a thread), with and without shrink,
+    restart off and on, with and without frozen lanes: each result is equal
+    to the last bit to the float32 kernel's on ``A16.float()`` (the same
+    sums in the same order on the same values), and within ATOL / RS_RTOL
+    of the plain version there.  Operands they do not take raise.  Returns
+    the largest error against the plain version per instance."""
     from proxtpu_torch.kernels import _build
     from proxtpu_torch.kernels import lasso as tl
 
     worst = {"fb_step_bf16": 0.0, "fista_step_bf16": 0.0}
-    branches = set()
+    branches, passes = set(), set()
     sms, limit = _build.sm_count(0), _build.max_shared_bytes(0)
     for B, M, N in BF16_CHECK_SHAPES:
         d = step_inputs(B, M, N, seed=B + M + N)
         A16 = d["A"].to(torch.bfloat16)
         A32 = A16.float()
-        threads, R, S, smem = tl.step_plan(B, M, N, sms, limit, elem=2)
+        threads, R, S, smem, cols, xregs = tl.step_plan(B, M, N, sms, limit,
+                                                        elem=2)
+        passes |= {f"{cols} column(s) a thread",
+                   "x in registers" if xregs else "x in shared memory"}
         branch = ("in place" if S == 0 else
                   ("one stage, " if S == 1 else "ring, ")
                   + ("bulk copy" if N * 2 % 16 == 0 else "ordinary loads"))
@@ -569,13 +588,17 @@ def check_bf16_kernels():
                                                    err)
                     cases += 1
         print(f"  fb_step_bf16 / fista_step_bf16 {(B, M, N)}: {threads} "
-              f"threads, {S} stages of {R} rows, {smem} bytes ({branch}); "
+              f"threads, {S} stages of {R} rows, {smem} bytes ({branch}), "
+              f"{cols} column(s) a thread, x in "
+              f"{'registers' if xregs else 'shared memory'}; "
               f"equal to the float32 kernel on A16.float() in {cases} cases, "
               f"max|err| to the plain version {worst['fb_step_bf16']:.3e} / "
               f"{worst['fista_step_bf16']:.3e}")
     assert branches == {"ring, bulk copy", "ring, ordinary loads",
                         "one stage, bulk copy", "one stage, ordinary loads",
                         "in place"}, branches
+    assert passes == {"1 column(s) a thread", "2 column(s) a thread",
+                      "x in registers", "x in shared memory"}, passes
     d = step_inputs(*MAIN_SHAPES[1], seed=sum(MAIN_SHAPES[1]))
     A16 = d["A"].to(torch.bfloat16)
     fb = (d["b"], d["x"], d["gamma"], d["thr"])
@@ -681,7 +704,7 @@ def time_kernels(card):
             g = pace[(name, (B, M, N))] = graph_ms(kernel)
             held = ctypes.c_int()
             _build.check(_build.library().proxtpu_step_blocks_per_sm(
-                int(name == "fista_step"), 4, M, N, *plan,
+                int(name == "fista_step"), 4, M, N, *plan, 1, 0,
                 ctypes.byref(held)), "step_blocks_per_sm")
             print(f"  {name:10s} {(B, M, N)}: kernel {1e3 * k:.1f} us eager "
                   f"(runs {1e3 * statistics.median(k1):.1f} / "
@@ -706,18 +729,42 @@ def time_bf16_kernels(card, pace):
     path's two shapes, against their plain versions (the float32 step on A
     cast up per call), in an eager loop and at the device's pace, with the
     plan at 2 bytes an entry, the blocks one SM holds and the bound, beside
-    the float32 instance's time at the device's pace (``pace`` of
-    time_kernels, which this adds the bf16 instances to).  Returns the
-    flagship-shape eager medians per instance."""
+    their read floor (``read_reduce`` on the bf16 A, against its plain
+    version and the library call ``A16.sum(dim=(1, 2),
+    dtype=torch.float32)``) and the float32 instance's time at the device's
+    pace (``pace`` of time_kernels, which this adds the bf16 instances and
+    the floor to).  Returns the flagship-shape eager medians per kernel
+    (kernel, plain), the floor's library call there, and the launches of
+    the floor's bf16 instance in this phase."""
     import ctypes
 
-    from proxtpu_torch.kernels import _build
+    from proxtpu_torch.kernels import _build, probe
     from proxtpu_torch.kernels import lasso as tl
 
-    flagship = {}
+    flagship, library = {}, None
+    probe.read_reduce.launches_bf16 = 0
     for B, M, N in MAIN_SHAPES:
         d = step_inputs(B, M, N, seed=B + M + N)
         A16 = d["A"].to(torch.bfloat16)
+        # the floor: read_reduce on the bf16 A, its plain version, the
+        # library call
+        res, scratch = torch.empty(B, device=DEVICE), \
+            probe.read_reduce_scratch(A16)
+        floor = lambda: probe.read_reduce(A16, out=res, scratch=scratch)  # noqa: E731
+        lib_sum = lambda: A16.sum(dim=(1, 2), dtype=torch.float32)  # noqa: E731
+        nbytes = A16.numel() * 2 + B * 4
+        k, p = time_pair("read_reduce_bf16", floor,
+                         lambda: probe.reference_read_reduce(A16),
+                         f"{(B, M, N)}", card, nbytes)
+        lib_ms = statistics.median(time_ms(lib_sum, reps=10))
+        g = pace[("read_reduce_bf16", (B, M, N))] = graph_ms(floor)
+        lib_g = graph_ms(lib_sum)
+        print(f"    at the device's pace (CUDA graph): kernel {1e3 * g:.1f} "
+              f"us, library A16.sum(dtype=float32) {1e3 * lib_g:.1f} us "
+              f"(eager {1e3 * lib_ms:.1f}); bound "
+              f"{1e3 * read_bound(B, M, N, 2)[0]:.1f} us  [{card}]")
+        if (B, M, N) == MAIN_SHAPES[0]:
+            flagship["read_reduce_bf16"], library = (k, p), lib_ms
         live = torch.zeros_like(d["done"])
         fb = (d["b"], d["x"], d["gamma"], d["thr"])
         rest = (d["beta"], d["gamma"], d["thr"], live)
@@ -745,6 +792,7 @@ def time_bf16_kernels(card, pace):
                 ctypes.byref(held)), "step_blocks_per_sm")
             base = name[:-len("_bf16")]
             bnd = lasso_bound(B, M, N, *STEP_OPERANDS[base], 1, a_bytes=2)[0]
+            floor_g = pace[("read_reduce_bf16", (B, M, N))]
             print(f"  {name:15s} {(B, M, N)}: kernel {1e3 * k:.1f} us eager "
                   f"(runs {1e3 * statistics.median(k1):.1f} / "
                   f"{1e3 * statistics.median(k2):.1f}), {1e3 * g:.1f} us at "
@@ -754,12 +802,15 @@ def time_bf16_kernels(card, pace):
                   f"pace; plain {1e3 * p:.1f} us (runs "
                   f"{1e3 * statistics.median(p1):.1f} / "
                   f"{1e3 * statistics.median(p2):.1f}); bound "
-                  f"{1e3 * bnd:.1f} us; plan {plan[0]} threads, {plan[2]} "
-                  f"stages of {plan[1]} rows, {plan[3]} bytes, {held.value} "
-                  f"blocks per SM  [{card}]")
+                  f"{1e3 * bnd:.1f} us, bf16 read floor {1e3 * floor_g:.1f} "
+                  f"us, library call: none; plan {plan[0]} threads, "
+                  f"{plan[2]} stages of {plan[1]} rows, {plan[3]} bytes, "
+                  f"{plan[4]} column(s) a thread in pass 2, x in "
+                  f"{'registers' if plan[5] else 'shared memory'}, "
+                  f"{held.value} blocks per SM  [{card}]")
             if (B, M, N) == MAIN_SHAPES[0]:
                 flagship[name] = (k, p)
-    return flagship
+    return flagship, library, probe.read_reduce.launches_bf16
 
 
 def step_host_parts(d, card):
@@ -1196,30 +1247,36 @@ def floor_operand(B, M, N, seed):
 def check_read_reduce():
     """read_reduce against A.sum(dim=(1, 2)) at every floor shape and a
     ragged one whose lanes do not start on 16 bytes; two calls give the
-    same bits, with the wrapper's own scratch or a given one.  Returns the
-    largest absolute error."""
+    same bits, with the wrapper's own scratch or a given one.  Its bfloat16
+    instance likewise against ``A16.float().sum(dim=(1, 2))`` on the same
+    operators rounded to bf16.  Returns the largest absolute error of each
+    instance."""
     from proxtpu_torch.kernels import probe
 
-    worst = 0.0
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     for B, M, N in FLOOR_SHAPES + [(7, 33, 161)]:
-        A = floor_operand(B, M, N, seed=B + M + N)
-        got, again = probe.read_reduce(A), probe.read_reduce(A)
-        # with the output and the scratch given, twice on one scratch
-        res, scratch = torch.empty(B, device=DEVICE), \
-            probe.read_reduce_scratch(A)
-        for _ in range(2):
-            given = probe.read_reduce(A, out=res, scratch=scratch)
-        want = probe.reference_read_reduce(A)
-        torch.cuda.synchronize()
-        assert given is res
-        assert torch.equal(got, again) and torch.equal(got, res), (B, M, N)
-        err = max_err(got, want)
-        rel = float(((got - want).abs() / A.abs().sum(dim=(1, 2))).max())
-        assert rel <= READ_RTOL, (B, M, N, err, rel)
-        worst = max(worst, err)
-        print(f"  read_reduce {(B, M, N)}: max|err| {err:.3e}, relative to "
-              f"the lane's sum of |A| {rel:.3e}")
-    return worst
+        A32 = floor_operand(B, M, N, seed=B + M + N)
+        for A in (A32, A32.to(torch.bfloat16)):
+            got, again = probe.read_reduce(A), probe.read_reduce(A)
+            # with the output and the scratch given, twice on one scratch
+            res, scratch = torch.empty(B, device=DEVICE), \
+                probe.read_reduce_scratch(A)
+            for _ in range(2):
+                given = probe.read_reduce(A, out=res, scratch=scratch)
+            want = probe.reference_read_reduce(A)
+            torch.cuda.synchronize()
+            assert given is res
+            assert torch.equal(got, again) and torch.equal(got, res), (
+                A.dtype, B, M, N)
+            err = max_err(got, want)
+            rel = float(((got - want).abs()
+                         / A.float().abs().sum(dim=(1, 2))).max())
+            assert rel <= READ_RTOL, (A.dtype, B, M, N, err, rel)
+            worst[A.dtype] = max(worst[A.dtype], err)
+            print(f"  read_reduce {str(A.dtype)[6:]:8s} {(B, M, N)}: "
+                  f"max|err| {err:.3e}, relative to the lane's sum of |A| "
+                  f"{rel:.3e}")
+    return worst[torch.float32], worst[torch.bfloat16]
 
 
 def host_us(fn, batches=5, batch=100):
@@ -1617,6 +1674,7 @@ def launch_counters():
 
     return {"cp_k_steps": (tv.fused_cp_k_steps, "launches"),
             "read_reduce": (probe.read_reduce, "launches"),
+            "read_reduce_bf16": (probe.read_reduce, "launches_bf16"),
             "fb_step": (tl.fused_fb_prox_grad, "launches"),
             "fista_step": (tl.fused_fista_full_step, "launches"),
             "fb_step_bf16": (tl.fused_fb_prox_grad, "launches_bf16"),
@@ -1870,10 +1928,15 @@ def phase_lasso_rest(card, pace):
             check, TOL, card,
             ("fb_step", "fista_step", "fb_step_bf16", "fista_step_bf16"),
             pace=pace, shape=MAIN_SHAPES[0])
+        ms = sum(n * pace[(k, MAIN_SHAPES[0])] for k, n in launches.items()
+                 if n)
         print(f"  route (h) restart={restart}: bf16 instances "
               f"{launches['fb_step_bf16']} fb_step + "
               f"{launches['fista_step_bf16']} fista_step, float32 "
-              f"{launches['fb_step']} + {launches['fista_step']}")
+              f"{launches['fb_step']} + {launches['fista_step']}; device "
+              f"{ms:.3f} ms per solve, where the bf16 instances on the "
+              f"float32 kernels' design took "
+              f"{H_DEVICE_MS_F32_DESIGN[restart]} ms  [{card}]")
         add(launches)
     # (i) over-relaxed restart-FISTA, beside restart alone
     _, it_r, done_r = tl.solve_lasso_batch_packed(*P, TOL, maxit=3000,
@@ -4203,6 +4266,7 @@ def kernel_bounds():
         "pg_k_steps": ((Bq, n), *box(Bq, n, K)),
         "cp_k_steps": ((Bt, H, W), *cp_bound(Bt, H, W)),
         "read_reduce": ((B, M, N), *read_bound(B, M, N)),
+        "read_reduce_bf16": ((B, M, N), *read_bound(B, M, N, 2)),
     }
 
 
@@ -4222,10 +4286,13 @@ def main():
     worst = phase("check f32", check_kernels)
     worst.update(phase("check k-steps, box QP", check_new_kernels))
     worst["cp_k_steps"] = phase("check TV", check_tv_kernel)
-    worst["read_reduce"] = phase("check read_reduce", check_read_reduce)
+    worst["read_reduce"], worst["read_reduce_bf16"] = phase(
+        "check read_reduce", check_read_reduce)
     worst.update(phase("check bf16", check_bf16_kernels))
     times, pace = phase("time one-step", time_kernels, card)
-    times.update(phase("time bf16", time_bf16_kernels, card, pace))
+    bf16_times, bf16_library, bf16_floor_launches = phase(
+        "time bf16", time_bf16_kernels, card, pace)
+    times.update(bf16_times)
     box_times, box_pace = phase("time k-steps, box QP", time_new_kernels,
                                 card)
     times.update(box_times)
@@ -4284,6 +4351,7 @@ def main():
                       scaling_data).items():
         launches[k] = launches.get(k, 0) + n
     launches["read_reduce"] = floor_launches
+    launches["read_reduce_bf16"] = bf16_floor_launches
     kernels = {
         "fista_step": ("lasso_step.cu", "proxtpu/kernels/lasso.py:156"),
         "fb_step": ("lasso_step.cu", "proxtpu/kernels/lasso.py:37"),
@@ -4294,12 +4362,16 @@ def main():
         "pg_k_steps": ("box_qp_step.cu", "proxtpu/kernels/box_qp.py:174"),
         "cp_k_steps": ("tv_step.cu", "proxtpu/kernels/tv.py:76"),
         "read_reduce": ("probe.cu", "benchmarks/trip_overhead_bench.py:83"),
+        "read_reduce_bf16": ("probe.cu",
+                             "benchmarks/trip_overhead_bench.py:83"),
     }
     assert all(launches[k] > 0 for k in kernels), launches
     bounds = kernel_bounds()
     # the one PyTorch call that computes a kernel's function, where there
-    # is one: read_reduce's plain version is that call
-    library = {"read_reduce": times["read_reduce"][1]}
+    # is one: read_reduce's plain version is that call; its bf16 instance's
+    # is A16.sum(dim=(1, 2), dtype=torch.float32)
+    library = {"read_reduce": times["read_reduce"][1],
+               "read_reduce_bf16": bf16_library}
     print(f"chip_smoke: {time.perf_counter() - started:.1f} s, the build "
           f"included; by phase: "
           + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())

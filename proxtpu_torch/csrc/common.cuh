@@ -279,6 +279,134 @@ __device__ __forceinline__ void tile_cols_fma(const T* tile, const float* r,
     g[n] = tile_col_fma(tile + n, r, rows, N, first ? 0.f : g[n]);
 }
 
+// ---- The bfloat16 passes -------------------------------------------------
+//
+// The same sums in the same order as tile_rows_dot and tile_cols_fma on a
+// bf16 tile, with fewer shared-memory instructions an entry:
+//   tile_rows_dot_xreg  lane l keeps x[l + 32 k] in registers, k < KX =
+//                       ceil(N / 32) <= kXRegs, for every row of every tile,
+//                       so pass 1 loads only A from shared memory
+//   tile_cols_fma_pair  a thread per two adjacent columns (N even): one
+//                       32-bit load (a bf16 pair) per row feeds two chains
+// A bf16 pair in a 32-bit word holds column n in its low half (little
+// endian); bf16 -> float is the half moved to the top 16 bits (exact).
+constexpr int kXRegs = 16;  // x in registers up to N = 32 * kXRegs
+
+__device__ __forceinline__ float bf16_lo(uint32_t w) {
+  return __uint_as_float(w << 16);
+}
+__device__ __forceinline__ float bf16_hi(uint32_t w) {
+  return __uint_as_float(w & 0xffff0000u);
+}
+
+// Pass 1 on a tile of bf16 rows, x in registers: out[m] = a_m . x - c[m].
+// KX chunks a lane: the first KX - 1 in every lane, the last in the lanes
+// with l + 32 (KX - 1) < N.  All of a row's loads go out before its
+// products are summed, in the order of tile_rows_dot.
+template <int THREADS, int KX>
+__device__ __forceinline__ void rows_dot_xreg(const __nv_bfloat16* tile,
+                                              const float* __restrict__ c,
+                                              const float (&xr)[kXRegs],
+                                              float* out, int rows, int N) {
+  constexpr int kWarps = THREADS / 32;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const bool last = lane + 32 * (KX - 1) < N;
+  for (int m = warp; m < rows; m += kWarps) {
+    const __nv_bfloat16* row = tile + m * N + lane;
+    float a[KX];
+#pragma unroll
+    for (int k = 0; k < KX - 1; ++k) a[k] = to_float(row[32 * k]);
+    a[KX - 1] = last ? to_float(row[32 * (KX - 1)]) : 0.f;
+    float acc = 0.f;
+#pragma unroll
+    for (int k = 0; k < KX - 1; ++k) acc = fmaf(a[k], xr[k], acc);
+    if (last) acc = fmaf(a[KX - 1], xr[KX - 1], acc);
+    acc = warp_sum(acc);
+    if (lane == 0) out[m] = acc - c[m];
+  }
+}
+
+// rows_dot_xreg at the block's KX = ceil(N / 32), 1 <= KX <= kXRegs (a
+// uniform jump once per tile).
+template <int THREADS>
+__device__ __forceinline__ void tile_rows_dot_xreg(
+    const __nv_bfloat16* tile, const float* __restrict__ c,
+    const float (&xr)[kXRegs], float* out, int rows, int N) {
+  switch ((N + 31) / 32) {
+#define PROXTPU_ROWS_DOT_XREG(K) \
+  case K:                        \
+    rows_dot_xreg<THREADS, K>(tile, c, xr, out, rows, N); \
+    break;
+    PROXTPU_ROWS_DOT_XREG(1) PROXTPU_ROWS_DOT_XREG(2) PROXTPU_ROWS_DOT_XREG(3)
+    PROXTPU_ROWS_DOT_XREG(4) PROXTPU_ROWS_DOT_XREG(5) PROXTPU_ROWS_DOT_XREG(6)
+    PROXTPU_ROWS_DOT_XREG(7) PROXTPU_ROWS_DOT_XREG(8) PROXTPU_ROWS_DOT_XREG(9)
+    PROXTPU_ROWS_DOT_XREG(10) PROXTPU_ROWS_DOT_XREG(11)
+    PROXTPU_ROWS_DOT_XREG(12) PROXTPU_ROWS_DOT_XREG(13)
+    PROXTPU_ROWS_DOT_XREG(14) PROXTPU_ROWS_DOT_XREG(15)
+    PROXTPU_ROWS_DOT_XREG(16)
+#undef PROXTPU_ROWS_DOT_XREG
+  }
+}
+
+// Pass 2 on a tile of bf16 rows (N even, rows on 4 bytes), two adjacent
+// columns a thread: g[n], g[n + 1] (+)= sum over the tile's rows, ascending,
+// of r[m] A[m, n] and r[m] A[m, n + 1], one fmaf chain each, as
+// tile_cols_fma sums them; `first` starts the chains from 0.  Only the
+// thread that owns the pair touches it.
+template <int THREADS>
+__device__ __forceinline__ void tile_cols_fma_pair(const __nv_bfloat16* tile,
+                                                   const float* r, float* g,
+                                                   int rows, int N,
+                                                   bool first) {
+  constexpr int kUnroll = 8;
+  const int words = N / 2;
+  const bool vec = (reinterpret_cast<uintptr_t>(r) & 15) == 0;
+  const uint32_t* base = reinterpret_cast<const uint32_t*>(tile);
+  float2* g2 = reinterpret_cast<float2*>(g);
+  for (int p = threadIdx.x; p < words; p += THREADS) {
+    const uint32_t* col = base + p;
+    float2 acc = first ? make_float2(0.f, 0.f) : g2[p];
+    int m = 0;
+    for (; m + kUnroll <= rows; m += kUnroll) {
+      uint32_t w[kUnroll];
+      float rv[kUnroll];
+#pragma unroll
+      for (int j = 0; j < kUnroll; ++j) w[j] = col[(m + j) * words];
+      if (vec) {
+        const float4 lo = *reinterpret_cast<const float4*>(r + m);
+        const float4 hi = *reinterpret_cast<const float4*>(r + m + 4);
+        rv[0] = lo.x, rv[1] = lo.y, rv[2] = lo.z, rv[3] = lo.w;
+        rv[4] = hi.x, rv[5] = hi.y, rv[6] = hi.z, rv[7] = hi.w;
+      } else {
+#pragma unroll
+        for (int j = 0; j < kUnroll; ++j) rv[j] = r[m + j];
+      }
+#pragma unroll
+      for (int j = 0; j < kUnroll; ++j) {
+        acc.x = fmaf(bf16_lo(w[j]), rv[j], acc.x);
+        acc.y = fmaf(bf16_hi(w[j]), rv[j], acc.y);
+      }
+    }
+    if (m < rows) {
+      uint32_t w[kUnroll - 1];
+      float rv[kUnroll - 1];
+#pragma unroll
+      for (int j = 0; j < kUnroll - 1; ++j) {
+        const bool in = m + j < rows;
+        w[j] = in ? col[(m + j) * words] : 0u;
+        rv[j] = in ? r[m + j] : 0.f;
+      }
+#pragma unroll
+      for (int j = 0; j < kUnroll - 1; ++j)
+        if (m + j < rows) {
+          acc.x = fmaf(bf16_lo(w[j]), rv[j], acc.x);
+          acc.y = fmaf(bf16_hi(w[j]), rv[j], acc.y);
+        }
+    }
+    g2[p] = acc;
+  }
+}
+
 // How the tiles of a slab reach the two passes: through the ring by the bulk
 // copy, through the ring by ordinary loads (a lane that does not start on 16
 // bytes, or N * 4 no multiple of 16), or read in place from device memory,
@@ -380,6 +508,22 @@ struct TileRing {
       __syncthreads();
       refill(q);
       tile_cols_fma<THREADS, T>(tile, r + j * R, g, tile_rows, N, j == 0);
+      next_tile();
+    }
+  }
+
+  // sweep() with the caller's passes: rows(tile, m0, tile_rows) on the tile
+  // of the slab's rows [m0, m0 + tile_rows) once it has landed, then a
+  // block barrier, then cols(tile, m0, tile_rows) (the bf16 instances)
+  template <typename Rows, typename Cols>
+  __device__ __forceinline__ void sweep_with(Rows rows_pass, Cols cols_pass) {
+    for (int j = 0; j < ntiles; ++j) {
+      const int tile_rows = min(R, rows - j * R);
+      const T* tile = wait_tile(j);
+      rows_pass(tile, j * R, tile_rows);
+      __syncthreads();
+      refill(q);
+      cols_pass(tile, j * R, tile_rows);
       next_tile();
     }
   }

@@ -96,12 +96,37 @@
 // fb_step and fista_step have a second instance for A stored in bfloat16
 // (proxtpu_fb_step_bf16, proxtpu_fista_step_bf16): the Pallas kernels take
 // a narrower A and cast it up in VMEM (lasso.py:59, :184), for the bf16
-// warm stage of solve_lasso_batch_mixed.  Only the storage narrows: the
-// ring stages R rows of N * 2 bytes, each entry is cast to float as a pass
-// reads it (exact), and every sum keeps its order, so the bf16 instance
-// returns the bits of the float instance run on A16.float(); it reads half
-// the bytes of A.  The bulk copy needs N * 2 to be a multiple of 16 (N % 8
-// == 0, as at 400); other rows fill the ring by ordinary loads.
+// warm stage of solve_lasso_batch_mixed.  The ring stages R rows of N * 2
+// bytes, each entry is cast to float as a pass reads it (exact), and every
+// sum keeps its order, so an instance returns the bits of the float32
+// kernel run on A16.float().  What bounds it is not the bytes (256 lanes of
+// 200 x 400 are 41 MB, 12.5 us at 3.35 TB/s, and mostly stay in the 50 MB
+// L2 from one step to the next: the bf16 read floor is about 10 us) but
+// each SM's work per entry.  Run on the float32 body, a bf16 entry costs
+// what a float32 one does: in pass 1 a 2-byte shared load of A and a
+// 4-byte load of x, in pass 2 a 2-byte load, each a warp instruction that
+// moves half of what one can, plus a conversion; halving the bytes took
+// 35.7 us to 28.8 and no further.  The bf16 instances have a body of their
+// own (sweep_bf16 below, the bf16 passes of common.cuh):
+//   - pass 1 keeps x in registers, lane l holding x[l + 32 k] (N <= 512,
+//     at most 512 threads), so it loads only A;
+//   - pass 2 gives a thread two adjacent columns: one 32-bit load a row
+//     (a bf16 pair) feeds two chains (N even);
+//   - x stays in shared memory through the step, and fista_step's
+//     epilogue holds z_prev in registers, loaded before the sweep, so no
+//     load of device memory follows the last tile;
+//   - the plan (kernels/lasso.py: step_plan at elem = 2) takes the
+//     tallest tiles that fit, spread evenly and rounded up to a multiple
+//     of 4 (pass 2 reads r four at a time), not whole rounds of warps:
+//     five tiles of 40 rows at 200 x 400 where the float32 rule gave seven
+//     of 29.  The passes cost less a row, so the count of tiles, each a
+//     block barrier and a row's latency, weighs more.
+// Where N is odd, pass 2 takes one column a thread; where N > 512, pass 1
+// reads x from shared memory; a lane read in place runs the float32 body.
+// On an NVIDIA H100 80GB HBM3 at 700 W, (256, 200, 400), at the device's
+// pace: fista_step about 20.6 us and fb_step about 21.0, where the float32
+// body took 30.7 and 28.8.  The bulk copy needs N * 2 to be a multiple of
+// 16 (N % 8 == 0, as at 400); other rows fill the ring by ordinary loads.
 //
 // Plain C interface for ctypes.  Every entry launches on the given stream,
 // does not synchronise, and returns cudaGetLastError().
@@ -111,66 +136,33 @@
 
 #include <cstdint>
 
-#include "common.cuh"
+#include "lasso_step.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
 using proxtpu::block_reduce;
+using proxtpu::FbStep;
+using proxtpu::FistaStep;
 using proxtpu::kFillBulk;
 using proxtpu::kFillLoads;
 using proxtpu::kFillNone;
+using proxtpu::kOrderThreads;
 using proxtpu::nanmax;
 using proxtpu::prepare;
-using proxtpu::Prepared;
 using proxtpu::prepare_once;
+using proxtpu::prox_point;
 using proxtpu::round_up;
+using proxtpu::step_blocks;
+using proxtpu::StepLayout;
+using proxtpu::threads_index;
 using proxtpu::TileRing;
+using proxtpu::Variant;
+using Bf16 = __nv_bfloat16;
 
-// fb_step, fista_step: res and rs are reduced in the order of a block of
-// this many threads, the smallest block the plan chooses
-constexpr int kOrderThreads = 256;
 // fista_k_steps: 32 warps for pass 1, a column a thread at N = 1024
 constexpr int kKThreads = 1024;
-// fb_step, fista_step: blocks of THREADS threads the compiler leaves room for
-// on an SM (64 registers a thread, 32 at 1024 threads)
-constexpr int step_blocks(int threads) { return threads >= 512 ? 2 : 4; }
-
-// The prox at one point: z from x_n and g_n = (A^T r)_n.
-template <bool SHRINK>
-__device__ __forceinline__ float prox_point(float xv, float g, float gamma,
-                                            float thr, float shrink) {
-  // explicit roundings: y = x - gamma * g as two ops, like the reference
-  const float y = __fsub_rn(xv, __fmul_rn(gamma, g));
-  const float a = fabsf(y) - thr;
-  // max(a, 0) that keeps a NaN (fmaxf would drop it)
-  const float mag = (a > 0.f || a != a) ? a : 0.f;
-  float z = copysignf(mag, y);
-  if (SHRINK) z = z / shrink;
-  return z;
-}
-
-// Dynamic shared memory of fb_step and fista_step, in bytes from its start.
-// With a ring (S > 0): x (then z) and g of Np = N rounded up to 4 floats
-// each, r of M rounded up to 4, then on 128 bytes S stages of R rows of A
-// (`elem` bytes an entry; each stage rounded up to 128 bytes) and S
-// mbarriers.  With the lane read in place (S = 0): x (then z) and r, N + M
-// floats, the shared memory of a kernel that keeps no tile at all.
-// kernels/lasso.py (step_shared_bytes) computes the same total.
-struct StepLayout {
-  int Np;
-  size_t r, stage0, stage_bytes, bars, total;
-  __host__ __device__ StepLayout(int M, int N, int R, int S, size_t elem) {
-    Np = S ? (int)round_up(N, 4) : N;
-    r = (S ? 2 : 1) * (size_t)Np * sizeof(float);
-    const size_t fixed = r + (S ? round_up(M, 4) : M) * sizeof(float);
-    stage0 = round_up(fixed, 128);
-    stage_bytes = round_up((size_t)R * N * elem, 128);
-    bars = stage0 + S * stage_bytes;
-    total = S ? bars + S * sizeof(uint64_t) : fixed;
-  }
-};
 
 // One lane's FB step up to the prox: x into shared memory, one sweep of the
 // ring over the lane's M rows (or, FILL == kFillNone, both passes on the lane
@@ -440,57 +432,54 @@ fista_k_steps_kernel(const float* __restrict__ A, const float* __restrict__ b,
   if (C > 1) cluster.sync();
 }
 
-// The variants of the one-step kernels, per type of A: blocks of 256, 512
+// The variants of the one-step kernels: float32 A in blocks of 256, 512
 // and 1024 threads with a ring (bulk copy or ordinary loads), 256 threads on
-// a lane in place.
-template <typename T>
-using FistaStep = void (*)(const T*, const float*, float*, float*,
-                           const float*, const float*, const float*,
-                           const float*, const float*, float*, float*, int,
-                           int, int, int, int);
-template <typename T>
-using FbStep = void (*)(const T*, const float*, const float*, const float*,
-                        const float*, const float*, float*, float*, int, int,
-                        int, int);
-
-template <typename Kernel>
-struct Variant {
-  Kernel kernel;
-  Prepared prepared;
-};
-
-int threads_index(int threads) {
-  return threads == 256 ? 0 : threads == 512 ? 1 : threads == 1024 ? 2 : -1;
-}
-
-template <typename T>
-Variant<FistaStep<T>>* fista_step_variant(int threads, int fill) {
-  static Variant<FistaStep<T>> table[3][3] = {
-      {{fista_step_kernel<256, kFillBulk, T>},
-       {fista_step_kernel<256, kFillLoads, T>},
-       {fista_step_kernel<256, kFillNone, T>}},
-      {{fista_step_kernel<512, kFillBulk, T>},
-       {fista_step_kernel<512, kFillLoads, T>},
+// a lane in place; bf16 A in the same blocks with a ring (fista_step_bf16.cu,
+// fb_step_bf16.cu: with x in registers or not, one or two columns a thread
+// in pass 2), and 256 threads on a lane in place (the float32 body).
+Variant<FistaStep<float>>* fista_step_variant(int threads, int fill) {
+  static Variant<FistaStep<float>> table[3][3] = {
+      {{fista_step_kernel<256, kFillBulk, float>},
+       {fista_step_kernel<256, kFillLoads, float>},
+       {fista_step_kernel<256, kFillNone, float>}},
+      {{fista_step_kernel<512, kFillBulk, float>},
+       {fista_step_kernel<512, kFillLoads, float>},
        {nullptr}},
-      {{fista_step_kernel<1024, kFillBulk, T>},
-       {fista_step_kernel<1024, kFillLoads, T>},
+      {{fista_step_kernel<1024, kFillBulk, float>},
+       {fista_step_kernel<1024, kFillLoads, float>},
        {nullptr}}};
   return &table[threads_index(threads)][fill];
 }
 
-template <typename T>
-Variant<FbStep<T>>* fb_step_variant(int threads, int fill) {
-  static Variant<FbStep<T>> table[3][3] = {
-      {{fb_step_kernel<256, kFillBulk, T>},
-       {fb_step_kernel<256, kFillLoads, T>},
-       {fb_step_kernel<256, kFillNone, T>}},
-      {{fb_step_kernel<512, kFillBulk, T>},
-       {fb_step_kernel<512, kFillLoads, T>},
+Variant<FbStep<float>>* fb_step_variant(int threads, int fill) {
+  static Variant<FbStep<float>> table[3][3] = {
+      {{fb_step_kernel<256, kFillBulk, float>},
+       {fb_step_kernel<256, kFillLoads, float>},
+       {fb_step_kernel<256, kFillNone, float>}},
+      {{fb_step_kernel<512, kFillBulk, float>},
+       {fb_step_kernel<512, kFillLoads, float>},
        {nullptr}},
-      {{fb_step_kernel<1024, kFillBulk, T>},
-       {fb_step_kernel<1024, kFillLoads, T>},
+      {{fb_step_kernel<1024, kFillBulk, float>},
+       {fb_step_kernel<1024, kFillLoads, float>},
        {nullptr}}};
   return &table[threads_index(threads)][fill];
+}
+
+// S == 0: the lane in place by the float32 body; else the ring variant.
+Variant<FistaStep<Bf16>>* fista_step_bf16_variant(int threads, int fill,
+                                                  int cols, int xregs) {
+  static Variant<FistaStep<Bf16>> in_place = {
+      fista_step_kernel<256, kFillNone, Bf16>};
+  if (fill == kFillNone) return &in_place;
+  return proxtpu::fista_step_bf16_ring(threads, fill, cols, xregs);
+}
+
+Variant<FbStep<Bf16>>* fb_step_bf16_variant(int threads, int fill, int cols,
+                                            int xregs) {
+  static Variant<FbStep<Bf16>> in_place = {
+      fb_step_kernel<256, kFillNone, Bf16>};
+  if (fill == kFillNone) return &in_place;
+  return proxtpu::fb_step_bf16_ring(threads, fill, cols, xregs);
 }
 
 // The plan of kernels/lasso.py (step_plan), checked against the kernel's own
@@ -513,38 +502,27 @@ int step_fill(const void* A, int M, int N, int threads, int R, int S,
   return S == 0 ? kFillNone : aligned ? kFillBulk : kFillLoads;
 }
 
-// fista_step and fb_step launch the plan they are given (see step_fill) or
-// return cudaErrorInvalidValue; they never launch another.
-template <typename T>
-int launch_fista_step(const T* A, const float* b, float* x, float* zp,
-                      const float* beta, const float* gamma, const float* thr,
-                      const float* done, const float* shrink, float* res,
-                      float* rs, int B, int M, int N, int restart,
-                      int threads, int R, int S, int smem_bytes,
-                      void* stream) {
-  const int fill = step_fill(A, M, N, threads, R, S, smem_bytes, sizeof(T));
-  if (fill < 0) return (int)cudaErrorInvalidValue;
-  Variant<FistaStep<T>>* v = fista_step_variant<T>(threads, fill);
-  cudaError_t err = prepare_once(v->prepared, v->kernel, smem_bytes);
-  if (err != cudaSuccess) return (int)err;
-  v->kernel<<<B, threads, smem_bytes, (cudaStream_t)stream>>>(
-      A, b, x, zp, beta, gamma, thr, done, shrink, res, rs, M, N, R, S,
-      restart);
-  return (int)cudaGetLastError();
+// The bf16 plan's two fields beside step_fill's: `cols` columns a thread in
+// pass 2 (2 only with a ring and N even, so that every row of a stage
+// starts on 4 bytes) and `xregs` (1: x in registers in pass 1, only with a
+// ring, N <= 32 * kXRegs and at most 512 threads).
+bool bf16_fields_ok(int M, int N, int threads, int S, int cols, int xregs) {
+  if (cols != 1 && cols != 2) return false;
+  if (xregs != 0 && xregs != 1) return false;
+  if (S == 0) return cols == 1 && xregs == 0;
+  return (cols == 1 || N % 2 == 0) &&
+         (xregs == 0 || (N <= 32 * proxtpu::kXRegs && threads <= 512));
 }
 
-template <typename T>
-int launch_fb_step(const T* A, const float* b, const float* x,
-                   const float* gamma, const float* thr, const float* shrink,
-                   float* z, float* res, int B, int M, int N, int threads,
-                   int R, int S, int smem_bytes, void* stream) {
-  const int fill = step_fill(A, M, N, threads, R, S, smem_bytes, sizeof(T));
-  if (fill < 0) return (int)cudaErrorInvalidValue;
-  Variant<FbStep<T>>* v = fb_step_variant<T>(threads, fill);
+// fista_step and fb_step launch the plan they are given (see step_fill and
+// bf16_fields_ok) or return cudaErrorInvalidValue; they never launch
+// another.
+template <typename Kernel, typename... Args>
+int launch_step(Variant<Kernel>* v, int B, int threads, int smem_bytes,
+                void* stream, Args... args) {
   cudaError_t err = prepare_once(v->prepared, v->kernel, smem_bytes);
   if (err != cudaSuccess) return (int)err;
-  v->kernel<<<B, threads, smem_bytes, (cudaStream_t)stream>>>(
-      A, b, x, gamma, thr, shrink, z, res, M, N, R, S);
+  v->kernel<<<B, threads, smem_bytes, (cudaStream_t)stream>>>(args...);
   return (int)cudaGetLastError();
 }
 
@@ -553,28 +531,35 @@ int launch_fb_step(const T* A, const float* b, const float* x,
 extern "C" {
 
 // fista_step and fb_step, A in float32 or in bfloat16, launch the plan they
-// are given (see step_fill) or return cudaErrorInvalidValue; they never
-// launch another.
+// are given (see step_fill; the bf16 entries also take bf16_fields_ok's
+// cols and xregs) or return cudaErrorInvalidValue; they never launch
+// another.
 int proxtpu_fista_step(const float* A, const float* b, float* x, float* zp,
                        const float* beta, const float* gamma,
                        const float* thr, const float* done,
                        const float* shrink, float* res, float* rs, int B,
                        int M, int N, int restart, int threads, int R, int S,
                        int smem_bytes, void* stream) {
-  return launch_fista_step(A, b, x, zp, beta, gamma, thr, done, shrink, res,
-                           rs, B, M, N, restart, threads, R, S, smem_bytes,
-                           stream);
+  const int fill = step_fill(A, M, N, threads, R, S, smem_bytes, 4);
+  if (fill < 0) return (int)cudaErrorInvalidValue;
+  return launch_step(fista_step_variant(threads, fill), B, threads,
+                     smem_bytes, stream, A, b, x, zp, beta, gamma, thr, done,
+                     shrink, res, rs, M, N, R, S, restart);
 }
 
-int proxtpu_fista_step_bf16(const __nv_bfloat16* A, const float* b, float* x,
+int proxtpu_fista_step_bf16(const Bf16* A, const float* b, float* x,
                             float* zp, const float* beta, const float* gamma,
                             const float* thr, const float* done,
                             const float* shrink, float* res, float* rs,
                             int B, int M, int N, int restart, int threads,
-                            int R, int S, int smem_bytes, void* stream) {
-  return launch_fista_step(A, b, x, zp, beta, gamma, thr, done, shrink, res,
-                           rs, B, M, N, restart, threads, R, S, smem_bytes,
-                           stream);
+                            int R, int S, int smem_bytes, int cols, int xregs,
+                            void* stream) {
+  const int fill = step_fill(A, M, N, threads, R, S, smem_bytes, 2);
+  if (fill < 0 || !bf16_fields_ok(M, N, threads, S, cols, xregs))
+    return (int)cudaErrorInvalidValue;
+  return launch_step(fista_step_bf16_variant(threads, fill, cols, xregs), B,
+                     threads, smem_bytes, stream, A, b, x, zp, beta, gamma,
+                     thr, done, shrink, res, rs, M, N, R, S, restart);
 }
 
 // C CTAs per lane as one cluster, tiles of R rows through S stages (S = 0:
@@ -640,29 +625,39 @@ int proxtpu_fb_step(const float* A, const float* b, const float* x,
                     const float* gamma, const float* thr, const float* shrink,
                     float* z, float* res, int B, int M, int N, int threads,
                     int R, int S, int smem_bytes, void* stream) {
-  return launch_fb_step(A, b, x, gamma, thr, shrink, z, res, B, M, N,
-                        threads, R, S, smem_bytes, stream);
+  const int fill = step_fill(A, M, N, threads, R, S, smem_bytes, 4);
+  if (fill < 0) return (int)cudaErrorInvalidValue;
+  return launch_step(fb_step_variant(threads, fill), B, threads, smem_bytes,
+                     stream, A, b, x, gamma, thr, shrink, z, res, M, N, R, S);
 }
 
-int proxtpu_fb_step_bf16(const __nv_bfloat16* A, const float* b,
-                         const float* x, const float* gamma,
-                         const float* thr, const float* shrink, float* z,
-                         float* res, int B, int M, int N, int threads, int R,
-                         int S, int smem_bytes, void* stream) {
-  return launch_fb_step(A, b, x, gamma, thr, shrink, z, res, B, M, N,
-                        threads, R, S, smem_bytes, stream);
+int proxtpu_fb_step_bf16(const Bf16* A, const float* b, const float* x,
+                         const float* gamma, const float* thr,
+                         const float* shrink, float* z, float* res, int B,
+                         int M, int N, int threads, int R, int S,
+                         int smem_bytes, int cols, int xregs, void* stream) {
+  const int fill = step_fill(A, M, N, threads, R, S, smem_bytes, 2);
+  if (fill < 0 || !bf16_fields_ok(M, N, threads, S, cols, xregs))
+    return (int)cudaErrorInvalidValue;
+  return launch_step(fb_step_bf16_variant(threads, fill, cols, xregs), B,
+                     threads, smem_bytes, stream, A, b, x, gamma, thr, shrink,
+                     z, res, M, N, R, S);
 }
 
 // Blocks of fista_step (`fista` != 0) or fb_step at this plan, A of
-// `elem_bytes` (4: float32, 2: bfloat16) an entry, that one SM holds at a
-// time, for a lane that takes the bulk copy.
+// `elem_bytes` (4: float32, 2: bfloat16; cols 1 and xregs 0 for float32)
+// an entry, that one SM holds at a time, for a lane that takes the bulk
+// copy.
 int proxtpu_step_blocks_per_sm(int fista, int elem_bytes, int M, int N,
                                int threads, int R, int S, int smem_bytes,
-                               int* out) {
+                               int cols, int xregs, int* out) {
   if (elem_bytes != 4 && elem_bytes != 2) return (int)cudaErrorInvalidValue;
   const int fill =
       step_fill(nullptr, M, N, threads, R, S, smem_bytes, elem_bytes);
-  if (fill < 0) return (int)cudaErrorInvalidValue;
+  const bool fields_ok = elem_bytes == 2
+                             ? bf16_fields_ok(M, N, threads, S, cols, xregs)
+                             : cols == 1 && xregs == 0;
+  if (fill < 0 || !fields_ok) return (int)cudaErrorInvalidValue;
   auto held = [&](auto* v) {
     cudaError_t err = prepare_once(v->prepared, v->kernel, smem_bytes);
     if (err != cudaSuccess) return err;
@@ -670,10 +665,12 @@ int proxtpu_step_blocks_per_sm(int fista, int elem_bytes, int M, int N,
         out, v->kernel, threads, smem_bytes);
   };
   if (elem_bytes == 2)
-    return (int)(fista ? held(fista_step_variant<__nv_bfloat16>(threads, fill))
-                       : held(fb_step_variant<__nv_bfloat16>(threads, fill)));
-  return (int)(fista ? held(fista_step_variant<float>(threads, fill))
-                     : held(fb_step_variant<float>(threads, fill)));
+    return (int)(fista ? held(fista_step_bf16_variant(threads, fill, cols,
+                                                      xregs))
+                       : held(fb_step_bf16_variant(threads, fill, cols,
+                                                   xregs)));
+  return (int)(fista ? held(fista_step_variant(threads, fill))
+                     : held(fb_step_variant(threads, fill)));
 }
 
 // Largest dynamic shared memory a block of this device may opt in to.

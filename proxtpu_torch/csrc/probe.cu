@@ -7,6 +7,11 @@
 // out[l] = sum of the n = M * N entries of lane l of A (B, M, N) f32: the
 // cheapest kernel that still reads every byte of A once, so its time at a
 // step kernel's shape is the measured floor that kernel is judged against.
+// A second instance reads A in bfloat16 (proxtpu_read_reduce_bf16) and sums
+// in float32, each entry cast up as it is read (exact): the floor of the
+// one-step kernels' bf16 instances.  The JAX probe sizes its bytes by A's
+// dtype (trip_overhead_bench.py:92-110); both instances read 16 bytes a
+// load, four float or eight bf16 entries, summed in pairs.
 //
 // Bound: the bytes of A over the memory rate; one add per entry is far
 // below the card's rate.  The TPU kernel summed one lane block per grid
@@ -26,12 +31,13 @@
 // L2 a call takes a few microseconds on the device, so the wrapper
 // (kernels/probe.py) keeps its own work per call near that.
 //
-// Plain C interface for ctypes.  The entry launches the kernel on the given
-// stream, does not synchronise, and returns cudaGetLastError().
+// Plain C interface for ctypes.  Each entry launches the kernel on the
+// given stream, does not synchronise, and returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -43,34 +49,47 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kUnroll = 4;
 
+using proxtpu::bf16_hi;
+using proxtpu::bf16_lo;
+using proxtpu::to_float;
+
+// The sum of 16 bytes of entries: four float, or eight bf16 in a uint4.
+__device__ __forceinline__ float sum16(float4 v) {
+  return (v.x + v.y) + (v.z + v.w);
+}
+__device__ __forceinline__ float sum16(uint4 w) {
+  return ((bf16_lo(w.x) + bf16_hi(w.x)) + (bf16_lo(w.y) + bf16_hi(w.y))) +
+         ((bf16_lo(w.z) + bf16_hi(w.z)) + (bf16_lo(w.w) + bf16_hi(w.w)));
+}
+
 // The sum of lane's entries [lo, hi) by one block; every thread returns it.
-__device__ __forceinline__ float block_chunk_sum(const float* __restrict__ a,
+template <typename T>
+__device__ __forceinline__ float block_chunk_sum(const T* __restrict__ a,
                                                  long long lo, long long hi,
                                                  float* red) {
+  using V = typename std::conditional<sizeof(T) == 4, float4, uint4>::type;
+  constexpr int kPer = 16 / sizeof(T);  // entries a 16-byte load
   float acc = 0.f;
-  const float* p = a + lo;
+  const T* p = a + lo;
   const long long n = hi - lo;
   if ((reinterpret_cast<uintptr_t>(p) & 15u) == 0) {
-    const float4* p4 = reinterpret_cast<const float4*>(p);
-    const long long n4 = n / 4;
+    const V* p4 = reinterpret_cast<const V*>(p);
+    const long long n4 = n / kPer;
     long long j = threadIdx.x;
     for (; j + (long long)kThreads * (kUnroll - 1) < n4;
          j += (long long)kThreads * kUnroll) {
-      float4 v[kUnroll];
+      V v[kUnroll];
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) v[u] = __ldg(p4 + j + kThreads * u);
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u)
-        acc += (v[u].x + v[u].y) + (v[u].z + v[u].w);
+      for (int u = 0; u < kUnroll; ++u) acc += sum16(v[u]);
     }
-    for (; j < n4; j += kThreads) {
-      const float4 v = __ldg(p4 + j);
-      acc += (v.x + v.y) + (v.z + v.w);
-    }
-    for (long long k = 4 * n4 + threadIdx.x; k < n; k += kThreads)
-      acc += __ldg(p + k);
+    for (; j < n4; j += kThreads) acc += sum16(__ldg(p4 + j));
+    for (long long k = kPer * n4 + threadIdx.x; k < n; k += kThreads)
+      acc += to_float(p[k]);
   } else {
-    for (long long k = threadIdx.x; k < n; k += kThreads) acc += __ldg(p + k);
+    for (long long k = threadIdx.x; k < n; k += kThreads)
+      acc += to_float(p[k]);
   }
   acc = warp_sum(acc);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -99,8 +118,9 @@ __device__ __forceinline__ unsigned int draw_ticket(unsigned int* counter) {
 // Block (l, s) sums chunk s of lane l into partial[l * S + s]; the last of a
 // lane's S blocks to get there (a ticket from counter[l], which it sets
 // back to 0) adds the S partials in order into out[l].
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-read_reduce_kernel(const float* __restrict__ A, float* partial,
+read_reduce_kernel(const T* __restrict__ A, float* partial,
                    unsigned int* counter, float* __restrict__ out,
                    long long n, int S, long long chunk) {
   __shared__ float red[kWarps];
@@ -137,6 +157,17 @@ read_reduce_kernel(const float* __restrict__ A, float* partial,
   }
 }
 
+template <typename T>
+int launch(const T* A, float* partial, unsigned int* counter, float* out,
+           int B, long long n, int S, long long chunk, void* stream) {
+  const long long blocks = (long long)B * S;
+  if (blocks > 2147483647LL) return (int)cudaErrorInvalidConfiguration;
+  read_reduce_kernel<T><<<(unsigned int)blocks, kThreads, 0,
+                          (cudaStream_t)stream>>>(A, partial, counter, out, n,
+                                                  S, chunk);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -148,12 +179,15 @@ extern "C" {
 int proxtpu_read_reduce(const float* A, float* partial, unsigned int* counter,
                         float* out, int B, long long n, int S,
                         long long chunk, void* stream) {
-  const long long blocks = (long long)B * S;
-  if (blocks > 2147483647LL) return (int)cudaErrorInvalidConfiguration;
-  read_reduce_kernel<<<(unsigned int)blocks, kThreads, 0,
-                       (cudaStream_t)stream>>>(A, partial, counter, out, n, S,
-                                               chunk);
-  return (int)cudaGetLastError();
+  return launch(A, partial, counter, out, B, n, S, chunk, stream);
+}
+
+// The same with A in bfloat16; `chunk` a multiple of 8.
+int proxtpu_read_reduce_bf16(const __nv_bfloat16* A, float* partial,
+                             unsigned int* counter, float* out, int B,
+                             long long n, int S, long long chunk,
+                             void* stream) {
+  return launch(A, partial, counter, out, B, n, S, chunk, stream);
 }
 
 }  // extern "C"

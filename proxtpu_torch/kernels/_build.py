@@ -20,8 +20,9 @@ import tempfile
 from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
-_SOURCES = ("lasso_step.cu", "box_qp_step.cu", "tv_step.cu", "probe.cu")
-_HEADERS = ("common.cuh",)
+_SOURCES = ("lasso_step.cu", "fista_step_bf16.cu", "fb_step_bf16.cu",
+            "box_qp_step.cu", "tv_step.cu", "probe.cu")
+_HEADERS = ("common.cuh", "lasso_step.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -33,16 +34,17 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     # A, b, x, z_prev, beta, gamma, thr, done, shrink, res, rs, B, M, N,
     # restart, threads, R (rows per tile), S (stages), shared bytes, stream;
-    # A float32, or bfloat16 for the _bf16 entry
+    # the _bf16 entry (A in bfloat16) takes the plan's cols (columns a
+    # thread in pass 2) and xregs (x in registers) before the stream
     "proxtpu_fista_step": [_P] * 11 + [_I] * 8 + [_P],
-    "proxtpu_fista_step_bf16": [_P] * 11 + [_I] * 8 + [_P],
+    "proxtpu_fista_step_bf16": [_P] * 11 + [_I] * 10 + [_P],
     # A, b, x, gamma, thr, shrink, z, res, B, M, N, threads, R, S, shared
-    # bytes, stream
+    # bytes, stream; the _bf16 entry as above
     "proxtpu_fb_step": [_P] * 8 + [_I] * 7 + [_P],
-    "proxtpu_fb_step_bf16": [_P] * 8 + [_I] * 7 + [_P],
+    "proxtpu_fb_step_bf16": [_P] * 8 + [_I] * 9 + [_P],
     # fista (else fb), bytes of an entry of A, M, N, threads, R, S, shared
-    # bytes, out
-    "proxtpu_step_blocks_per_sm": [_I] * 8 + [ctypes.POINTER(_I)],
+    # bytes, cols, xregs (1 and 0 for float32), out
+    "proxtpu_step_blocks_per_sm": [_I] * 10 + [ctypes.POINTER(_I)],
     # A, b, x, z_prev, t, gamma, thr, done, res, B, M, N, K, restart,
     # C (blocks per lane), R (rows per tile), S (stages), shared bytes,
     # stream
@@ -58,8 +60,10 @@ _SIGNATURES = {
     # b, x, yx, yy, g1, g2, lam, done, xo, yxo, yyo, res, scratch, B, H, W,
     # K, TH, TW, stream
     "proxtpu_cp_k_steps_halo": [_P] * 13 + [_I] * 6 + [_P],
-    # A, partial, counter, out, B, n, S, chunk, stream
+    # A, partial, counter, out, B, n, S, chunk, stream; A float32, or
+    # bfloat16 for the _bf16 entry
     "proxtpu_read_reduce": [_P] * 4 + [_I, _L, _I, _L, _P],
+    "proxtpu_read_reduce_bf16": [_P] * 4 + [_I, _L, _I, _L, _P],
     "proxtpu_max_smem_optin": [_I, ctypes.POINTER(_I)],
 }
 

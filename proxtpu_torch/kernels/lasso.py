@@ -199,28 +199,29 @@ def step_shared_bytes(M, N, R, S, elem=4):
     residual of M (rounded up to 4), then on 128 bytes S stages of R rows
     (each rounded up to 128 bytes) and S 8-byte barriers.  With the lane
     read in place (S = 0): x and the residual, N + M floats.  The same sum
-    as ``StepLayout`` in csrc/lasso_step.cu, which refuses a launch whose
-    total differs."""
+    as ``StepLayout`` in csrc/lasso_step.cuh; the entries refuse a launch
+    whose total differs."""
     if S == 0:
         return (N + M) * 4
     fixed = (2 * _round_up(N, 4) + _round_up(M, 4)) * 4
     return _round_up(fixed, 128) + S * (_round_up(R * N * elem, 128) + 8)
 
 
-def _ring_rows(M, N, warps, budget, elem=4):
+def _ring_rows(M, N, warps, budget, elem, whole_rounds):
     """Most rows per tile of a ring of ``_STAGES`` stages of at most
     ``_STAGE_BYTES`` within ``budget`` bytes (0 where not one row of
-    ``elem``-byte entries fits): a multiple of the block's ``warps`` where
-    one fits (pass 1 gives a warp a row, so a tile takes whole rounds)."""
+    ``elem``-byte entries fits); with ``whole_rounds``, a multiple of the
+    block's ``warps`` where one fits (pass 1 gives a warp a row, so a tile
+    takes whole rounds)."""
     room = budget - step_shared_bytes(M, N, 0, _STAGES)
     stage = min(_STAGE_BYTES, room // _STAGES // 128 * 128)
     R = max(0, min(M, stage // (N * elem)))
-    if warps < R < M:
+    if whole_rounds and warps < R < M:
         R -= R % warps
     return R
 
 
-def step_plan(B, M, N, sms, limit, elem=4):
+def _step_plan(B, M, N, sms, limit, elem, whole_rounds=None):
     """``(threads, R, S, shared bytes)``, the launch plan of ``fb_step`` and
     ``fista_step`` for a batch of B lanes of (M, N), A of ``elem`` bytes an
     entry (4: float32, 2: bfloat16), on a device of ``sms`` SMs and
@@ -238,7 +239,18 @@ def step_plan(B, M, N, sms, limit, elem=4):
     whole SM.  Where not even three one-row stages fit a whole SM, 256
     threads read the lane in place (``S == 0``), which takes rows as wide as
     ``(N + M) * 4 <= limit`` allows.  Rows of bfloat16 are half as wide, so
-    a shape may take another branch at ``elem = 2``."""
+    a shape may take another branch at ``elem = 2``.
+
+    Tiles of float32 rows take whole rounds of the block's warps
+    (``whole_rounds``, by default at ``elem = 4``).  Tiles of bf16 rows
+    take the most rows that fit, spread evenly and rounded up to a multiple
+    of 4 where that still fits (pass 2 then reads a tile's residual four at
+    a time): the bf16 instances' passes cost less a row, so the count of
+    tiles, each a block barrier and a row's latency, weighs more (on an
+    H100 at 256 lanes of 200 x 400, five tiles of 40 rows beat seven of 29
+    or 32)."""
+    if whole_rounds is None:
+        whole_rounds = elem == 4
     per_sm = limit + 1024
     one = step_shared_bytes(M, N, M, 1, elem)
     if one <= per_sm // 4 - _BLOCK_OVERHEAD:
@@ -247,12 +259,39 @@ def step_plan(B, M, N, sms, limit, elem=4):
     budgets = [per_sm // k - _BLOCK_OVERHEAD
                for k in ((2, 1) if B > sms else (1,))]
     for budget in budgets:
-        R = _ring_rows(M, N, threads // 32, budget, elem)
-        if R >= min(M, _MIN_SHARED_ROWS) or (R and budget == budgets[-1]):
-            R = -(-M // -(-M // R))  # the M rows spread evenly over the tiles
+        most = _ring_rows(M, N, threads // 32, budget, elem, whole_rounds)
+        if most >= min(M, _MIN_SHARED_ROWS) or (
+                most and budget == budgets[-1]):
+            R = -(-M // -(-M // most))  # the M rows spread evenly
+            if not whole_rounds:
+                R = min(_round_up(R, 4), most)
             return (threads, R, _STAGES,
                     step_shared_bytes(M, N, R, _STAGES, elem))
     return STEP_THREADS[0], M, 0, step_shared_bytes(M, N, M, 0)
+
+
+# the widest row whose x a lane of the bf16 instances keeps in registers in
+# pass 1 (csrc/common.cuh: kXRegs chunks of 32 columns)
+BF16_XREG_COLUMNS = 32 * 16
+
+
+def bf16_fields(N, threads, S):
+    """``(cols, xregs)`` of a bf16 plan: two columns a thread in pass 2 where
+    N is even (every row of a stage then starts on 4 bytes), x in registers
+    where N is at most ``BF16_XREG_COLUMNS`` and the block has at most 512
+    threads; neither for a lane read in place (``S == 0``)."""
+    if S == 0:
+        return 1, 0
+    return (2 if N % 2 == 0 else 1,
+            int(N <= BF16_XREG_COLUMNS and threads <= STEP_THREADS[1]))
+
+
+def step_plan(B, M, N, sms, limit, elem=4):
+    """``(threads, R, S, shared bytes)``, the launch plan of ``fb_step`` and
+    ``fista_step`` (see :func:`_step_plan`); at ``elem = 2`` (A in bfloat16)
+    followed by :func:`bf16_fields`' ``(cols, xregs)``."""
+    plan = _step_plan(B, M, N, sms, limit, elem)
+    return plan if elem == 4 else plan + bf16_fields(N, plan[0], plan[2])
 
 
 # the plan of a shape, computed once: the wrappers run once per iteration
@@ -276,18 +315,17 @@ def _launch_step(name, A, args, flags):
     index = A.get_device()
     B, M, N = A.shape
     limit = _build.max_shared_bytes(index)
-    threads, R, S, smem = cached_step_plan(B, M, N, _build.sm_count(index),
-                                           limit, elem)
-    if smem > limit:
-        _build.check_shared_bytes(smem, A.device)
+    plan = cached_step_plan(B, M, N, _build.sm_count(index), limit, elem)
+    if plan[3] > limit:
+        _build.check_shared_bytes(plan[3], A.device)
     ptrs = [None if t is None else t.data_ptr() for t in args]
     if index == torch.cuda.current_device():
         # the stream's handle as an int, without a Stream object around it
-        err = entry(*ptrs, B, M, N, *flags, threads, R, S, smem,
+        err = entry(*ptrs, B, M, N, *flags, *plan,
                     torch._C._cuda_getCurrentRawStream(index))
     else:
         with torch.cuda.device(index):
-            err = entry(*ptrs, B, M, N, *flags, threads, R, S, smem,
+            err = entry(*ptrs, B, M, N, *flags, *plan,
                         torch._C._cuda_getCurrentRawStream(index))
     if err:
         _build.check(err, name)

@@ -3,17 +3,18 @@ bits, and the time of both in one call.
 
     python -m proxtpu_torch.tools.compare_earlier --other-csrc DIR [--plans]
 
-``DIR`` holds the ``lasso_step.cu``, ``probe.cu``, ``box_qp_step.cu``,
-``tv_step.cu`` and ``common.cuh`` of the earlier tree, for example
+``DIR`` holds the kernel sources (every ``*.cu`` is built) and headers of
+the earlier tree, for example
 
-    mkdir -p build/parent_csrc && for f in lasso_step.cu probe.cu \\
-        box_qp_step.cu tv_step.cu common.cuh; do git show \\
-        COMMIT:proxtpu_torch/csrc/$f > build/parent_csrc/$f; done
+    mkdir -p build/parent_csrc && git archive COMMIT proxtpu_torch/csrc \\
+        | tar -x --strip-components=2 -C build/parent_csrc
 
 whose entries ``proxtpu_fista_step``, ``proxtpu_fb_step``,
 ``proxtpu_fista_k_steps``, ``proxtpu_read_reduce``, ``proxtpu_pg_k_steps``
 and ``proxtpu_cp_k_steps`` take the arguments they take in this tree (the
-sources of commit 266b08f and later).
+sources of commit 266b08f and later), and whose ``proxtpu_fista_step_bf16``
+and ``proxtpu_fb_step_bf16`` take the plan without this tree's ``cols`` and
+``xregs`` (the sources of commit 3baaa92 and earlier).
 
 ``fista_step`` and ``fb_step``: at every shape a path gives them, a ragged
 one, one whose rows take ordinary loads through the ring, one read in place
@@ -21,11 +22,17 @@ and one that fits a single stage, the two kernels run on the same inputs,
 restart off and on, shrink off and on, with and without frozen lanes: x,
 z_prev (= z), ``res`` and ``rs`` must be equal to the last bit; so must this
 tree's bfloat16-A instance of each against the earlier float32 kernel on
-``A16.float()``, at its own plan.  Then both are timed, earlier, this, this,
-earlier, in an eager loop (CUDA events around the C entries) and at the
-device's pace (CUDA graph), and the bfloat16 instance beside them.
-``--plans`` also times this tree's ``fista_step`` over a grid of threads per
-block, rows per tile and stages, with the blocks one SM holds at each plan.
+``A16.float()`` and against the earlier bfloat16 instance, each at its own
+plan.  Then both are timed, earlier, this, this, earlier, in an eager loop
+(CUDA events around the C entries) and at the device's pace (CUDA graph),
+and the bfloat16 instances likewise at the device's pace, the earlier one
+at the plan it had (the float32 rule at 2 bytes an entry), beside this
+tree's float32 instance.  ``--plans`` also times this tree's
+``fista_step`` over a grid of threads per block, rows per tile and stages,
+with the blocks one SM holds at each plan; and the bfloat16 instances over
+threads, rows per tile and stages, the earlier kernel and this one at each
+plan (each plan's bits held), then this one at its plan with each of its
+passes' choices (x in registers, two columns a thread) on and off.
 
 ``fista_k_steps``: the two kernels at the wrapper's plan must be equal to the
 last bit, restart off and on, and are timed the same way.
@@ -47,7 +54,8 @@ image and threads per block (each plan's bits held too).
 
 ``read_reduce``: at every shape the read floor is taken at, the two sums
 must be equal to the last bit, and both C entries are timed at the device's
-pace.
+pace.  ``--plans`` also times this tree's bfloat16 instance at the one-step
+kernels' two main shapes over the chunks a lane is cut into.
 
 Needs one GPU and ``nvcc``; prints the card's name and power limit.
 """
@@ -83,6 +91,20 @@ PLAN_SHAPES = [(256, 200, 400), (64, 200, 400), (256, 400, 200),
                (1024, 64, 128)]
 PLAN_ROWS = (8, 10, 16, 20, 23, 25, 32, 40, 50, 64)
 PLAN_STAGES = (1, 3, 4, 6)
+# --plans, the bfloat16 instances: threads per block, rows per tile, stages
+BF16_PLAN_SHAPES = [(256, 200, 400), (64, 200, 400)]
+BF16_PLAN_THREADS = (256, 512)
+BF16_PLAN_ROWS = (8, 16, 24, 29, 32, 40, 44, 48, 64, 67, 68, 80)
+BF16_PLAN_STAGES = (3, 4, 5, 6)
+# --plans, the bf16 read floor: chunks a lane
+FLOOR_CHUNKS = (1, 2, 3, 4, 5, 6, 8, 16)
+# the earlier bf16 entries take (threads, R, S, bytes) as their plan
+_EARLIER_BF16 = {
+    "proxtpu_fista_step_bf16": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8
+    + [ctypes.c_void_p],
+    "proxtpu_fb_step_bf16": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+    + [ctypes.c_void_p],
+}
 FLOOR_SHAPES = [(256, 200, 400), (64, 200, 400), (64, 512, 1024),
                 (1024, 64, 128), (64, 512, 512), (256, 128, 128)]
 # the box-QP kernels: route (b), the small shape, ragged rows
@@ -99,7 +121,6 @@ TV_TIMED = TV_SHAPES[:2]
 # --plans: blocks per image and threads per block
 TV_PLAN_C = {(64, 64, 64): (1, 2, 4), (64, 256, 256): (6, 8, 16)}
 TV_PLAN_THREADS = tv.CP_THREADS
-_SOURCES = ("lasso_step.cu", "probe.cu", "box_qp_step.cu", "tv_step.cu")
 
 
 def build_other(csrc):
@@ -107,7 +128,7 @@ def build_other(csrc):
     compared take this tree's signatures."""
     out = Path(tempfile.mkdtemp()) / "libother.so"
     subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
-                    str(out), *(str(Path(csrc) / f) for f in _SOURCES)],
+                    str(out), *map(str, sorted(Path(csrc).glob("*.cu")))],
                    check=True, capture_output=True, text=True)
     lib = ctypes.CDLL(str(out))
     for name in ("proxtpu_fista_step", "proxtpu_fb_step",
@@ -115,6 +136,8 @@ def build_other(csrc):
                  "proxtpu_pg_k_steps", "proxtpu_cp_k_steps",
                  "proxtpu_cp_k_steps_halo"):
         getattr(lib, name).argtypes = _build._SIGNATURES[name]
+    for name, argtypes in _EARLIER_BF16.items():
+        getattr(lib, name).argtypes = argtypes
     return lib
 
 
@@ -155,6 +178,44 @@ def compare_read_reduce(other, card):
               f"this {n1:.2f} / {n2:.2f} us  [{card}]")
 
 
+def floor_bf16_grid(card):
+    """This tree's bf16 ``read_reduce`` at the device's pace over the chunks
+    a lane is cut into, beside the wrapper's plan and the library call."""
+    from proxtpu_torch.kernels import probe
+
+    entry = _build.library().proxtpu_read_reduce_bf16
+    for B, M, N in BF16_PLAN_SHAPES:
+        rng = np.random.default_rng(1)
+        A = torch.tensor((rng.standard_normal((B, M, N)) / np.sqrt(M))
+                         .astype(np.float32), device="cuda").to(torch.bfloat16)
+        n = M * N
+        want = A.float().sum(dim=(1, 2))
+        library = graph_us(lambda: A.sum(dim=(1, 2), dtype=torch.float32))
+        print(f"read_reduce_bf16 {(B, M, N)} over chunks a lane, device pace; "
+              f"plan {probe.chunk_plan(B, n, _build.sm_count(0), 2)}, "
+              f"library A.sum(dtype=float32) {library:.2f} us  [{card}]")
+        for chunks in FLOOR_CHUNKS:
+            chunk = -(-n // chunks)
+            chunk += -chunk % 8
+            S = -(-n // chunk)
+            partial = torch.empty(B * S, device="cuda")
+            counter = torch.zeros(B, dtype=torch.int32, device="cuda")
+            out = torch.empty(B, device="cuda")
+
+            def run():
+                _build.check(entry(A.data_ptr(), partial.data_ptr(),
+                                   counter.data_ptr(), out.data_ptr(), B, n,
+                                   S, chunk, stream()), "read_reduce_bf16")
+
+            run()
+            torch.cuda.synchronize()
+            rel = float(((out - want).abs()
+                         / A.float().abs().sum(dim=(1, 2))).max())
+            assert rel <= 1e-5, (S, rel)
+            print(f"  S={S} chunk={chunk} ({B * S} blocks): "
+                  f"{graph_us(run):.2f} us")
+
+
 def inputs(B, M, N, seed, frozen=0.3):
     rng = np.random.default_rng(seed)
     A = (rng.standard_normal((B, M, N)) / np.sqrt(M)).astype(np.float32)
@@ -177,10 +238,18 @@ def step_plan(B, M, N, elem=4):
                         _build.max_shared_bytes(0), elem)
 
 
+def earlier_bf16_plan(B, M, N):
+    """The plan the earlier bf16 instances had: the float32 rule at 2 bytes
+    an entry, ``(threads, R, S, bytes)``."""
+    return tl._step_plan(B, M, N, _build.sm_count(0),
+                         _build.max_shared_bytes(0), 2, whole_rounds=True)
+
+
 def call_fista_step(lib, d, state, restart, shrink, done, plan, A=None):
     """Launch ``proxtpu_fista_step`` of ``lib`` on ``state`` = (x, z_prev,
     res, rs), x and z_prev updated in place, at ``plan`` = ``(threads, R,
-    S, bytes)``; an ``A`` in bfloat16 takes ``proxtpu_fista_step_bf16``."""
+    S, bytes)``; an ``A`` in bfloat16 takes ``proxtpu_fista_step_bf16``
+    (this tree's with ``(cols, xregs)`` after the bytes)."""
     A = d["A"] if A is None else A
     B, M, N = A.shape
     x, zp, res, rs = state
@@ -274,68 +343,86 @@ def compare_steps(other, this, card, plans):
                   f"per SM: eager earlier {o1:.1f} / {o2:.1f} us, this "
                   f"{n1:.1f} / {n2:.1f} us; device pace earlier {g[0]:.1f} / "
                   f"{g[3]:.1f} us, this {g[1]:.1f} / {g[2]:.1f} us  [{card}]")
-        # the bfloat16 instances at their own plan, between two runs of
-        # the float32 kernel of this tree
-        A16 = d["A"].to(torch.bfloat16)
-        plan16 = step_plan(B, M, N, 2)
-        pairs16 = {
-            "fista_step": (
-                lambda: call_fista_step(this, d, state, True, None,
-                                        d["done"], plan),
-                lambda: call_fista_step(this, d, state, True, None,
-                                        d["done"], plan16, A=A16)),
-            "fb_step": (lambda: call_fb_step(this, d, out, None, plan),
-                        lambda: call_fb_step(this, d, out, None, plan16,
-                                             A=A16)),
-        }
-        for name, (f32_fn, bf16_fn) in pairs16.items():
-            g = (graph_us(f32_fn), graph_us(bf16_fn), graph_us(bf16_fn),
-                 graph_us(f32_fn))
-            print(f"{name}_bf16 {(B, M, N)} plan {plan16}, "
-                  f"{blocks_per_sm(name == 'fista_step', M, N, plan16, 2)} "
-                  f"blocks per SM: device pace {g[1]:.1f} / {g[2]:.1f} us, "
-                  f"float32 instance {g[0]:.1f} / {g[3]:.1f} us  [{card}]")
+        time_bf16(other, this, d, state, out, card)
         if plans and (B, M, N) in PLAN_SHAPES:
             plan_grid(this, d, state, card)
+        if plans and (B, M, N) in BF16_PLAN_SHAPES:
+            bf16_plan_grid(other, this, d, state, out, card)
 
 
 def compare_bf16(other, this, d, plan):
     """This tree's bfloat16-A instances against the earlier float32 kernels
-    on ``A16.float()`` (at the float32 plan ``plan``), shrink, restart,
-    frozen lanes: equal to the last bit."""
+    on ``A16.float()`` (at the float32 plan ``plan``) and against the
+    earlier bf16 instances (at their own plan), shrink, restart, frozen
+    lanes: equal to the last bit."""
     B, M, N = d["A"].shape
     A16 = d["A"].to(torch.bfloat16)
     d32 = dict(d, A=A16.float())
-    plan16 = step_plan(B, M, N, 2)
+    plan16, old16 = step_plan(B, M, N, 2), earlier_bf16_plan(B, M, N)
     live = torch.zeros_like(d["done"])
     cases = 0
     for shrink in (None, d["shrink"]):
-        old = (torch.empty_like(d["x"]), torch.empty_like(d["t"]))
-        new = (torch.empty_like(d["x"]), torch.empty_like(d["t"]))
-        call_fb_step(other, d32, old, shrink, plan)
-        call_fb_step(this, d, new, shrink, plan16, A=A16)
+        outs = [(torch.empty_like(d["x"]), torch.empty_like(d["t"]))
+                for _ in range(3)]
+        call_fb_step(other, d32, outs[0], shrink, plan)
+        call_fb_step(other, d, outs[1], shrink, old16, A=A16)
+        call_fb_step(this, d, outs[2], shrink, plan16, A=A16)
         torch.cuda.synchronize()
-        assert all(torch.equal(a, b) for a, b in zip(old, new)), (
+        assert all(torch.equal(a, b) for o in outs[1:]
+                   for a, b in zip(outs[0], o)), (
             "fb_step_bf16", B, M, N, shrink is not None)
         for restart in (False, True):
             for done in (live, d["done"]):
-                old, new = fresh_step(d), fresh_step(d)
-                call_fista_step(other, d32, old, restart, shrink, done, plan)
-                call_fista_step(this, d, new, restart, shrink, done, plan16,
-                                A=A16)
+                states = [fresh_step(d) for _ in range(3)]
+                call_fista_step(other, d32, states[0], restart, shrink, done,
+                                plan)
+                call_fista_step(other, d, states[1], restart, shrink, done,
+                                old16, A=A16)
+                call_fista_step(this, d, states[2], restart, shrink, done,
+                                plan16, A=A16)
                 torch.cuda.synchronize()
-                assert all(torch.equal(a, b) for a, b in zip(old, new)), (
+                assert all(torch.equal(a, b) for s in states[1:]
+                           for a, b in zip(states[0], s)), (
                     "fista_step_bf16", B, M, N, restart, shrink is not None)
                 cases += 1
     print(f"fista_step_bf16, fb_step_bf16 {(B, M, N)} plan {plan16}: equal "
-          f"to the earlier float32 kernels' bits on A16.float() in {cases} + "
-          f"2 cases")
+          f"to the earlier float32 kernels' bits on A16.float() and to the "
+          f"earlier bf16 instances' (plan {old16}) in {cases} + 2 cases")
+
+
+def time_bf16(other, this, d, state, out, card):
+    """The bf16 instances at the device's pace, the earlier at its plan and
+    this at its own, in turns, beside this tree's float32 instance."""
+    B, M, N = d["A"].shape
+    A16 = d["A"].to(torch.bfloat16)
+    plan, plan16 = step_plan(B, M, N), step_plan(B, M, N, 2)
+    old16 = earlier_bf16_plan(B, M, N)
+    for name in ("fista_step", "fb_step"):
+        fista = name == "fista_step"
+
+        def run(lib, p, A=None):
+            if fista:
+                return lambda: call_fista_step(lib, d, state, True, None,
+                                               d["done"], p, A=A)
+            return lambda: call_fb_step(lib, d, out, None, p, A=A)
+
+        old_fn, new_fn = run(other, old16, A16), run(this, plan16, A16)
+        g = (graph_us(old_fn), graph_us(new_fn), graph_us(new_fn),
+             graph_us(old_fn))
+        f32 = graph_us(run(this, plan))
+        print(f"{name}_bf16 {(B, M, N)}: device pace earlier {g[0]:.1f} / "
+              f"{g[3]:.1f} us (plan {old16}), this {g[1]:.1f} / {g[2]:.1f} "
+              f"us (plan {plan16}, {blocks_per_sm(fista, M, N, plan16, 2)} "
+              f"blocks per SM); float32 instance {f32:.1f} us  [{card}]")
 
 
 def blocks_per_sm(fista, M, N, plan, elem=4):
+    """Blocks of this tree's kernel one SM holds at ``plan``: (threads, R,
+    S, bytes), and for bf16 (cols, xregs) after them."""
     out = ctypes.c_int()
+    fields = tuple(plan[4:]) if elem == 2 else (1, 0)
     _build.check(_build.library().proxtpu_step_blocks_per_sm(
-        int(fista), elem, M, N, *plan, ctypes.byref(out)),
+        int(fista), elem, M, N, *plan[:4], *fields, ctypes.byref(out)),
         "step_blocks_per_sm")
     return out.value
 
@@ -358,6 +445,68 @@ def plan_grid(this, d, state, card):
                 print(f"    threads={threads} R={R} S={S} ({smem} B, "
                       f"{blocks_per_sm(True, M, N, plan)} per SM, "
                       f"{-(-M // R)} tiles): {graph_us(fn, reps=5):.1f} us")
+
+
+def bf16_plan_grid(other, this, d, state, out, card):
+    """The bf16 instances at the device's pace: ``fista_step`` over threads
+    per block, rows per tile and stages, the earlier kernel and this one at
+    each plan, each plan's bits held against the float32 kernel on
+    ``A16.float()``; then both kernels at this tree's plan with x in
+    registers and two columns a thread each on and off."""
+    B, M, N = d["A"].shape
+    A16 = d["A"].to(torch.bfloat16)
+    d32 = dict(d, A=A16.float())
+    limit = _build.max_shared_bytes(0)
+    plan32 = step_plan(B, M, N)
+    want = fresh_step(d)
+    call_fista_step(this, d32, want, True, None, d["done"], plan32)
+
+    def held(lib, plan):
+        got = fresh_step(d)
+        call_fista_step(lib, d, got, True, None, d["done"], plan, A=A16)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(want, got)), (
+            "bf16 plan", plan)
+        return lambda: call_fista_step(lib, d, state, True, None, d["done"],
+                                       plan, A=A16)
+
+    print(f"  fista_step_bf16 {(B, M, N)} over plans, device pace, earlier "
+          f"kernel / this one  [{card}]:")
+    for threads in BF16_PLAN_THREADS:
+        for R in BF16_PLAN_ROWS:
+            for S in BF16_PLAN_STAGES:
+                smem = tl.step_shared_bytes(M, N, R, S, 2)
+                if R > M or smem + 512 > limit:
+                    continue
+                base = (threads, R, S, smem)
+                plan = base + tl.bf16_fields(N, threads, S)
+                old_us = graph_us(held(other, base), reps=5)
+                new_us = graph_us(held(this, plan), reps=5)
+                print(f"    threads={threads} R={R} S={S} ({smem} B, "
+                      f"{blocks_per_sm(True, M, N, plan, 2)} per SM, "
+                      f"{-(-M // R)} tiles): {old_us:.1f} / {new_us:.1f} us")
+    plan16 = step_plan(B, M, N, 2)
+    old16 = earlier_bf16_plan(B, M, N)
+    print(f"  the bf16 instances {(B, M, N)} by design step, device pace, "
+          f"plan {plan16[:4]}  [{card}]:")
+    for name in ("fista_step", "fb_step"):
+        fista = name == "fista_step"
+
+        def run(lib, plan):
+            if fista:
+                return held(lib, plan)
+            return lambda: call_fb_step(lib, d, out, None, plan, A=A16)
+
+        steps = {"earlier kernel, earlier plan": (other, old16),
+                 "earlier kernel, this plan": (other, plan16[:4])}
+        most_cols, most_xregs = plan16[4:]
+        for cols in range(1, most_cols + 1):
+            for xregs in range(most_xregs + 1):
+                steps[f"this kernel, cols={cols} xregs={xregs}"] = (
+                    this, plan16[:4] + (cols, xregs))
+        for what, (lib, plan) in steps.items():
+            print(f"    {name}_bf16 {what}: "
+                  f"{graph_us(run(lib, plan), reps=10):.1f} us")
 
 
 def call_k_steps(lib, d, state, restart, plan):
@@ -669,6 +818,8 @@ def main():
     compare_steps(other, this, card, args.plans)
     compare_k_steps(other, this, card)
     compare_read_reduce(other.proxtpu_read_reduce, card)
+    if args.plans:
+        floor_bf16_grid(card)
     compare_pg(other, this, card, args.plans)
     compare_tv(other, card, args.plans)
 

@@ -575,7 +575,7 @@ def test_step_plan_shares_an_sm_only_above_the_sm_count():
 
 
 def _step_layout_bytes(M, N, R, S):
-    """StepLayout of csrc/lasso_step.cu, written out once more."""
+    """StepLayout of csrc/lasso_step.cuh, written out once more."""
     if S == 0:
         return 4 * (N + M)
     fixed = 4 * (2 * (-(-N // 4) * 4) + -(-M // 4) * 4)

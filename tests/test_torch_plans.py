@@ -235,17 +235,20 @@ def test_slabs_reproduce_the_pg_steps(C, K):
 
 
 # The plan of the bfloat16-A instance of fb_step and fista_step on an H100:
-# (threads, rows per tile, stages, shared bytes) at 2 bytes an entry of A,
-# one shape per branch, and the way the kernel fills the ring (bulk copy
-# where N * 2 is a multiple of 16).
+# (threads, rows per tile, stages, shared bytes, columns a thread in pass 2,
+# x in registers in pass 1) at 2 bytes an entry of A, one shape per branch,
+# and the way the kernel fills the ring (bulk copy where N * 2 is a
+# multiple of 16).
 _BF16_PLANS = {
-    (256, 200, 400): ((512, 29, 3, 74008), "bulk"),    # route (h): 2 per SM
-    (64, 200, 400): ((512, 67, 3, 165016), "bulk"),    # one block per SM
-    (5, 300, 250): ((512, 100, 3, 153496), "loads"),   # a ring, N * 2 % 16
-    (1024, 64, 128): ((256, 64, 1, 17672), "bulk"),    # one stage
-    (7, 33, 161): ((256, 33, 1, 12296), "loads"),      # one stage, ragged
-    (2, 24, 12000): ((1024, 1, 3, 168344), "bulk"),    # in place at float32
-    (2, 24, 20000): ((256, 24, 0, 80096), "none"),     # in place
+    (256, 200, 400): ((512, 40, 3, 100120, 2, 1), "bulk"),  # route (h)
+    (64, 200, 400): ((512, 68, 3, 167320, 2, 1), "bulk"),   # one per SM
+    (5, 300, 250): ((512, 100, 3, 153496, 2, 1), "loads"),  # N * 2 % 16
+    (1024, 64, 128): ((256, 64, 1, 17672, 2, 1), "bulk"),   # one stage
+    (7, 33, 161): ((256, 33, 1, 12296, 1, 1), "loads"),     # ragged, N odd
+    (2, 24, 12000): ((1024, 1, 3, 168344, 2, 0), "bulk"),   # f32: in place
+    (2, 24, 20000): ((256, 24, 0, 80096, 1, 0), "none"),    # in place
+    (9, 300, 251): ((512, 100, 3, 154264, 1, 1), "loads"),  # a ring, N odd
+    (16, 200, 520): ((1024, 52, 3, 167448, 2, 0), "bulk"),  # x too wide
 }
 
 
@@ -254,15 +257,77 @@ def test_step_plan_bf16_branches(shape):
     plan, fill = _BF16_PLANS[shape]
     assert tl.step_plan(*shape, SMS, LIMIT, elem=2) == plan
     assert tl.cached_step_plan(*shape, SMS, LIMIT, 2) == plan
-    threads, R, S, nbytes = plan
+    threads, R, S, nbytes, cols, xregs = plan
     assert tl.step_shared_bytes(*shape[1:], R, S, 2) == nbytes
     N = shape[2]
     assert fill == ("none" if S == 0 else
                     "bulk" if N * 2 % 16 == 0 else "loads")
+    assert (cols, xregs) == tl.bf16_fields(N, threads, S)
+
+
+# The float32 plan (threads, rows per tile, stages, shared bytes) on an H100
+# at the shapes of _BF16_PLANS and of tests/test_torch_lasso.py's
+# _STEP_PLANS: what the shared planner gave it before the bf16 instances had
+# a rule of their own, and must go on giving it.
+_F32_PLANS = {
+    (256, 200, 400): (512, 16, 3, 80920),
+    (64, 200, 400): (512, 29, 3, 143512),
+    (5, 300, 250): (512, 60, 3, 183448),
+    (1024, 64, 128): (256, 64, 1, 34056),
+    (7, 33, 161): (256, 33, 1, 22920),
+    (2, 24, 12000): (256, 24, 0, 48096),
+    (2, 24, 20000): (256, 24, 0, 80096),
+    (9, 300, 251): (512, 60, 3, 184216),
+    (16, 200, 520): (1024, 29, 3, 186264),
+    (256, 400, 200): (512, 31, 3, 77720),
+    (64, 512, 1024): (1024, 16, 3, 206872),
+}
+
+
+@pytest.mark.parametrize("shape", list(_F32_PLANS))
+def test_step_plan_float32_keeps_its_values(shape):
+    assert tl.step_plan(*shape, SMS, LIMIT) == _F32_PLANS[shape]
+    assert tl.step_plan(*shape, SMS, LIMIT, elem=4) == _F32_PLANS[shape]
+    assert tl._step_plan(*shape, SMS, LIMIT, 4) == _F32_PLANS[shape]
+
+
+@pytest.mark.parametrize("N, threads, S, fields", [
+    (400, 512, 3, (2, 1)),     # route (h): both narrow passes
+    (251, 512, 3, (1, 1)),     # N odd: one column a thread in pass 2
+    (161, 256, 1, (1, 1)),     # one stage, N odd
+    (512, 512, 3, (2, 1)),     # the widest x in registers
+    (520, 1024, 3, (2, 0)),    # x too wide for registers: shared memory
+    (12000, 1024, 3, (2, 0)),
+    (400, 1024, 3, (2, 0)),    # a block of 1024 keeps x in shared memory
+    (20000, 256, 0, (1, 0)),   # in place: neither
+    (20001, 256, 0, (1, 0)),
+])
+def test_bf16_fields_and_where_each_falls_back(N, threads, S, fields):
+    assert tl.bf16_fields(N, threads, S) == fields
+
+
+def test_bf16_pairs_split_into_their_columns():
+    """Pass 2 of the bf16 instances reads two adjacent entries of a row as
+    one 32-bit word: column n in its low half, n + 1 in its high half, each
+    made a float by moving its bits to the top 16 (common.cuh: bf16_lo,
+    bf16_hi).  Replayed on the CPU, the halves are the bf16 values cast up,
+    NaN, infinities and subnormals included."""
+    rng = np.random.default_rng(3)
+    A = torch.tensor(rng.standard_normal((5, 12)).astype(np.float32))
+    A[0, :4] = torch.tensor([float("nan"), float("inf"), -float("inf"),
+                             1e-39])
+    A16 = A.to(torch.bfloat16)
+    words = A16.view(torch.int16).numpy().view(np.uint16).astype(np.uint32)
+    w = words[:, 0::2] | (words[:, 1::2] << 16)
+    lo = (w << 16).astype(np.uint32).view(np.float32)
+    hi = (w & 0xFFFF0000).astype(np.uint32).view(np.float32)
+    want = A16.float().numpy()
+    np.testing.assert_array_equal(lo, want[:, 0::2])
+    np.testing.assert_array_equal(hi, want[:, 1::2])
 
 
 def _step_layout_bytes(M, N, R, S, elem):
-    """StepLayout of csrc/lasso_step.cu at ``elem`` bytes an entry of A,
+    """StepLayout of csrc/lasso_step.cuh at ``elem`` bytes an entry of A,
     written out once more."""
     if S == 0:
         return 4 * (N + M)
@@ -274,7 +339,8 @@ def _step_layout_bytes(M, N, R, S, elem):
 def test_step_plan_bf16_fits_and_halves_the_stages():
     """At 2 bytes an entry every plan's bytes are the layout's sum and fit
     a block; a tile of the bf16 plan holds at least as many rows as the
-    float32 plan's, and a float32 lane in place may take a ring."""
+    float32 plan's, a multiple of 4 or the most that fit; a float32 lane in
+    place may take a ring; the pass choices follow bf16_fields."""
     for N in (24, 128, 161, 250, 400, 1024, 4096, 12000, 20000):
         for M in (1, 16, 33, 200, 400):
             if M * N * 4 >= 1 << 20:
@@ -282,11 +348,19 @@ def test_step_plan_bf16_fits_and_halves_the_stages():
             for B in (1, 64, 256):
                 f32 = tl.step_plan(B, M, N, SMS, LIMIT)
                 bf16 = tl.step_plan(B, M, N, SMS, LIMIT, elem=2)
-                threads, R, S, used = bf16
+                threads, R, S, used, cols, xregs = bf16
                 assert used == _step_layout_bytes(M, N, R, S, 2)
                 assert used + 512 <= LIMIT and 1 <= R <= M
                 assert S == 0 or R * N * 2 < 1 << 20
                 if f32[2] == 3 and S == 3:
                     assert R >= f32[1]
+                if S == 3 and R % 4:
+                    # the most rows that fit: one more row would not
+                    per_sm = LIMIT + 1024
+                    budget = per_sm // (2 if B > SMS else 1) - 1536
+                    wider = tl.step_shared_bytes(M, N, R + 1, 3, 2)
+                    assert R == M or wider > budget or (
+                        (R + 1) * N * 2 > 64 * 1024)
                 if f32[2] == 0:
                     assert S in (0, 3)
+                assert (cols, xregs) == tl.bf16_fields(N, threads, S)

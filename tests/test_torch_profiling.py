@@ -197,11 +197,15 @@ def _case(name):
                 _jax_cost(jt.fused_cp_k_steps,
                           *(jnp.asarray(_np(t)) for t in ops), K=K,
                           interpret=True))
-    if name == "read_reduce":
-        A = _lasso_operands(B, Mk, Nk)[0]
+    if name in ("read_reduce", "read_reduce_bf16"):
+        # the JAX probe sizes its bytes by A's dtype, as the port's does
+        bf16 = name == "read_reduce_bf16"
+        A = _lasso_operands(B, Mk, Nk,
+                            torch.bfloat16 if bf16 else torch.float32)[0]
+        jA = jnp.asarray(_np(A), jnp.bfloat16 if bf16 else jnp.float32)
         return (lambda: probe.read_reduce(A),
-                _jax_cost(_trip_overhead_bench().dma_floor_loop,
-                          jnp.asarray(_np(A)), trips=1))
+                _jax_cost(_trip_overhead_bench().dma_floor_loop, jA,
+                          trips=1))
     raise KeyError(name)
 
 
@@ -220,7 +224,7 @@ def _trip_overhead_bench():
 
 @pytest.mark.parametrize("name", [
     "fb_step", "fb_step_bf16", "fista_step", "fista_k_steps", "pg_step",
-    "pg_k_steps", "cp_k_steps", "read_reduce"])
+    "pg_k_steps", "cp_k_steps", "read_reduce", "read_reduce_bf16"])
 def test_kernel_cost_on_the_plain_route(name):
     call, want = _case(name)
     out = compiled_stats(call)

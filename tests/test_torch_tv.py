@@ -375,6 +375,37 @@ def test_read_reduce_out_and_scratch_on_cpu():
     assert probe.read_reduce.launches == before  # the plain version ran
 
 
+@pytest.mark.parametrize("shape", [(256, 200, 400), (64, 200, 400),
+                                   (7, 33, 161), (3, 1, 5)])
+def test_read_reduce_chunk_plan_bf16(shape):
+    """At 2 bytes an entry every chunk holds a multiple of 8 entries, so
+    that a chunk of an aligned lane starts on 16 bytes; the chunks cover
+    the lane."""
+    n = shape[1] * shape[2]
+    S, chunk = probe.chunk_plan(shape[0], n, 132, 2)
+    assert S >= 1 and chunk % 8 == 0
+    assert S * chunk >= n > (S - 1) * chunk
+
+
+def test_read_reduce_bf16_on_cpu():
+    """A bf16 A is summed in float32 on each entry cast up: the plain
+    version's sum, within float32 rounding of the exact sum of the bf16
+    values; the float32 instance's counter does not move."""
+    rng = np.random.default_rng(2)
+    A = torch.tensor(rng.standard_normal((5, 7, 9)).astype(np.float32)).to(
+        torch.bfloat16)
+    before = (probe.read_reduce.launches, probe.read_reduce.launches_bf16)
+    got = probe.read_reduce(A)
+    assert got.dtype == torch.float32
+    assert torch.equal(got, A.float().sum(dim=(1, 2)))
+    exact = A.float().double().numpy().sum(axis=(1, 2))
+    np.testing.assert_allclose(got.numpy(), exact, rtol=0, atol=1e-5)
+    out = torch.empty(5)
+    assert probe.read_reduce(A, out=out) is out and torch.equal(out, got)
+    assert (probe.read_reduce.launches,
+            probe.read_reduce.launches_bf16) == before
+
+
 def test_read_reduce_on_cpu():
     rng = np.random.default_rng(0)
     A = torch.tensor(rng.standard_normal((5, 7, 9)).astype(np.float32))
