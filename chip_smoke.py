@@ -5,7 +5,9 @@
 Phases, in order; any failure raises and exits non-zero:
 
 1. identify the card (there is no CPU path: no CUDA device is an error);
-2. build the CUDA kernels from ``proxtpu_torch/csrc`` (first use);
+2. build the CUDA kernels from ``proxtpu_torch/csrc`` (first use), then
+   start block 12 of ``docs/tpu_scaling.md`` (two Gloo processes, see 18)
+   beside the checks of 3, and wait for it before the first timing;
 3. hold each kernel against its plain PyTorch version on the card at the
    shapes the driven paths give it and a ragged one (``fb_step`` and
    ``fista_step`` at every branch of their launch plan: a ring filled by the
@@ -238,17 +240,26 @@ Phases, in order; any failure raises and exits non-zero:
 18. run the code blocks of ``docs/tpu_scaling.md`` on the card (phase
     "scaling guide", ``proxtpu_torch/examples/scaling_guide.py``) at the
     scale their text gives: 4096 float64 lassos through ``batch_problems``
-    with a Python ``Lf`` a problem (their data made in a thread while
-    phase "examples" runs) and the same lanes by one factory call,
+    with a Python ``Lf`` a problem (their data and Lipschitz constants
+    made in a thread while phase "examples" runs) and the same lanes by one factory call,
     bit-equal; bounded adaptive FB; vmapped power iteration; the sharded
-    PANOC and consensus on a one-rank NCCL group; the TF32 guard; the warm
-    start on a shared A; ``solve_lasso_batch`` (``fb_step``,
+    PANOC and consensus on a one-rank NCCL group; block 7's
+    ``set_matmul_precision("default")`` as written and a FISTA solve at
+    each of the three settings (``"high"`` and ``"default"`` capped at
+    SCALING_REDUCED_MAXIT), with the TF32 guard; the warm start on a
+    shared A; ``solve_lasso_batch`` (``fb_step``,
     ``fista_step``); the shared-A leg; ``stream_solve`` of the packed
     solver (``fista_step``); two Gloo ranks sharing the card in
-    ``dryrun_multichip`` (started with the phase); each block held to what
+    ``dryrun_multichip`` (started after the build, beside the phases that
+    check the kernels, and waited for before the first one that times
+    them); each block held to what
     its paragraph claims, its wall, lanes, iterations and launches printed;
-    no other block launches a kernel; the phase fails past its 90 s
-    budget;
+    no other block launches a kernel; ``fb_step`` and ``fista_step`` give
+    the same bits under ``"default"`` as under ``"highest"``; ``pmatvec``
+    and ``pdot`` at each setting held to their rounding (``"default"``:
+    the product of bfloat16-rounded operands) and PyTorch's flags put
+    back; the phase
+    fails past its 90 s budget;
 19. print the kernels' JSON line (time, plain version's time, bound and,
     where one PyTorch call computes the same function, that call's time),
     the seconds of every phase, then the result line.
@@ -4050,6 +4061,9 @@ def phase_examples(card):
 
 
 SCALING_BUDGET_S = 90.0
+# block 7's cap at "high" and "default", where the solve may stall short of
+# tol (at "highest" the block's own 2000)
+SCALING_REDUCED_MAXIT = 500
 # the blocks of docs/tpu_scaling.md that reach the kernels: 9
 # (solve_lasso_batch: fb_step, then fista_step) and 11
 # (solve_lasso_batch_packed under stream_solve: fista_step from the first
@@ -4111,8 +4125,19 @@ def _scaling_facts(i, out, outs):
                 f"{out['wall']:.3f} s, bit-equal to the unsharded run "
                 f"({out['iterations_unsharded']}){extra}")
     if i == 7:
-        return ("allow_tf32 on: the FISTA solve raised RuntimeError, the "
-                "flag restored")
+        runs = "; ".join(
+            f"{k}: {r['wall']:.3f} s, {int(r['done'].sum())}/"
+            f"{r['done'].numel()} lanes done (maxit {r['maxit']}), "
+            f"iterations {_stats(r['iters'])}, worst recheck "
+            f"{float(r['recheck'].max()):.3e}"
+            for k, r in out["runs"].items())
+        return (f"set_matmul_precision(\"default\") as written, then "
+                f"{out['runs']['highest']['iters'].numel()} lanes float32 on "
+                f"the generic driver, tol {out['tol']:.0e}: {runs} (the "
+                "doc's \"stalls around 1e-3\" at \"default\" is a TPU "
+                "figure, not held); the setting and the flags put back; "
+                "allow_tf32 on at \"highest\": the solve raised "
+                "RuntimeError, the flag restored")
     if i == 8:
         return (f"{out['iters'].numel()} lambdas float64 tol "
                 f"{out['tol']:.0e}: warm iterations {_stats(out['iters'])} in "
@@ -4152,17 +4177,158 @@ def _scaling_facts(i, out, outs):
     raise KeyError(i)
 
 
+# the rounding unit of each matmul precision's inputs: float32, TF32 (10
+# bits kept) and bfloat16 (7 bits kept).  A float32 product's largest
+# distance from the float64 one, over the largest magnitude of that, is
+# held in its setting's band: ("high", "default") in [unit / 8, unit],
+# "highest" under TF32's band
+PRECISION_UNIT = {"highest": 2.0 ** -24, "high": 2.0 ** -11,
+                  "default": 2.0 ** -8}
+# the products held: the generic driver's batched matvec at MAIN_SHAPES[0]
+# (pmatvec) and a square product (pdot)
+PRECISION_SQUARE = 4096
+
+
+def precision_products(card):
+    """``pmatvec`` at MAIN_SHAPES[0] and ``pdot`` at PRECISION_SQUARE
+    squared, float32, at each matmul precision: the time of one call, the
+    largest distance from float64 over its largest magnitude, and the bits
+    against ``"highest"``'s, printed.  Held: PyTorch's ``allow_tf32`` and
+    float32 matmul precision are the caller's after every call; at
+    ``"default"`` each product is the full-float32 product of its operands
+    rounded to bfloat16, within float32 rounding (``2 K u`` times the
+    product of the magnitudes, K the summed length, u = 2^-24: any two
+    orders of the sum sit that close); the square's error lies in its
+    setting's band (PRECISION_UNIT), the matvec's at ``"default"`` too.
+    At ``"high"`` the matvec is not held to a band (printed: whether it
+    keeps ``"highest"``'s bits)."""
+    from proxtpu_torch.utils import precision as pp
+
+    B, M, N = MAIN_SHAPES[0]
+    S = PRECISION_SQUARE
+    gen = torch.Generator(device=DEVICE).manual_seed(B + M + N + S)
+
+    def normal(*shape):
+        return torch.randn(*shape, generator=gen, device=DEVICE)
+
+    # (product, operands, summed length, the reduced settings held to a
+    # band)
+    products = {
+        f"matvec {B} x {M} x {N}": (pp.pmatvec, normal(B, M, N),
+                                    normal(B, N), N, ("default",)),
+        f"square {S}": (pp.pdot, normal(S, S), normal(S, S), S,
+                        ("high", "default"))}
+    flags = torch.backends.cuda.matmul
+    caller = (flags.allow_tf32, torch.get_float32_matmul_precision())
+    saved = pp.get_matmul_precision()
+    try:
+        for shape, (fn, a, b, K, banded) in products.items():
+            pp.set_matmul_precision("highest")
+            exact = fn(a.double(), b.double())
+            scale = float(exact.abs().max())
+            r16 = [t.to(torch.bfloat16).float() for t in (a, b)]
+            want16 = fn(*r16)
+            room16 = 2 * K * PRECISION_UNIT["highest"] * fn(
+                *(t.double().abs() for t in r16))
+            first, line = None, []
+            for setting in ("highest", "high", "default"):
+                pp.set_matmul_precision(setting)
+                got = fn(a, b)
+                ms = statistics.median(time_ms(lambda: fn(a, b), reps=10,
+                                               inner=5))
+                pp.set_matmul_precision("highest")
+                kept = (flags.allow_tf32,
+                        torch.get_float32_matmul_precision()) == caller
+                assert kept, (shape, setting, "flags not put back")
+                err = float((got.double() - exact).abs().max()) / scale
+                first = got if first is None else first
+                same = bool(torch.equal(got, first))
+                line.append(f"{setting} {ms:.4f} ms, error {err:.3e}"
+                            + ("" if setting == "highest" else
+                               f", bits of highest {same}"))
+                unit = PRECISION_UNIT[setting]
+                if setting == "highest":
+                    assert err < PRECISION_UNIT["high"] / 8, (shape, err)
+                elif setting in banded:
+                    assert unit / 8 <= err <= unit, (shape, setting, err)
+                if setting == "default":
+                    off = (got.double() - want16.double()).abs()
+                    assert bool((off <= room16).all()), (
+                        shape, float((off / room16).max()))
+                    line.append("the product of the bfloat16-rounded "
+                                "operands within float32 rounding "
+                                f"(at most {float((off / room16).max()):.3e}"
+                                f" of 2Ku|a||b|, bit-equal "
+                                f"{bool(torch.equal(got, want16))})")
+            print(f"  precision, {shape} float32: " + "; ".join(line)
+                  + f"; flags put back  [{card}]")
+    finally:
+        pp.set_matmul_precision(saved)
+
+
+def kernels_ignore_precision(card):
+    """One ``fb_step`` and one ``fista_step`` at MAIN_SHAPES[0] give the
+    same bits under ``set_matmul_precision("default")`` as under
+    ``"highest"``: the hand-written kernels do not read the setting.
+    These launches compare a kernel with itself and are in no count."""
+    import proxtpu_torch as pt
+    from proxtpu_torch.kernels import lasso as tl
+
+    B, M, N = MAIN_SHAPES[0]
+    d = step_inputs(B, M, N, seed=B + M + N)
+
+    def steps():
+        fb = tl.fused_fb_prox_grad(d["A"], d["b"], d["x"], d["gamma"],
+                                   d["thr"])
+        fista = tl.fused_fista_full_step(
+            d["A"], d["b"], d["x"].clone(), d["z_prev"].clone(), d["beta"],
+            d["gamma"], d["thr"], torch.zeros_like(d["done"]))
+        torch.cuda.synchronize()
+        return {"fb_step": fb, "fista_step": fista}
+
+    want = steps()
+    saved = pt.set_matmul_precision("default")
+    try:
+        got = steps()
+    finally:
+        pt.set_matmul_precision(saved)
+    same = {k: all(torch.equal(g, w) for g, w in zip(got[k], want[k]))
+            for k in want}
+    print(f"  under set_matmul_precision(\"default\") against \"highest\" "
+          f"at {(B, M, N)}: " + ", ".join(
+              f"{k} {'the same bits' if v else 'DIFFERENT bits'}"
+              for k, v in same.items()) + f"  [{card}]")
+    assert all(same.values()), same
+
+
+def start_dryrun():
+    """Block 12 of docs/tpu_scaling.md (two Gloo ranks sharing the card in
+    ``dryrun_multichip``) started in a thread: its processes run beside
+    the phases that hold the kernels to their plain versions, which time
+    nothing, and most of their wall is starting up.  The caller waits for
+    the future before it times anything on the card."""
+    import concurrent.futures
+
+    from proxtpu_torch.examples import scaling_guide as sg
+
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    future = pool.submit(sg.BLOCKS[("tpu_scaling.md", 12)], device=DEVICE)
+    pool.shutdown(wait=False)
+    return future
+
+
 def start_scaling_data():
-    """Block 1's 4096 lanes (``scaling_guide.prepare``) made in a thread
-    while the phases before "scaling guide" run: numpy's generator leaves
-    the interpreter free, and the draw takes seconds of the host."""
+    """Block 1's 4096 lanes and their Lipschitz constants
+    (``scaling_guide.lassos``) made in a thread while phase "examples"
+    runs: numpy's generator and the host's LAPACK leave the interpreter
+    free, and the two take seconds of the host each."""
     import concurrent.futures
 
     from proxtpu_torch.examples import scaling_guide as sg
 
     def make():
         t0 = time.perf_counter()
-        sg.prepare()
+        sg.lassos(sg.LANES)
         return time.perf_counter() - t0
 
     pool = concurrent.futures.ThreadPoolExecutor(1)
@@ -4171,42 +4337,38 @@ def start_scaling_data():
     return future
 
 
-def phase_scaling_guide(card, data):
+def phase_scaling_guide(card, data, dryrun):
     """The code blocks of docs/tpu_scaling.md on the card
     (``proxtpu_torch/examples/scaling_guide.py``), in order, each at the
     scale its own text gives and held to what its paragraph claims
     (``scaling_guide.check``); blocks 5 and 6 on a one-rank NCCL group,
-    block 12 on two Gloo ranks of its own, started with the phase.  Each
+    block 12 on two Gloo ranks of its own, run before (``dryrun``: its
+    output, from :func:`start_dryrun`).  Each
     block's wall, lanes, iterations, what it was held to and its kernel
     launches are printed; block 9 launches fb_step and fista_step, block
     11 fista_step, no other block a kernel.  The phase must end within
     SCALING_BUDGET_S.  Returns the launches.  ``data``:
     :func:`start_scaling_data`'s future."""
-    import concurrent.futures
-
     from proxtpu_torch.examples import scaling_guide as sg
 
     t_phase = time.perf_counter()
     made = data.result()
-    print(f"  block 1's lasso_data({sg.LANES}, {sg.M}, {sg.N}) in float64: "
-          f"made in a thread in {made:.1f} s, waited "
+    print(f"  block 1's lasso_data({sg.LANES}, {sg.M}, {sg.N}) in float64 "
+          f"and its Lipschitz constants: made in a thread in {made:.1f} s, "
+          f"waited "
           f"{time.perf_counter() - t_phase:.1f} s  [{card}]")
     counters = launch_counters()
     outs, walls, total = {}, {}, {}
     group = contextlib.ExitStack()  # one NCCL group for blocks 5 and 6
-    # block 12's ranks are processes of their own: they start now and run
-    # beside blocks 1-11 (most of their wall is starting up)
-    pool = concurrent.futures.ThreadPoolExecutor(1)
-    dryrun = pool.submit(sg.BLOCKS[("tpu_scaling.md", 12)], device=DEVICE)
-    pool.shutdown(wait=False)
     for key, fn in sg.BLOCKS.items():
         i = key[1]
-        kw = {"scenario": outs[1]} if i == 2 else {}
+        kw = ({"scenario": outs[1]} if i == 2 else
+              {"reduced_maxit": SCALING_REDUCED_MAXIT} if i == 7 else {})
         before = {k: getattr(wr, a) for k, (wr, a) in counters.items()}
         if i == 5:
             group.enter_context(nccl_one_rank())
         if i == 12:
-            out = dryrun.result()
+            out = dryrun
             walls[i] = out["wall"]
         else:
             out, walls[i] = timed(functools.partial(fn, device=DEVICE, **kw))
@@ -4226,6 +4388,8 @@ def phase_scaling_guide(card, data):
     sg._lassos.cache_clear()
     sg.prepare.cache_clear()
     del outs
+    kernels_ignore_precision(card)
+    precision_products(card)
     dt = time.perf_counter() - t_phase
     print(f"  scaling guide: {dt:.1f} s (budget {SCALING_BUDGET_S:.0f} s); "
           "blocks " + ", ".join(f"{i} {w:.1f}" for i, w in walls.items())
@@ -4282,6 +4446,7 @@ def main():
 
     card = phase("identify", phase_identify)
     phase("build", phase_build)
+    dryrun = start_dryrun()
     print("kernel vs plain on the card:")
     worst = phase("check f32", check_kernels)
     worst.update(phase("check k-steps, box QP", check_new_kernels))
@@ -4289,6 +4454,7 @@ def main():
     worst["read_reduce"], worst["read_reduce_bf16"] = phase(
         "check read_reduce", check_read_reduce)
     worst.update(phase("check bf16", check_bf16_kernels))
+    dryrun = phase("wait for block 12", dryrun.result)
     times, pace = phase("time one-step", time_kernels, card)
     bf16_times, bf16_library, bf16_floor_launches = phase(
         "time bf16", time_bf16_kernels, card, pace)
@@ -4348,7 +4514,7 @@ def main():
     phase("examples", phase_examples, card)
     print("the code blocks of docs/tpu_scaling.md on the card:")
     for k, n in phase("scaling guide", phase_scaling_guide, card,
-                      scaling_data).items():
+                      scaling_data, dryrun).items():
         launches[k] = launches.get(k, 0) + n
     launches["read_reduce"] = floor_launches
     launches["read_reduce_bf16"] = bf16_floor_launches

@@ -23,8 +23,8 @@ kernels written by hand for ``sm_90a`` (``proxtpu_torch/csrc``), built with
 * :mod:`proxtpu_torch.convert`    — problems from numpy and from the JAX
   package's objects into tensors
 * :mod:`proxtpu_torch.utils`      — tree operations, iteration tools,
-  checkpoints, profiling, precision policy, shared-lane markers, the FB
-  toolkit
+  checkpoints, profiling, the matmul precision switch
+  (``set_matmul_precision``), shared-lane markers, the FB toolkit
 """
 
 from . import accel, algorithms, convert, kernels, ops, parallel, prox, utils
@@ -63,6 +63,7 @@ from .utils.fb_tools import (
     f_model,
     lower_bound_smoothness_constant,
 )
+from .utils.precision import get_matmul_precision, set_matmul_precision
 from .utils.shared import Shared
 
 __version__ = "0.5.0"
@@ -77,5 +78,6 @@ __all__ = [
     "box_qp_from_numpy", "direction_from_jax", "linop_from_jax",
     "problems_from_numpy", "prox_from_jax", "tv_from_numpy",
     "BatchedAlgorithm", "Shared", "backtrack_stepsize", "f_model",
-    "lower_bound_smoothness_constant",
+    "lower_bound_smoothness_constant", "get_matmul_precision",
+    "set_matmul_precision",
 ]

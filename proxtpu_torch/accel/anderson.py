@@ -9,11 +9,11 @@ pseudo-inverse annihilates them, so no shape depends on the fill.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
 from typing import NamedTuple
 
 import torch
 
+from ..prox.base import proxclass
 from .base import QUASI_NEWTON
 from .flatten import flatten_like, unflatten_like
 
@@ -33,7 +33,7 @@ def _pinv(G):
     return torch.linalg.pinv(G, rtol=10 * max(G.shape[-2:]) * eps)
 
 
-@dataclass(frozen=True)
+@proxclass(meta_fields=("mem",))
 class AndersonAcceleration:
     mem: int = 5
 

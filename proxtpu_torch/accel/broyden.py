@@ -10,11 +10,11 @@ moderate n, as in the reference.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
 from typing import NamedTuple
 
 import torch
 
+from ..prox.base import proxclass
 from .base import QUASI_NEWTON
 from .flatten import flatten_like, unflatten_like
 
@@ -33,7 +33,7 @@ def _vdot(a, b):
     return torch.sum(a.conj() * b)
 
 
-@dataclass(frozen=True)
+@proxclass
 class Broyden:
     theta_bar: float = 0.2
 

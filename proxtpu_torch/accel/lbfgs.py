@@ -12,11 +12,11 @@ of tensors.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
 from typing import NamedTuple
 
 import torch
 
+from ..prox.base import proxclass
 from ..utils.tree import (
     real_dtype_of,
     tree_leaves,
@@ -52,7 +52,7 @@ def _set_slot(tree, hot, val):
         tree, val)
 
 
-@dataclass(frozen=True)
+@proxclass(meta_fields=("mem",))
 class LBFGS:
     """L-BFGS direction strategy with memory ``mem`` (the reference's
     default ``LBFGS(5)``)."""

@@ -11,10 +11,10 @@ one entry per lane.
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
 
 import torch
 
+from ..prox.base import proxclass
 from ..utils.tree import real_dtype_of, tree_leaves, tree_map
 from .base import NESTEROV
 
@@ -24,7 +24,7 @@ def _scalar(x, value):
                       device=tree_leaves(x)[0].device)
 
 
-@dataclass(frozen=True)
+@proxclass
 class FixedNesterovSequence:
     """The t-recursion t' = (1 + sqrt(1 + 4 t^2)) / 2, beta = (t-1)/t'."""
 
@@ -38,7 +38,7 @@ class FixedNesterovSequence:
         return (t - 1) / t_next, t_next
 
 
-@dataclass(frozen=True)
+@proxclass
 class SimpleNesterovSequence:
     """beta = (k - 1) / (k + 2)."""
 
@@ -51,7 +51,7 @@ class SimpleNesterovSequence:
         return (k - 1) / (k + 2), k + 1
 
 
-@dataclass(frozen=True)
+@proxclass(meta_fields=("m", "stepsize"))
 class ConstantNesterovSequence:
     """The strongly-convex constant beta for modulus ``m`` and a fixed
     ``stepsize``."""
@@ -70,7 +70,7 @@ class ConstantNesterovSequence:
         return torch.full_like(state, beta), state
 
 
-@dataclass(frozen=True)
+@proxclass(meta_fields=("m",))
 class AdaptiveNesterovSequence:
     """Stepsize-fed sequence; ``m`` is the strong-convexity modulus.  It
     reproduces the fixed sequence for m = 0 and the constant one for m > 0
@@ -100,7 +100,7 @@ class AdaptiveNesterovSequence:
         return beta, (gamma, theta_new)
 
 
-@dataclass(frozen=True)
+@proxclass(meta_fields=("sequence",))
 class NesterovExtrapolation:
     """Direction strategy wrapping a coefficient sequence."""
 
@@ -121,7 +121,7 @@ class NesterovExtrapolation:
         return state
 
 
-@dataclass(frozen=True)
+@proxclass(meta_fields=("sequence",))
 class AdaptiveRestartSequence:
     """O'Donoghue-Candès adaptive restart (gradient scheme) around any
     sequence: when the driver's signal ``real(<x - z, z - z_prev>)`` is

@@ -3,12 +3,11 @@ the solvers fall back to the negative residual direction."""
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-
+from ..prox.base import proxclass
 from .base import NO_ACCELERATION
 
 
-@dataclass(frozen=True)
+@proxclass
 class NoAcceleration:
     style = NO_ACCELERATION
 

@@ -9,10 +9,9 @@ stopping criterion is ``||res||_inf <= tol``.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
 from typing import NamedTuple
 
-from ..prox.base import Zero, prox, value_and_gradient
+from ..prox.base import Zero, prox, proxclass, value_and_gradient
 from ..utils.tree import tree_inf_norm, tree_map, tree_sub
 from .common import astree, device_of, real_dtype, rscalar
 from .core import IterativeAlgorithm
@@ -26,7 +25,7 @@ class DavisYinState(NamedTuple):
     res: object
 
 
-@dataclass(frozen=True)
+@proxclass
 class DavisYinIteration:
     f: object
     g: object

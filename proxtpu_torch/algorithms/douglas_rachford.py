@@ -8,10 +8,9 @@ Two proxes and three vector updates per iteration; ``gamma`` is required.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
 from typing import NamedTuple
 
-from ..prox.base import Zero, prox
+from ..prox.base import Zero, prox, proxclass
 from ..utils.tree import tree_inf_norm, tree_map, tree_sub, tree_zeros_like
 from .common import astree, device_of, real_dtype, rscalar
 from .core import IterativeAlgorithm
@@ -24,7 +23,7 @@ class DouglasRachfordState(NamedTuple):
     res: object
 
 
-@dataclass(frozen=True)
+@proxclass
 class DouglasRachfordIteration:
     f: object
     g: object

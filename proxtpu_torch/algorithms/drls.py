@@ -15,14 +15,14 @@ convex f.  The default gamma and decrease constant follow
 from __future__ import annotations
 
 import functools
-from dataclasses import dataclass
 from typing import NamedTuple
 
 import torch
 
 from ..accel.base import NESTEROV, QUASI_NEWTON
 from ..accel.lbfgs import LBFGS
-from ..prox.base import Zero, is_convex, is_generalized_quadratic, prox
+from ..prox.base import Zero, is_convex, is_generalized_quadratic, prox, \
+    proxclass
 from ..utils.loops import bounded_while
 from ..utils.tree import (
     tree_add,
@@ -103,7 +103,7 @@ class _TauCarry(NamedTuple):
     dre: torch.Tensor
 
 
-@dataclass(frozen=True)
+@proxclass(meta_fields=("max_backtracks", "directions", "dre_sign", "backtrack_limit"))
 class DRLSIteration:
     f: object
     g: object

@@ -10,12 +10,11 @@ pluggable coefficient sequence; the default is the stepsize-fed
 
 from __future__ import annotations
 
-from dataclasses import dataclass
 from typing import NamedTuple
 
 from ..accel.nesterov import AdaptiveNesterovSequence
 from ..ops.linops import IdentityOperator
-from ..prox.base import Zero, prox, value_and_gradient
+from ..prox.base import Zero, prox, proxclass, value_and_gradient
 from ..utils.fb_tools import backtrack_stepsize, \
     lower_bound_smoothness_constant
 from ..utils.tree import tree_inf_norm, tree_leaves, tree_map, tree_sub, \
@@ -38,7 +37,7 @@ class FastForwardBackwardState(NamedTuple):
     seq_state: object
 
 
-@dataclass(frozen=True)
+@proxclass(meta_fields=("adaptive", "extrapolation", "backtrack_limit"))
 class FastForwardBackwardIteration:
     f: object
     g: object

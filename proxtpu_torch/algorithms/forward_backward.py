@@ -9,11 +9,10 @@ Armijo backtracking; stopping criterion ``||res||_inf / gamma <= tol``.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
 from typing import NamedTuple
 
 from ..ops.linops import IdentityOperator
-from ..prox.base import Zero, prox, value_and_gradient
+from ..prox.base import Zero, prox, proxclass, value_and_gradient
 from ..utils.fb_tools import backtrack_stepsize, \
     lower_bound_smoothness_constant
 from ..utils.tree import tree_inf_norm, tree_leaves, tree_map, tree_sub
@@ -37,7 +36,7 @@ def _display(k, s):
     print(f"{k:5d} | {float(s.gamma):.3e} | {float(crit):.3e}")
 
 
-@dataclass(frozen=True)
+@proxclass(meta_fields=("adaptive", "backtrack_limit"))
 class ForwardBackwardIteration:
     f: object
     g: object

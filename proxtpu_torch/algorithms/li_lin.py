@@ -15,12 +15,11 @@ becomes under ``vmap``, and the form that runs under ``torch.func.vmap``.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
 from typing import NamedTuple
 
 import torch
 
-from ..prox.base import Zero, prox, value_and_gradient
+from ..prox.base import Zero, prox, proxclass, value_and_gradient
 from ..utils.tree import (
     tree_inf_norm,
     tree_map,
@@ -46,7 +45,7 @@ class LiLinState(NamedTuple):
     q: torch.Tensor
 
 
-@dataclass(frozen=True)
+@proxclass(meta_fields=("theta_restart",))
 class LiLinIteration:
     f: object
     g: object

@@ -14,14 +14,13 @@ trial: they are computed at the first trial that needs them and reused.
 from __future__ import annotations
 
 import functools
-from dataclasses import dataclass
 from typing import NamedTuple
 
 import torch
 
 from ..accel.lbfgs import LBFGS
 from ..ops.linops import as_linop
-from ..prox.base import Zero, is_generalized_quadratic, prox, \
+from ..prox.base import Zero, is_generalized_quadratic, prox, proxclass, \
     value_and_gradient
 from ..utils.fb_tools import backtrack_stepsize, f_model
 from ..utils.loops import bounded_while
@@ -81,7 +80,7 @@ def ls_display(k, s):
           f"{float(s.tau):.3e}")
 
 
-@dataclass(frozen=True)
+@proxclass(meta_fields=("adaptive", "max_backtracks", "directions", "backtrack_limit"))
 class PANOCIteration:
     f: object
     A: object

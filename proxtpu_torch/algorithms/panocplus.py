@@ -11,14 +11,13 @@ stopping criterion is on the gradient-corrected residual.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
 from typing import NamedTuple
 
 import torch
 
 from ..accel.lbfgs import LBFGS
 from ..ops.linops import as_linop
-from ..prox.base import Zero, prox, value_and_gradient
+from ..prox.base import Zero, prox, proxclass, value_and_gradient
 from ..utils.fb_tools import backtrack_stepsize, f_model
 from ..utils.loops import bounded_while
 from ..utils.tree import (
@@ -76,7 +75,7 @@ class _LSCarry(NamedTuple):
     dstate: object
 
 
-@dataclass(frozen=True)
+@proxclass(meta_fields=("adaptive", "max_backtracks", "directions", "backtrack_limit"))
 class PANOCplusIteration:
     f: object
     A: object

@@ -12,7 +12,6 @@ default-stepsize engine carries the full theta/mu case analysis.
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
 from typing import NamedTuple
 
 from ..ops.linops import IdentityOperator, ZeroOperator, as_linop
@@ -21,6 +20,7 @@ from ..prox.base import (
     Zero,
     convex_conjugate,
     prox,
+    proxclass,
     value_and_gradient,
 )
 from ..utils.tree import tree_inf_norm, tree_leaves, tree_map, tree_sub
@@ -37,7 +37,7 @@ class AFBAState(NamedTuple):
     FPR_y: object
 
 
-@dataclass(frozen=True)
+@proxclass
 class AFBAIteration:
     f: object
     g: object

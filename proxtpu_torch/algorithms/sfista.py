@@ -13,12 +13,11 @@ measures the AIPP residual against the initial point ``x0``.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
 from typing import NamedTuple
 
 import torch
 
-from ..prox.base import Zero, prox, value_and_gradient
+from ..prox.base import Zero, prox, proxclass, value_and_gradient
 from ..utils.tree import tree_add, tree_map, tree_norm, tree_norm_sq, \
     tree_sub
 from .common import astree, device_of, real_dtype, rscalar
@@ -34,7 +33,7 @@ class SFISTAState(NamedTuple):
     res: torch.Tensor  # the termination residual, computed in the step
 
 
-@dataclass(frozen=True)
+@proxclass(meta_fields=("termination_type",))
 class SFISTAIteration:
     f: object
     g: object

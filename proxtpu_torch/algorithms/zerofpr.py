@@ -10,14 +10,13 @@ at ``xbar``, and a tau line search on the FBE from ``xbar``
 
 from __future__ import annotations
 
-from dataclasses import dataclass
 from typing import NamedTuple
 
 import torch
 
 from ..accel.lbfgs import LBFGS
 from ..ops.linops import as_linop
-from ..prox.base import Zero, prox, value_and_gradient
+from ..prox.base import Zero, prox, proxclass, value_and_gradient
 from ..utils.fb_tools import backtrack_stepsize, f_model
 from ..utils.loops import bounded_while
 from ..utils.tree import (
@@ -70,7 +69,7 @@ class _Trial(NamedTuple):
     FBE: torch.Tensor
 
 
-@dataclass(frozen=True)
+@proxclass(meta_fields=("adaptive", "max_backtracks", "directions", "backtrack_limit"))
 class ZeroFPRIteration:
     f: object
     A: object

@@ -3,8 +3,8 @@ function per block, each returning what its block makes.
 
 Ten blocks: ``custom_algorithms.md`` (1), ``custom_objectives.md`` (3),
 ``getting_started.md`` (5) and ``migrating_from_proximalalgorithms.md``
-(1).  ``jax.numpy`` becomes ``torch``, ``@proxclass`` a frozen dataclass
-and ``jax.debug.print`` ``print``.  Where a block is a fragment, its
+(1).  ``jax.numpy`` becomes ``torch`` and ``jax.debug.print`` ``print``;
+``@proxclass`` is the port's.  Where a block is a fragment, its
 function supplies the names it uses as the guide's text describes them:
 the lasso of ``getting_started.md``'s first block (``A``, ``b``, ``lam``,
 ``x0 = zeros(5)``, ``f = make_least_squares(A, b)``, ``g = NormL1(lam)``,
@@ -16,12 +16,12 @@ unless ``device="cpu"`` is passed, in float64, as the JAX blocks run under
 ``jax_enable_x64``.  :data:`BLOCKS` names them by file and block.
 """
 
-from dataclasses import dataclass
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from ..prox import proxclass
 from . import device_of
 
 README_A = [[1., -2., 3., -4., 5.],
@@ -61,7 +61,7 @@ def custom_algorithms_ista(device="cuda", tol=1e-6, maxit=20_000):
         z: object
         res: object
 
-    @dataclass(frozen=True)
+    @proxclass
     class ISTAIteration:
         f: object
         g: object
@@ -127,7 +127,7 @@ def custom_objectives_autodiff(device="cuda"):
     return _fista_on_lasso(A, b, lam, Lf, f)
 
 
-@dataclass(frozen=True)
+@proxclass
 class MyQuadratic:
     """``docs/custom_objectives.md``, block 2: a smooth term with its own
     ``value_and_gradient``."""
@@ -156,7 +156,7 @@ def custom_objectives_own_gradient(device="cuda"):
     return _fista_on_lasso(A, b, lam, Lf, MyQuadratic(A.T @ A, -(A.T @ b)))
 
 
-@dataclass(frozen=True)
+@proxclass
 class IndBall2:
     """``docs/custom_objectives.md``, block 3: indicator of the l2 ball of
     radius r, with its own prox."""

@@ -11,17 +11,15 @@ script's size, seed and cap.
     python -m proxtpu_torch.examples.robust_pca
 """
 
-from dataclasses import dataclass
-
 import numpy as np
 import torch
 
 from ..algorithms import DavisYin
-from ..prox import NormL1, NuclearNorm, SeparableSum, Zero
+from ..prox import NormL1, NuclearNorm, SeparableSum, Zero, proxclass
 from . import device_of
 
 
-@dataclass(frozen=True)
+@proxclass
 class CouplingLoss:
     """f(L, S) = 1/2 ||L + S - M||_F^2 with a hand gradient (Lf = 2)."""
 

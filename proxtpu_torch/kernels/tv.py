@@ -48,7 +48,7 @@ from typing import NamedTuple
 import torch
 
 from ..utils.host_loop import run_host_loop
-from ..utils.precision import require_full_f32_matmul
+from ..utils.precision import peinsum
 from ..utils.profiling import estimate, kernel_cost
 from . import _build
 from .lasso import _round_up
@@ -124,9 +124,9 @@ def mxu_cp_step(b, x, yx, yy, g1, g2, lam, Dh=None, Dw=None):
     """One Chambolle-Pock iteration for the batch with the stencils as
     matrix products against bidiagonal difference matrices:
     ``grad = (Dh @ U, U @ Dw^T)`` and ``L^T y = Dh^T @ Yx + Yy @ Dw``.  The
-    same function as :func:`reference_cp_step`; the products run in full
-    float32 (the precision policy raises where TF32 is allowed)."""
-    require_full_f32_matmul()
+    same function as :func:`reference_cp_step`; the products run at the
+    library matmul precision (:func:`~proxtpu_torch.utils.precision.
+    get_matmul_precision`), as the JAX package's do."""
     H, W = b.shape[1], b.shape[2]
     if Dh is None:
         Dh = _diff_matrix(H, b.dtype, b.device)
@@ -136,13 +136,12 @@ def mxu_cp_step(b, x, yx, yy, g1, g2, lam, Dh=None, Dw=None):
     g2b = g2[:, None, None]
     lamb = lam[:, None, None]
 
-    lty = torch.einsum("kh,bkw->bhw", Dh, yx) + torch.einsum(
-        "bhk,kw->bhw", yy, Dw)
+    lty = peinsum("kh,bkw->bhw", Dh, yx) + peinsum("bhk,kw->bhw", yy, Dw)
     t = x - g1b * lty
     xbar = (t + g1b * b) / (1 + g1b)
     mid = 2 * xbar - x
-    gx = torch.einsum("hk,bkw->bhw", Dh, mid)
-    gy = torch.einsum("bhk,wk->bhw", mid, Dw)
+    gx = peinsum("hk,bkw->bhw", Dh, mid)
+    gy = peinsum("bhk,wk->bhw", mid, Dw)
     ybx, yby = _dual_ball(yx + g2b * gx, yy + g2b * gy, lamb)
     return xbar, ybx, yby, _residual(xbar, x, ybx, yx, yby, yy)
 

@@ -6,16 +6,16 @@ iteration for ||A||_2.  ``matvec(x)`` is A x, ``rmatvec(y)`` is A^H y,
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
 
 import torch
 
+from ..prox.base import proxclass
 from ..utils.precision import pdot
 from ..utils.tree import tree_leaves, tree_map, tree_norm, tree_scale, \
     tree_zeros_like
 
 
-@dataclass(frozen=True)
+@proxclass
 class IdentityOperator:
     """A = I, on any iterate."""
 
@@ -29,7 +29,7 @@ class IdentityOperator:
         return 1.0
 
 
-@dataclass(frozen=True)
+@proxclass
 class ZeroOperator:
     """A = 0 (AFBA's default ``L`` when h is ``Zero``)."""
 
@@ -43,7 +43,7 @@ class ZeroOperator:
         return 0.0
 
 
-@dataclass(frozen=True)
+@proxclass
 class MatrixOperator:
     """A dense matrix."""
 
@@ -59,7 +59,7 @@ class MatrixOperator:
         return torch.linalg.matrix_norm(self.A, 2)
 
 
-@dataclass(frozen=True)
+@proxclass
 class VStackOperator:
     """A = vcat(ops...): x -> concat([op x for op in ops]), for dense
     blocks (the L = [A; I] of a linear program by Chambolle-Pock)."""
@@ -86,7 +86,7 @@ class VStackOperator:
             torch.cat([op.A for op in self.ops]), 2)
 
 
-@dataclass(frozen=True)
+@proxclass(meta_fields=("shape",))
 class Grad2DOperator:
     """Discrete 2-D gradient (forward differences, Neumann boundary).
 

@@ -38,43 +38,6 @@ from .sharded_ops import lane_parallel
 _CHECK_EVERY = 8
 
 
-# The fields the JAX package declares static (``proxclass``'s
-# ``meta_fields``), by class: there a number in such a field is part of the
-# structure, not a leaf, so problems that differ in it do not stack.
-_META = ("adaptive", "max_backtracks", "directions", "backtrack_limit")
-_STATIC_FIELDS = {
-    "FastForwardBackwardIteration": ("adaptive", "extrapolation",
-                                     "backtrack_limit"),
-    "ForwardBackwardIteration": ("adaptive", "backtrack_limit"),
-    "PANOCIteration": _META,
-    "ZeroFPRIteration": _META,
-    "PANOCplusIteration": _META,
-    "DRLSIteration": ("max_backtracks", "directions", "dre_sign",
-                      "backtrack_limit"),
-    "SFISTAIteration": ("termination_type",),
-    "LiLinIteration": ("theta_restart",),
-    "ConsensusADMMIteration": ("num_blocks",),
-    "ConstantNesterovSequence": ("m", "stepsize"),
-    "AdaptiveNesterovSequence": ("m",),
-    "NesterovExtrapolation": ("sequence",),
-    "AdaptiveRestartSequence": ("sequence",),
-    "LBFGS": ("mem",),
-    "AndersonAcceleration": ("mem",),
-    "Grad2DOperator": ("shape",),
-    "ShardedMatrixOperator": ("mesh", "row_axis", "col_axis"),
-    "NormL21": ("axis",),
-    "LeastSquares": ("wide",),
-    "IndBallL0": ("k",),
-    "IndCappedSimplex": ("k",),
-    "SumLargest": ("k",),
-    "IndRank": ("k",),
-    "IndPolyhedral": ("maxit",),
-    "TotalVariation1D": ("maxit", "restart"),
-    "AutoDifferentiable": ("fn",),
-    "SlicedSeparableSum": ("slices",),
-}
-
-
 def _is_number(v):
     return isinstance(v, (int, float)) and not isinstance(v, bool)
 
@@ -90,9 +53,10 @@ def stack_iterations(iterations):
     A number that differs across the iterations becomes a ``(B,)`` tensor
     (in the real dtype of the iterations' tensors, on their device), as the
     JAX package stacks a Python number that is a pytree leaf; numbers equal
-    in every iteration stay numbers.  Flags, strategies and the numbers of
-    the fields the JAX package holds static (``backtrack_limit``, a
-    memory, ``k``) must be equal, or this raises.  Shared-marked data
+    in every iteration stay numbers.  Flags, strategies and whatever lies in
+    a field that the object's class declares static (``proxclass``'s
+    ``meta_fields``: ``backtrack_limit``, a memory, ``k``) must be equal, or
+    this raises, as the JAX package's stacking does.  Shared-marked data
     cannot be stacked: stacking B copies inside a Shared wrapper would
     batch data the drivers then treat as lane-invariant.  Build the batched
     iteration through one factory call with stacked kwargs (or
@@ -103,7 +67,8 @@ def stack_iterations(iterations):
 def _stack(objs, name):
     """Stack objects of one structure (``name`` is the caller, for the
     errors): every tensor gains a leading batch axis, every number that
-    differs outside a static field becomes a lane tensor."""
+    differs outside a static field (``proxclass``'s ``meta_fields``)
+    becomes a lane tensor."""
     objs = list(objs)  # accept generators
     for o in objs:
         if any(flatten(o)[1].shared):
@@ -125,11 +90,12 @@ def _stack(objs, name):
         return torch.tensor(values, dtype=dtype,
                             device=None if like is None else like.device)
 
-    def refuse(i):
+    def refuse(i, static=None):
         raise ValueError(
             f"{name}: iteration {i} differs from iteration 0 in a part "
-            "that is not a tensor or a number (a flag, a strategy, or a "
-            "number the JAX package holds static)")
+            "that is not a tensor or a number to stack ("
+            + (f"the static field {static}" if static
+               else "a flag or a strategy") + ")")
 
     def walk(nodes, static):
         first = nodes[0]
@@ -143,10 +109,11 @@ def _stack(objs, name):
             for i, k in enumerate(kinds):
                 if k is not kinds[0]:
                     refuse(i)
-            meta = _STATIC_FIELDS.get(type(first).__name__, ())
+            meta = getattr(kinds[0], "_meta_fields", ())
             return dataclasses.replace(first, **{
-                f.name: walk([getattr(n, f.name) for n in nodes],
-                             static or f.name in meta)
+                f.name: walk([getattr(n, f.name) for n in nodes], static or (
+                    f"{kinds[0].__name__}.{f.name}" if f.name in meta
+                    else None))
                 for f in dataclasses.fields(first)})
         kids = None if first is None else _children(first)
         if kids is not None:
@@ -161,11 +128,11 @@ def _stack(objs, name):
         for i, n in enumerate(nodes):
             if not _same(n, first):
                 if static or not all(_is_number(v) for v in nodes):
-                    refuse(i)
+                    refuse(i, static)
                 return numbers(nodes)
         return first
 
-    return walk(objs, False)
+    return walk(objs, None)
 
 
 def broadcast_hyperparams(iteration):

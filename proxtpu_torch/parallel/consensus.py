@@ -23,7 +23,6 @@ same consensus point and stops at the same iteration.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
 from typing import NamedTuple
 
 import torch
@@ -31,7 +30,7 @@ import torch.distributed as dist
 
 from ..algorithms.common import astree, device_of, real_dtype, rscalar
 from ..algorithms.core import IterativeAlgorithm
-from ..prox.base import Zero, prox
+from ..prox.base import Zero, prox, proxclass
 from ..utils.tree import flatten, tree_inf_norm, tree_map, tree_sub
 from .batch import _stack
 from .flat_ls import _lane_map
@@ -46,7 +45,7 @@ class ConsensusADMMState(NamedTuple):
     res_dual: torch.Tensor
 
 
-@dataclass(frozen=True)
+@proxclass(meta_fields=("num_blocks",))
 class ConsensusADMMIteration:
     fs: object     # stacked block functions (leading axis: this rank's)
     g: object      # shared regularizer applied to the consensus point

@@ -48,12 +48,12 @@ from __future__ import annotations
 import collections
 import functools
 import sys
-from dataclasses import dataclass
 
 import torch
 import torch.distributed as dist
 
 from ..ops.linops import MatrixOperator
+from ..prox.base import proxclass
 from ..prox.functions import (
     LeastSquares,
     LeastSquaresLoss,
@@ -611,7 +611,7 @@ def least_squares_on_stripes(A, b, lam=1.0):
                         place(s, whole), place(Atb, whole), wide)
 
 
-@dataclass(frozen=True)
+@proxclass(meta_fields=("group",))
 class RowShardedLeastSquaresLoss:
     """``f(x) = lam/2 ||A x - b||^2`` with this rank's row stripe ``A_i``,
     ``b_i``; ``x`` is whole on every rank.  ``r_i = A_i x - b_i`` is local;
@@ -643,7 +643,7 @@ class RowShardedLeastSquaresLoss:
                 lam * total[:-1].reshape(grad.shape))
 
 
-@dataclass(frozen=True)
+@proxclass(meta_fields=("group", "wide"))
 class RowShardedLeastSquares(RowShardedLeastSquaresLoss):
     """``f(x) = lam/2 ||A x - b||^2`` with its prox (the tp form of
     :class:`~proxtpu_torch.prox.functions.LeastSquares`), from this rank's
@@ -676,7 +676,7 @@ class RowShardedLeastSquares(RowShardedLeastSquaresLoss):
         return z, self(z)
 
 
-@dataclass(frozen=True)
+@proxclass(meta_fields=("group", "offset", "rows"))
 class RowShardedMatrixOperator:
     """A dense matrix held as this rank's row stripe ``A`` (rows
     ``offset`` to ``offset + A.shape[0]`` of ``rows``).  ``rmatvec`` takes
@@ -711,7 +711,7 @@ class RowShardedMatrixOperator:
 # the sharded operator
 
 
-@dataclass(frozen=True)
+@proxclass(meta_fields=("mesh", "row_axis", "col_axis"))
 class ShardedMatrixOperator:
     """Dense operator with ``A`` (a DTensor) sharded over mesh axes.
 

@@ -6,10 +6,11 @@ The solvers are written against two oracles:
   there;
 * ``value_and_gradient(f, x) -> (f_x, grad_f_x)``: the smooth-term oracle.
 
-Functions are plain frozen dataclasses (the JAX package's ``proxclass``
-registers them as pytrees; here :func:`proxtpu_torch.utils.tree.flatten`
-opens any frozen dataclass).  Tensor fields are the problem data, mapped by
-the batched driver; other fields are fixed.  Traits are class attributes.
+Functions are frozen dataclasses made by :func:`proxclass`, as in the JAX
+package.  :func:`proxtpu_torch.utils.tree.flatten` opens any dataclass:
+tensor fields are the problem data, mapped by the batched driver.  The
+fields a class names in ``meta_fields`` are static, part of its structure:
+problems that differ in one do not stack.  Traits are class attributes.
 
 Complex gradients: ``torch.func`` already returns the conjugate-Wirtinger
 gradient that the reference's Zygote returns, so unlike the JAX package the
@@ -18,12 +19,32 @@ port does not conjugate.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import dataclasses
+from functools import partial
 
 import torch
 
 from ..utils.tree import real_dtype_of, tree_inf_norm, tree_leaves, \
     tree_zeros_like
+
+
+def proxclass(cls=None, *, meta_fields=()):
+    """Decorator: a frozen dataclass whose fields in ``meta_fields`` are
+    static (counterpart of ``proxtpu.prox.base.proxclass``).
+
+    The class is what ``dataclass(frozen=True)`` makes; the names are kept
+    in its ``_meta_fields``.  A static field is part of the structure, not
+    data: :func:`~proxtpu_torch.parallel.stack_iterations` refuses problems
+    that differ in one, where it stacks a number in any other field into a
+    lane tensor."""
+    if cls is None:
+        return partial(proxclass, meta_fields=meta_fields)
+    cls = dataclasses.dataclass(frozen=True)(cls)
+    unknown = set(meta_fields) - {f.name for f in dataclasses.fields(cls)}
+    if unknown:
+        raise ValueError(f"{cls.__name__} has no fields {sorted(unknown)}")
+    cls._meta_fields = tuple(meta_fields)
+    return cls
 
 
 def is_convex(f) -> bool:
@@ -61,7 +82,7 @@ def _rzero(x):
                        device=tree_leaves(x)[0].device)
 
 
-@dataclass(frozen=True)
+@proxclass
 class Zero:
     """The identically-zero function; its prox is the identity."""
 
@@ -78,7 +99,7 @@ class Zero:
         return x, self(x)
 
 
-@dataclass(frozen=True)
+@proxclass
 class IndZero:
     """Indicator of the singleton {0}; its prox maps everything to 0."""
 
@@ -94,7 +115,7 @@ class IndZero:
         return tree_zeros_like(x), _rzero(x)
 
 
-@dataclass(frozen=True)
+@proxclass(meta_fields=("fn",))
 class AutoDifferentiable:
     """A plain callable as a smooth term, differentiated by
     ``torch.func.grad_and_value`` (its gradient already has the reference's

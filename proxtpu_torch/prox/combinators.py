@@ -6,13 +6,11 @@ the smooth sum."""
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-
 import torch
 
 from ..utils.tree import tree_map, tree_scale, tree_sub, tree_vdot_real, \
     tree_where
-from .base import value_and_gradient
+from .base import proxclass, value_and_gradient
 
 
 def _as(p, like):
@@ -38,7 +36,7 @@ def _all_of(attr):
                                      for f in self.fs))
 
 
-@dataclass(frozen=True)
+@proxclass
 class Conjugate:
     """Convex conjugate f*; its prox through the Moreau decomposition:
 
@@ -58,7 +56,7 @@ class Conjugate:
         return z, tree_vdot_real(z, u) - f_u
 
 
-@dataclass(frozen=True)
+@proxclass
 class SeparableSum:
     """g(x1, ..., xk) = g1(x1) + ... + gk(xk) over a tuple iterate."""
 
@@ -77,7 +75,7 @@ class SeparableSum:
         return tuple(z for z, _ in outs), sum(vals[1:], vals[0])
 
 
-@dataclass(frozen=True)
+@proxclass(meta_fields=("slices",))
 class SlicedSeparableSum:
     """g(x) = sum_i g_i(x[a_i:b_i]) on a flat vector; ``slices`` is a tuple
     of fixed (start, stop) pairs."""
@@ -99,7 +97,7 @@ class SlicedSeparableSum:
         return torch.cat([z for z, _ in outs]), sum(vals[1:], vals[0])
 
 
-@dataclass(frozen=True)
+@proxclass
 class Postcompose:
     """g(x) = a * f(x) + b; prox_{gamma g} = prox_{(a gamma) f}."""
 
@@ -122,7 +120,7 @@ class Postcompose:
         return z, self.a * f_z + self.b
 
 
-@dataclass(frozen=True)
+@proxclass
 class Precompose:
     """g(x) = f(L x + b) for a linear map with L L* = mu I, mu > 0
     (orthogonal maps, scaled identities, tight frames); then
@@ -163,7 +161,7 @@ class Precompose:
         return tree_map(lambda xl, dl: xl + dl / self.mu, x, d), f_z
 
 
-@dataclass(frozen=True)
+@proxclass
 class MoreauEnvelope:
     """The Moreau envelope f^gamma(x) = min_z f(z) + ||z - x||^2 / (2
     gamma), smooth with gradient (x - prox_{gamma f}(x)) / gamma."""
@@ -184,7 +182,7 @@ class MoreauEnvelope:
         return self.value_and_gradient(x)[0]
 
 
-@dataclass(frozen=True)
+@proxclass
 class Tilt:
     """g(x) = f(x) + Re<a, x> + b, a linear tilt of f; the prox shifts the
     argument, prox_{gamma g}(x) = prox_{gamma f}(x - gamma a).  ``a``
@@ -215,7 +213,7 @@ class Tilt:
         return z, f_z + self._lin(z)
 
 
-@dataclass(frozen=True)
+@proxclass
 class Regularize:
     """g(x) = f(x) + (rho/2) ||x - a||^2; the prox reduces to f's:
 
@@ -250,7 +248,7 @@ class Regularize:
         return z, f_z + self._quad(z)
 
 
-@dataclass(frozen=True)
+@proxclass
 class PointwiseMinimum:
     """g(x) = min_i f_i(x), e.g. the indicator of a union of sets
     (nonconvex).  The prox takes, among z_i = prox_{gamma f_i}(x), the one
@@ -289,7 +287,7 @@ class PointwiseMinimum:
         return best_z, best_v
 
 
-@dataclass(frozen=True)
+@proxclass
 class PrecomposeDiagonal:
     """g(x) = f(a .* x + b) for an elementwise nonzero scaling ``a`` and a
     shift ``b``, with f separable; the prox decouples per coordinate,
@@ -321,7 +319,7 @@ class PrecomposeDiagonal:
         return tree_map(lambda zl: (zl - self.b) / self.a, z), f_z
 
 
-@dataclass(frozen=True)
+@proxclass
 class Sum:
     """g(x) = sum_i f_i(x) as a smooth term only (the sum of proxes is not
     the prox of the sum): value and gradient, no prox."""

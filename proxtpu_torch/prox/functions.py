@@ -10,7 +10,6 @@ float64 trajectories agree, but the capped-simplex projection's (see
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
@@ -19,7 +18,7 @@ from ..utils.loops import vmap_while
 from ..utils.precision import pdot, pmatvec
 from ..utils.tree import real_dtype_of, tree_inf_norm, tree_leaves, \
     tree_map, tree_norm, tree_scale, tree_sub, tree_vdot_real
-from .base import _rzero, value_and_gradient
+from .base import _rzero, proxclass, value_and_gradient
 
 
 def _rparam(p, x):
@@ -45,7 +44,7 @@ def _vdot_real(a, b):
     return torch.real(torch.sum(a.conj() * b))
 
 
-@dataclass(frozen=True)
+@proxclass
 class NormL1:
     """f(x) = lam * ||x||_1; ``lam`` may be an array of per-entry weights
     broadcasting against a single-tensor iterate."""
@@ -68,7 +67,7 @@ class NormL1:
         return z, self(z)
 
 
-@dataclass(frozen=True)
+@proxclass(meta_fields=("axis",))
 class NormL21:
     """f(Y) = lam * sum_j ||Y[:, j]||_2, the isotropic group l2,1 norm over
     ``axis`` (group soft-thresholding prox).  With Y the (2, H, W)
@@ -97,7 +96,7 @@ class NormL21:
         return Z, self(Z)
 
 
-@dataclass(frozen=True)
+@proxclass
 class SqrNormL2:
     """f(x) = lam/2 * ||x||^2, smooth and proximable."""
 
@@ -119,7 +118,7 @@ class SqrNormL2:
         return z, self(z)
 
 
-@dataclass(frozen=True)
+@proxclass
 class ElasticNet:
     """f(x) = mu*||x||_1 + lam/2*||x||^2."""
 
@@ -141,7 +140,7 @@ class ElasticNet:
         return z, self(z)
 
 
-@dataclass(frozen=True)
+@proxclass
 class IndBox:
     """Indicator of the box {low <= x <= high} (real dtypes)."""
 
@@ -163,7 +162,7 @@ class IndBox:
         return z, _rzero(x)
 
 
-@dataclass(frozen=True)
+@proxclass
 class Linear:
     """f(x) = <c, x>."""
 
@@ -193,7 +192,7 @@ def _indicator(ok, x):
     return torch.where(ok, zero, torch.full_like(zero, float("inf")))
 
 
-@dataclass(frozen=True)
+@proxclass
 class IndPoint:
     """Indicator of the singleton {p}."""
 
@@ -209,7 +208,7 @@ class IndPoint:
         return self.p, _rzero(x)
 
 
-@dataclass(frozen=True)
+@proxclass
 class IndAffine:
     """Indicator of {x : Ax = b}; its prox is the affine projection through
     the Cholesky factor of A A^H, made once by :func:`make_ind_affine`."""
@@ -238,7 +237,7 @@ def make_ind_affine(A, b):
     return IndAffine(A, b, torch.linalg.cholesky(pdot(A, A.mH)))
 
 
-@dataclass(frozen=True)
+@proxclass(meta_fields=("wide",))
 class LeastSquares:
     """f(x) = lam/2 * ||A x - b||^2, smooth and proximable.
 
@@ -308,7 +307,7 @@ def make_least_squares(A, b, lam=1.0):
                         pdot(A.mH, b), wide)
 
 
-@dataclass(frozen=True)
+@proxclass
 class LeastSquaresLoss:
     """f(x) = lam/2 ||A x - b||^2 as a smooth-only oracle (no prox, nothing
     factorised): the batched form the FB family needs."""
@@ -330,7 +329,7 @@ class LeastSquaresLoss:
         return lam / 2 * _vdot_real(r, r), lam * pdot(self.A.mH, r)
 
 
-@dataclass(frozen=True)
+@proxclass
 class Translate:
     """g(x) = f(x + t)."""
 
@@ -356,7 +355,7 @@ class Translate:
         return tree_map(torch.sub, z_shift, self.t), f_z
 
 
-@dataclass(frozen=True)
+@proxclass
 class Quadratic:
     """f(x) = x'Qx/2 + q'x with a hand-written gradient; Q may be
     indefinite (the nonconvex box-QP family)."""
@@ -377,7 +376,7 @@ class Quadratic:
         return val, Qx + self.q
 
 
-@dataclass(frozen=True)
+@proxclass
 class SqrDistance:
     """f(x) = ||x - b||^2 / 2, smooth and proximable."""
 
@@ -441,7 +440,7 @@ def _inf_like(x):
 # norms, losses and closed-form projections
 
 
-@dataclass(frozen=True)
+@proxclass
 class NormL2:
     """f(x) = lam * ||x||_2 (block soft-thresholding prox)."""
 
@@ -509,7 +508,7 @@ def _gram_form(X, fn, floor):
     return (pdot(X, P) if tall else pdot(P, X)), s
 
 
-@dataclass(frozen=True)
+@proxclass
 class NuclearNorm:
     """f(X) = lam * ||X||_* (sum of singular values); the prox
     soft-thresholds the singular values (:func:`_singular`; X is a 2-D
@@ -538,7 +537,7 @@ def _softplus(v):
     return torch.logaddexp(v, torch.zeros_like(v))
 
 
-@dataclass(frozen=True)
+@proxclass
 class LogisticLoss:
     """f(u) = scale * sum(softplus(-u)): the logistic loss with all-one
     labels; gradient scale * (sigmoid(u) - 1)."""
@@ -558,7 +557,7 @@ class LogisticLoss:
         return self(u), grad
 
 
-@dataclass(frozen=True)
+@proxclass
 class HuberLoss:
     """f(x) = mu * (||x||^2/2 if ||x|| <= rho else rho(||x|| - rho/2)):
     smooth with a hand gradient, and proximable."""
@@ -595,7 +594,7 @@ class HuberLoss:
         return z, self(z)
 
 
-@dataclass(frozen=True)
+@proxclass
 class IndSimplex:
     """Indicator of the simplex {x >= 0, sum x = a}; the prox is the
     sorted-threshold projection (one sort, one cumulative sum; a single
@@ -630,7 +629,7 @@ class IndSimplex:
         return _like(x, torch.clamp(leaf - tau, min=0)), _rzero(x)
 
 
-@dataclass(frozen=True)
+@proxclass
 class IndBallL2:
     """Indicator of the l2 ball {||x|| <= r}; the prox scales radially."""
 
@@ -652,7 +651,7 @@ class IndBallL2:
         return tree_scale(scale, x), _rzero(x)
 
 
-@dataclass(frozen=True)
+@proxclass
 class IndBallL1:
     """Indicator of the l1 ball {||x||_1 <= r}; projection through the
     simplex projection of |x|, the phase kept (``sgn``: x/|x| for complex
@@ -679,7 +678,7 @@ class IndBallL1:
         return _like(x, z), _rzero(x)
 
 
-@dataclass(frozen=True)
+@proxclass
 class SumPositive:
     """f(x) = sum(max(x, 0)); the prox shifts the positive entries down by
     gamma."""
@@ -696,7 +695,7 @@ class SumPositive:
         return z, self(z)
 
 
-@dataclass(frozen=True)
+@proxclass
 class NormL0:
     """f(x) = lam * ||x||_0 (nonconvex); the prox keeps the entries with
     |x_i| > sqrt(2 gamma lam)."""
@@ -719,7 +718,7 @@ class NormL0:
         return z, self(z)
 
 
-@dataclass(frozen=True)
+@proxclass
 class HingeLoss:
     """f(x) = mu * sum_i max(0, 1 - y_i x_i), labels y in {-1, +1}; the
     separable prox: with v = y x, u = v where v >= 1, else
@@ -749,7 +748,7 @@ class HingeLoss:
         return z, self(z)
 
 
-@dataclass(frozen=True)
+@proxclass
 class IndBallLinf:
     """Indicator of the l-inf ball {max_i |x_i| <= r}; the prox moves each
     entry onto the radius-r disk (complex-safe)."""
@@ -779,7 +778,7 @@ class IndBallLinf:
         return tree_map(clipd, x), _rzero(x)
 
 
-@dataclass(frozen=True)
+@proxclass
 class NormLinf:
     """f(x) = lam * max_i |x_i|; the prox by the Moreau decomposition
     against the l1-ball projection, x - P_{B1(gamma lam)}(x)
@@ -802,7 +801,7 @@ class NormLinf:
         return zt, self(zt)
 
 
-@dataclass(frozen=True)
+@proxclass
 class IndHalfspace:
     """Indicator of {<a, x> <= b} (real dtypes); the prox is the affine
     projection x - max(0, (<a,x> - b)/||a||^2) a."""
@@ -828,7 +827,7 @@ class IndHalfspace:
         return z, _rzero(x)
 
 
-@dataclass(frozen=True)
+@proxclass
 class IndSphereL2:
     """Indicator of the l2 sphere {||x|| = r} (nonconvex); the prox scales
     radially, and 0 goes to r e_1 with e_1 in the first leaf only (a
@@ -863,7 +862,7 @@ class IndSphereL2:
         return tree_map(lambda _: next(it), z), _rzero(x)
 
 
-@dataclass(frozen=True)
+@proxclass
 class LogBarrier:
     """f(x) = -mu * sum_i log(x_i) on x > 0; the prox per coordinate
     z = (x + sqrt(x^2 + 4 gamma mu)) / 2."""
@@ -895,7 +894,7 @@ class LogBarrier:
         return z, self(z)
 
 
-@dataclass(frozen=True)
+@proxclass
 class IndSOC:
     """Indicator of the second-order cone {(t, x) : ||x|| <= t} on a flat
     vector whose first entry is t; closed-form projection (real, one
@@ -922,7 +921,7 @@ class IndSOC:
         return _like(x, z), _rzero(x)
 
 
-@dataclass(frozen=True)
+@proxclass
 class NormL1plusL2:
     """f(x) = lam1 ||x||_1 + lam2 ||x||_2; the prox is the l2 block
     shrink after the l1 soft threshold (complex-safe)."""
@@ -947,7 +946,7 @@ class NormL1plusL2:
         return z, self(z)
 
 
-@dataclass(frozen=True)
+@proxclass(meta_fields=("k",))
 class IndBallL0:
     """Indicator of {||x||_0 <= k} (nonconvex); the prox keeps the k
     largest magnitudes, ties to the lower index (stable sort).  One leaf;
@@ -972,7 +971,7 @@ class IndBallL0:
         return _like(x, z.reshape(leaf.shape)), _rzero(x)
 
 
-@dataclass(frozen=True)
+@proxclass
 class DistL2:
     """f(x) = lam * dist_C(x) for a convex set C given by an indicator with
     an exact projection; the prox moves toward the projection by
@@ -1004,7 +1003,7 @@ class DistL2:
         return z, lam * torch.clamp(d - gamma * lam, min=0)
 
 
-@dataclass(frozen=True)
+@proxclass
 class SqrHingeLoss:
     """f(x) = mu * sum_i max(0, 1 - y_i x_i)^2: smooth, and proximable in
     closed form for any y (active coordinates solve
@@ -1083,7 +1082,7 @@ def _capped_simplex_proj(y, cap, total):
     return _clip(y - tau.unsqueeze(-1), 0.0, cap)
 
 
-@dataclass(frozen=True)
+@proxclass(meta_fields=("k",))
 class IndCappedSimplex:
     """Indicator of {0 <= x <= cap, sum x = k cap}; projection by the clip
     threshold (:func:`_capped_simplex_proj`).  One
@@ -1121,7 +1120,7 @@ class IndCappedSimplex:
         return _like(x, z.reshape(leaf.shape)), _rzero(x)
 
 
-@dataclass(frozen=True)
+@proxclass(meta_fields=("k",))
 class SumLargest:
     """f(x) = lam * (sum of the k largest entries of x); the prox by the
     Moreau decomposition against the capped simplex,
@@ -1156,7 +1155,7 @@ def Maximum(lam=1.0):
     return SumLargest(1, lam)
 
 
-@dataclass(frozen=True)
+@proxclass
 class CubeNormL2:
     """f(x) = lam * ||x||_2^3; the prox shrinks radially to
     s = 2r / (1 + sqrt(1 + 12 lam gamma r)), r = ||x||."""
@@ -1182,7 +1181,7 @@ class CubeNormL2:
         return z, lam * s ** 3
 
 
-@dataclass(frozen=True)
+@proxclass
 class IndBinary:
     """Indicator of {low, high}^n (nonconvex); the prox snaps each entry
     to the nearer value, ties to ``low``."""
@@ -1208,7 +1207,7 @@ class IndBinary:
         return tree_map(snap, x), _rzero(x)
 
 
-@dataclass(frozen=True)
+@proxclass
 class CrossEntropy:
     """f(x) = -mean(b log x + (1 - b) log(1 - x)) on (0, 1)^n: smooth,
     differentiated automatically; no prox."""
@@ -1225,7 +1224,7 @@ class CrossEntropy:
                            + (1 - b) * torch.log1p(-leaf))
 
 
-@dataclass(frozen=True)
+@proxclass
 class NegEntropy:
     """f(x) = lam * sum_i x_i log x_i on x >= 0; the prox solves
     lam (log z + 1) + (z - x) / gamma = 0 per coordinate by 20 Newton
@@ -1256,7 +1255,7 @@ class NegEntropy:
         return zt, self(zt)
 
 
-@dataclass(frozen=True)
+@proxclass
 class IndFree:
     """Indicator of the whole space: zero everywhere, prox the identity."""
 
@@ -1278,7 +1277,7 @@ def IndNonpositive():
     return IndBox(-float("inf"), 0.0)
 
 
-@dataclass(frozen=True)
+@proxclass
 class IndHyperslab:
     """Indicator of {lo <= <a, x> <= hi}; the prox projects along a."""
 
@@ -1311,7 +1310,7 @@ class IndHyperslab:
 # matrix functions: eigendecompositions and SVDs of 2-D leaves
 
 
-@dataclass(frozen=True)
+@proxclass
 class IndPSD:
     """Indicator of the positive-semidefinite cone (a symmetric 2-D leaf);
     the prox clamps the negative eigenvalues (``torch.linalg.eigh``)."""
@@ -1331,7 +1330,7 @@ class IndPSD:
         return pdot(V * wpos.unsqueeze(-2).to(V.dtype), V.mH), _rzero(X)
 
 
-@dataclass(frozen=True)
+@proxclass
 class NegLogDet:
     """f(X) = -mu * logdet(X) on symmetric positive-definite 2-D leaves
     (+inf outside); the prox maps each eigenvalue w of the symmetrised
@@ -1358,7 +1357,7 @@ class NegLogDet:
         return Z, -mu * torch.sum(torch.log(z))
 
 
-@dataclass(frozen=True)
+@proxclass
 class IndStiefel:
     """Indicator of {X : X^H X = I} (nonconvex, 2-D leaf, n >= p); the prox
     is the polar factor U V^H of the thin SVD."""
@@ -1378,7 +1377,7 @@ class IndStiefel:
         return Z, _rzero(X)
 
 
-@dataclass(frozen=True)
+@proxclass(meta_fields=("k",))
 class IndRank:
     """Indicator of {X : rank(X) <= k} (nonconvex, 2-D leaf); the prox keeps
     the top k singular values (Eckart-Young).  ``k`` is fixed; where the
@@ -1410,7 +1409,7 @@ class IndRank:
 IndBallRank = IndRank
 
 
-@dataclass(frozen=True)
+@proxclass
 class IndGraph:
     """Indicator of the graph {(x, y) : y = A x} on a tuple iterate (x, y);
     the projection u = (I + A^H A)^{-1} (x + A^H y), v = A u through the
@@ -1540,7 +1539,7 @@ def _expcone_project(V):
                         z[..., 2]], -1)
 
 
-@dataclass(frozen=True)
+@proxclass
 class IndExpPrimal:
     """Indicator of the exponential cone cl{(x,y,z) : y > 0,
     y exp(x/y) <= z}; one leaf whose trailing dimension is 3, the leading
@@ -1572,7 +1571,7 @@ class IndExpPrimal:
         return _like(x, out), _rzero(leaf)
 
 
-@dataclass(frozen=True)
+@proxclass
 class IndExpDual:
     """Indicator of the dual exponential cone; projection by the Moreau
     identity P_{K*}(x) = x + P_K(-x).  Trailing dimension 3."""
@@ -1615,7 +1614,7 @@ def _fista_restart_step(u, w, t, u_new, R, restart):
     return t_new, u_new + beta * (u_new - u)
 
 
-@dataclass(frozen=True)
+@proxclass(meta_fields=("maxit",))
 class IndPolyhedral:
     """Indicator of {x : lo <= A x <= hi} (equality rows lo_i = hi_i,
     one-sided rows +-inf).  The prox solves the dual of the projection QP,
@@ -1735,7 +1734,7 @@ def _tv1d_dual(leaf, thr, tol, maxit, restart):
     return u, k
 
 
-@dataclass(frozen=True)
+@proxclass(meta_fields=("maxit", "restart"))
 class TotalVariation1D:
     """f(x) = lam * sum_i |x_{i+1} - x_i|, the 1-D total variation.  The
     prox solves the dual denoising problem

@@ -31,8 +31,6 @@ projection.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-
 import numpy as np
 import torch
 
@@ -40,6 +38,7 @@ from .. import algorithms as alg
 from ..ops.linops import MatrixOperator
 from ..parallel import BatchedAlgorithm
 from ..prox import functions as fns
+from ..prox.base import proxclass
 from ..prox.combinators import Tilt
 from ..utils.shared import Shared
 
@@ -157,7 +156,7 @@ MC_LAM = 0.5
 MC_MAXIT = 5000
 
 
-@dataclass(frozen=True)
+@proxclass
 class MaskedQuadratic:
     """f(X) = ||mask * (X - M)||_F^2 / 2 with its gradient (the script's
     own smooth term)."""

@@ -46,11 +46,11 @@ import socket
 import subprocess
 import sys
 import time
-from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from ..prox.base import proxclass
 from .problems import lasso_problems
 
 # ---------------------------------------------------------------------------
@@ -590,7 +590,7 @@ def dp_x_tp_iteration(A, b, lam, Lf, device):
         f=Shared(LeastSquaresLoss(t(A), t(b))), g=NormL1(t(lam)), Lf=Lf)
 
 
-@dataclass(frozen=True)
+@proxclass(meta_fields=("parts",))
 class EmulatedStripes:
     """``lam/2 ||A x - b||^2`` as ``RowShardedLeastSquaresLoss`` computes
     it over a tp group of ``parts`` ranks, in one process: each stripe's
@@ -811,7 +811,7 @@ def tp_data(route, dtype):
     return dp_x_tp_data(dtype, M=48 if route.endswith("_tall") else 24)
 
 
-@dataclass(frozen=True)
+@proxclass(meta_fields=("parts",))
 class EmulatedRowOperator:
     """``RowShardedMatrixOperator`` over a tp group of ``parts`` ranks, in
     one process: ``matvec`` the stripes' products stacked (whole rows, as
@@ -839,7 +839,7 @@ class EmulatedRowOperator:
         return lanes_last(total)
 
 
-@dataclass(frozen=True)
+@proxclass(meta_fields=("parts", "wide"))
 class EmulatedLeastSquares(EmulatedStripes):
     """``RowShardedLeastSquares`` over a tp group of ``parts`` ranks, in one
     process (see :func:`emulated_least_squares` for the factors): the

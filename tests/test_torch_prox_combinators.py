@@ -130,8 +130,7 @@ def test_prox_namespace_is_the_jax_packages():
 
     j = importlib.import_module("proxtpu.prox")
     t = importlib.import_module("proxtpu_torch.prox")
-    assert set(j.__all__) - {"proxclass"} == set(t.__all__)
-    assert [n for n in j.__all__ if n != "proxclass"] == t.__all__
+    assert j.__all__ == t.__all__
     for name in t.__all__:
         assert callable(getattr(t, name)), name
 

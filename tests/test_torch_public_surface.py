@@ -20,19 +20,11 @@ from proxtpu.algorithms.common import resolve_gamma as jresolve_gamma
 from proxtpu_torch.algorithms.common import resolve_gamma
 
 # left out on purpose (ROADMAP.md, "Left out on purpose"): the TPU packing
-# transform and its kernel, the lane count of the TPU layout, the JAX
-# package's class decorator, and its matmul precision switch (the port
-# raises where TF32 is allowed instead)
+# transform and its kernel, and the lane count of the TPU layout
 LEFT_OUT = {
     ("kernels.common", "auto_lanes"),
     ("kernels.lasso", "fused_fista_packed_step"),
     ("kernels.lasso", "pack_lasso_batch"),
-    ("prox", "proxclass"),
-    ("prox.base", "proxclass"),
-    ("utils", "get_matmul_precision"),
-    ("utils", "set_matmul_precision"),
-    ("utils.precision", "get_matmul_precision"),
-    ("utils.precision", "set_matmul_precision"),
 }
 
 

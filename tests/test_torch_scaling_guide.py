@@ -177,17 +177,36 @@ def test_power_iteration_vmap_same_gives_each_lane_its_bits():
 
 
 def test_block_7_tf32_raises_and_restores():
+    """The doc's call in JAX, then the FISTA solve of the block's lanes on
+    the generic driver at its setting against the port's at the same
+    setting (float32: the cross-path contract); on the CPU the port's
+    three settings give the same bits, and the setting, the flags and the
+    TF32 guard's raise are as ``scaling_guide.check`` holds them."""
     ns = {}
     saved = get_matmul_precision()
     try:
         tj.run(7, ns)
         assert get_matmul_precision() != saved
+        A, b, lam, Lf = _data(7, np.float32)
+        xs, iters, _ = BatchedAlgorithm(
+            make_fast_forward_backward_iteration, maxit=2000, tol=1e-5,
+            use_kernels=False)(x0=jnp.zeros((A.shape[0], A.shape[2]),
+                                            jnp.float32),
+                               f=LeastSquaresLoss(A, b), g=NormL1(lam),
+                               Lf=Lf)
     finally:
         pa.set_matmul_precision(saved)
     flags = torch.backends.cuda.matmul
     before = flags.allow_tf32
     port = tj.port(7)
     assert flags.allow_tf32 == before and port["restored"]
+    runs = port["runs"]
+    assert list(runs) == list(sg.PRECISIONS)
+    for run in runs.values():
+        assert torch.equal(run["xs"], runs["highest"]["xs"])
+        assert torch.equal(run["iters"], runs["highest"]["iters"])
+    _cross_path((runs["default"]["xs"], runs["default"]["iters"]),
+                (xs, iters))
 
 
 def test_block_8_warm_start():
