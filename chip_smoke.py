@@ -12,13 +12,17 @@ Phases, in order; any failure raises and exits non-zero:
    shapes the driven paths give it and a ragged one (``fb_step`` and
    ``fista_step`` at every branch of their launch plan: a ring filled by the
    bulk copy or by ordinary loads, one stage that holds the lane, the lane
-   read in place; ``fista_k_steps`` at every branch of its own: 1, 2, 4 and
+   read in place; ``fista_packed_step`` at every packed check shape and
+   every branch of the same plan, each launch also bit-equal to
+   ``fista_step`` on the unpacked operands; ``fista_k_steps`` at every
+   branch of its own: 1, 2, 4 and
    8 thread blocks per lane, stages filled by the bulk copy or by ordinary
    loads, tiles read in place; ``pg_step`` and ``pg_k_steps`` at clusters
    of 2 and 1 and both ways to fill the ring; ``cp_k_steps`` bit for bit in
    both variants, a cluster per image and tiles with a halo), then time
    both, the one-step kernels in an eager loop and at the device's pace
-   with their plan and the blocks an SM holds, and their wrappers' host
+   with their plan and the blocks an SM holds (``fista_packed_step`` at
+   the bulk phase's shape and the tall one), and their wrappers' host
    time by part; ``pg_step`` and ``pg_k_steps`` at the device's pace with
    their plan; ``cp_k_steps`` at the device's pace over K = 1, 2, 4, 8
    (the intercept is the load, store and launch, the slope one step) with
@@ -50,7 +54,8 @@ Phases, in order; any failure raises and exits non-zero:
        ``fista_k_steps``; once more with adaptive restart;
    (b) nonconvex box QP, n = 512, B = 64 (``benchmarks/families_bench.py``'s
        family, rng 7, 1 MB of Q per lane): ``pg_step`` then ``pg_k_steps``;
-   (c) the flagship 256 x 200 x 400: the packed solver, ``fista_step``;
+   (c) the flagship 256 x 200 x 400: the packed solver,
+       ``fista_packed_step``;
    (d) 256 tall 400 x 200 lasso problems with the strong-convexity modulus
        ``mf``: ``fb_step`` then ``fista_step`` with a constant beta;
 6. drive the rest of the lasso family at full width, each on the kernel
@@ -121,7 +126,8 @@ Phases, in order; any failure raises and exits non-zero:
         (``batched_adaptive_fista``) and adaptive PANOC from a gamma ten
         times too large;
     (p) ``WarmStartedBatchedAlgorithm(FastForwardBackward)`` in float64 at
-        tol 1e-6: the float32 stage on the kernel route (``fista_step``;
+        tol 1e-6: the float32 stage on the kernel route
+        (``fista_packed_step``;
         its launches join the kernels' line), the polish on the float64
         plain step, every lane's float64 residual <= 1.05 tol, beside the
         cold float64 solve on the generic driver;
@@ -148,7 +154,8 @@ Phases, in order; any failure raises and exits non-zero:
         per-lane residual every 8 iterations: the unrecorded iterations,
         NaN after ``count``, the wall against the unrecorded run;
     (v) one main-path solve inside ``utils.profiling.trace``: the trace's
-        ``fista_step`` and ``fb_step`` kernel events equal the launch
+        ``fista_packed_step``, ``fista_step`` and ``fb_step`` kernel events
+        equal the launch
         counters; ``compiled_stats`` of the same solve: the kernels' flops
         and bytes by the JAX package's ``CostEstimate`` formulas at each
         launch's width;
@@ -249,7 +256,7 @@ Phases, in order; any failure raises and exits non-zero:
     SCALING_REDUCED_MAXIT), with the TF32 guard; the warm start on a
     shared A; ``solve_lasso_batch`` (``fb_step``,
     ``fista_step``); the shared-A leg; ``stream_solve`` of the packed
-    solver (``fista_step``); two Gloo ranks sharing the card in
+    solver (``fista_packed_step``); two Gloo ranks sharing the card in
     ``dryrun_multichip`` (started after the build, beside the phases that
     check the kernels, and waited for before the first one that times
     them); each block held to what
@@ -295,6 +302,18 @@ STEP_SHAPES = MAIN_SHAPES + [(256, 400, 200), (64, 512, 1024),
 # than a block's shared memory (a ring filled by ordinary loads), and rows
 # too wide for three one-row stages beside x, g and r (the lane in place)
 CHECK_SHAPES = STEP_SHAPES + [(7, 33, 161), (5, 300, 250), (2, 24, 12000)]
+# fista_packed_step, (B, M, N, pack): every CHECK_SHAPES entry that the
+# packed solver packs (_pack_count above 1); the JAX tests' shape (a lane
+# that is one stage, bulk copy); and, at an explicit pack, rows of no
+# multiple of 16 bytes (the gather by ordinary loads: N = 130 in one stage,
+# N = 250 through a ring) and rows too wide for a ring (read in place
+# through the column map)
+PACKED_CHECK_SHAPES = [(256, 200, 400, 8), (64, 200, 400, 8),
+                       (256, 400, 200, 16), (8, 16, 160, 4),
+                       (64, 8, 130, 64), (5, 300, 250, 5),
+                       (2, 24, 12000, 2)]
+# fista_packed_step timed at the bulk phase's shape and the tall one
+PACKED_TIME_SHAPES = [(256, 200, 400, 8), (256, 400, 200, 16)]
 # the bfloat16-A instances at the same shapes (at 2 bytes an entry
 # (2, 24, 12000) walks a ring of one-row tiles), at a lane whose bf16 rows
 # are still too wide for a ring (read in place), at an odd N through a ring
@@ -397,7 +416,8 @@ def lasso_bound(B, M, N, vecs, scalars, steps, a_bytes=4):
 # operands and results of the one-step kernels: fb_step A, b, x, gamma, thr
 # -> z, res; fista_step A, b, x, z_prev, beta, gamma, thr, done -> x, z_prev,
 # res, rs
-STEP_OPERANDS = {"fb_step": (2, 3), "fista_step": (4, 6)}
+STEP_OPERANDS = {"fb_step": (2, 3), "fista_step": (4, 6),
+                 "fista_packed_step": (4, 6)}
 
 
 def read_bound(B, M, N, a_bytes=4):
@@ -531,6 +551,85 @@ def raises(exc, fn):
     except exc:
         return
     raise AssertionError(f"no {exc.__name__} raised")
+
+
+def packed_operands(d, pack, done):
+    """``d`` (step_inputs) in the packed layout: ``(Ap, bp, x, z_prev,
+    beta, gamma, thr, done)``, the carries fresh copies."""
+    from proxtpu_torch.kernels import lasso as tl
+
+    B, M, N = d["A"].shape
+    nfull = (N // 128) * 128
+    Ap, bp = tl.pack_lasso_batch(d["A"], d["b"], pack)
+    lanes = [v.reshape(B // pack, pack)
+             for v in (d["beta"], d["gamma"], d["thr"], done)]
+    return (Ap, bp, tl._pack_rows(d["x"], pack, nfull),
+            tl._pack_rows(d["z_prev"], pack, nfull), *lanes)
+
+
+def check_packed_kernel():
+    """fista_packed_step at every packed check shape against its plain
+    version (within ATOL, rs within RS_RTOL) and, bit for bit, against
+    fista_step on the unpacked operands; its wrapper refuses what the
+    kernel does not take.  Returns the largest absolute error."""
+    from proxtpu_torch.kernels import _build
+    from proxtpu_torch.kernels import lasso as tl
+
+    worst, branches = 0.0, set()
+    for B, M, N, pack in PACKED_CHECK_SHAPES:
+        d = step_inputs(B, M, N, seed=B + M + N)
+        threads, R, S, smem = tl.step_plan(B, M, N, _build.sm_count(0),
+                                           _build.max_shared_bytes(0))
+        branch = ("in place" if S == 0 else
+                  ("one stage, " if S == 1 else "ring, ")
+                  + ("bulk copy" if N % 4 == 0 else "ordinary loads"))
+        branches.add(branch)
+        for restart in (False, True):
+            for done in (torch.zeros_like(d["done"]), d["done"]):
+                ops = packed_operands(d, pack, done)
+                want = tl.reference_fista_packed_step(
+                    *ops, N, pack, restart=restart)
+                got = tl.fused_fista_packed_step(
+                    *ops[:2], ops[2].clone(), ops[3].clone(), *ops[4:], N,
+                    pack, restart=restart)
+                natural = tl.fused_fista_full_step(
+                    d["A"], d["b"], d["x"].clone(), d["z_prev"].clone(),
+                    d["beta"], d["gamma"], d["thr"], done, restart=restart)
+                torch.cuda.synchronize()
+                err = max(max_err(g, w) for g, w in zip(got[:3], want[:3]))
+                rs_err = float(((got[3] - want[3]).abs()
+                                / (1 + want[3].abs())).max())
+                assert err <= ATOL and rs_err <= RS_RTOL, (
+                    B, M, N, pack, restart, err, rs_err)
+                same = (torch.equal(tl._unpack_rows(got[0], pack, N),
+                                    natural[0])
+                        and torch.equal(tl._unpack_rows(got[1], pack, N),
+                                        natural[1])
+                        and torch.equal(got[2].reshape(B), natural[2])
+                        and torch.equal(got[3].reshape(B), natural[3]))
+                assert same, ("fista_packed_step is not fista_step's bits",
+                              B, M, N, pack, restart)
+                worst = max(worst, err)
+                print(f"  fista_packed_step {(B, M, N)} pack {pack} "
+                      f"restart={restart} frozen={int((done != 0).sum())}: "
+                      f"max|err| {err:.3e}, rs rel {rs_err:.3e}; "
+                      f"fista_step's bits ({threads} threads, {S} stages of "
+                      f"{R} rows, {branch})")
+    assert branches == {"ring, bulk copy", "ring, ordinary loads",
+                        "one stage, bulk copy", "one stage, ordinary loads",
+                        "in place"}, branches
+    # float32 only, contiguous, the shapes of the packed layout
+    d = step_inputs(8, 16, 160, seed=184)
+    ops = packed_operands(d, 4, d["done"])
+    raises(TypeError, lambda: tl.fused_fista_packed_step(
+        ops[0].bfloat16(), *ops[1:], 160, 4))
+    raises(ValueError, lambda: tl.fused_fista_packed_step(
+        ops[0].transpose(1, 2).contiguous().transpose(1, 2), *ops[1:], 160,
+        4))
+    raises(ValueError, lambda: tl.fused_fista_packed_step(*ops, 80, 8))
+    raises(ValueError, lambda: tl.fused_fista_packed_step(
+        *ops[:4], *(v.reshape(-1) for v in ops[4:]), 160, 4))
+    return worst
 
 
 def check_bf16_kernels():
@@ -733,6 +832,94 @@ def time_kernels(card):
         if (B, M, N) in MAIN_SHAPES:
             step_host_parts(d, card)
     return flagship, pace
+
+
+def time_packed_kernel(card, pace):
+    """fista_packed_step against its plain version at PACKED_TIME_SHAPES,
+    eager (plain, kernel, kernel, plain) and at the device's pace, beside
+    fista_step's time at the device's pace on the same problems unpacked
+    (``pace`` of time_kernels, which this adds the packed kernel to) and the
+    bound.  Returns the flagship shape's eager medians (kernel, plain)."""
+    from proxtpu_torch.kernels import _build
+    from proxtpu_torch.kernels import lasso as tl
+
+    flagship = None
+    for B, M, N, pack in PACKED_TIME_SHAPES:
+        d = step_inputs(B, M, N, seed=B + M + N)
+        ops = packed_operands(d, pack, torch.zeros_like(d["done"]))
+        x, zp = ops[2].clone(), ops[3].clone()
+        kernel = lambda: tl.fused_fista_packed_step(  # noqa: E731
+            *ops[:2], x, zp, *ops[4:], N, pack, restart=True)
+        plain = lambda: tl.reference_fista_packed_step(  # noqa: E731
+            *ops, N, pack, restart=True)
+        p1, k1, k2, p2 = (time_ms(plain, reps=10), time_ms(kernel),
+                          time_ms(kernel), time_ms(plain, reps=10))
+        k, p = statistics.median(k1 + k2), statistics.median(p1 + p2)
+        g = pace[("fista_packed_step", (B, M, N))] = graph_ms(kernel)
+        plan = tl.step_plan(B, M, N, _build.sm_count(0),
+                            _build.max_shared_bytes(0))
+        bnd = lasso_bound(B, M, N, *STEP_OPERANDS["fista_packed_step"], 1)[0]
+        # what a packed solve pays once: the copy of A and b in the layout
+        pk = statistics.median(time_ms(
+            lambda: tl.pack_lasso_batch(d["A"], d["b"], pack), reps=10))
+        print(f"  fista_packed_step {(B, M, N)} pack {pack}: kernel "
+              f"{1e3 * k:.1f} us eager (runs {1e3 * statistics.median(k1):.1f}"
+              f" / {1e3 * statistics.median(k2):.1f}), {1e3 * g:.1f} us at the"
+              f" device's pace (A read once = "
+              f"{B * M * N * 4 / 1e9 / (g * 1e-3):.0f} GB/s), fista_step "
+              f"{1e3 * pace[('fista_step', (B, M, N))]:.1f} us at the "
+              f"device's pace unpacked; plain {1e3 * p:.1f} us (runs "
+              f"{1e3 * statistics.median(p1):.1f} / "
+              f"{1e3 * statistics.median(p2):.1f}); bound {1e3 * bnd:.1f} us,"
+              f" library call: none; plan {plan[0]} threads, {plan[2]} "
+              f"stages of {plan[1]} rows, {plan[3]} bytes; pack_lasso_batch "
+              f"once a solve {1e3 * pk:.1f} us eager  [{card}]")
+        if (B, M, N) == MAIN_SHAPES[0]:
+            flagship = (k, p)
+            packed_host_parts(d, ops, pack, card)
+    return flagship
+
+
+def packed_host_parts(d, ops, pack, card):
+    """Where the host time of one fista_packed_step call goes, beside what
+    the main path's bulk phase calls (``_Layout.step``) and fista_step on
+    the same problems unpacked: the fast operand check and the named one,
+    and the reshapes of the per-lane values that the layout no longer
+    makes a step."""
+    from proxtpu_torch.kernels import lasso as tl
+
+    Ap, bp = ops[:2]
+    B, M, N = d["A"].shape
+    x, zp = ops[2].clone(), ops[3].clone()
+    scalars = ops[4:]
+    flat = tuple(v.reshape(B) for v in scalars)
+    names = ("beta", "gamma", "thr", "done_mask")
+    lay = tl._Layout(d["A"], d["b"], pack, True)
+    live = torch.zeros_like(d["done"])
+    xu, zu = d["x"].clone(), d["z_prev"].clone()
+    res = torch.empty_like(scalars[0])
+    parts = {
+        "_check_packed (named lists, ten tensors)": lambda: tl._check_packed(
+            Ap, bp, (("x", x), ("z_prev", zp)), zip(names, scalars), N,
+            pack),
+        "_packed_ok": lambda: tl._packed_ok(Ap, bp, (x, zp), scalars, N,
+                                            pack),
+        "four (B,) -> (Bp, pack) reshapes and two back": lambda: (
+            [v.reshape(B // pack, pack) for v in flat],
+            res.reshape(B), res.reshape(B)),
+        "fused_fista_packed_step, whole": lambda: tl.fused_fista_packed_step(
+            Ap, bp, x, zp, *scalars, N, pack, restart=True),
+        "_Layout.step, whole": lambda: lay.step(x, zp, *scalars, True),
+        "fused_fista_full_step unpacked, whole": lambda: (
+            tl.fused_fista_full_step(d["A"], d["b"], xu, zu, d["beta"],
+                                     d["gamma"], d["thr"], live,
+                                     restart=True)),
+    }
+    print(f"    fista_packed_step host time per call by part at "
+          f"{(B, M, N)} pack {pack} (time.perf_counter, median of 5 "
+          f"batches of 100 calls)  [{card}]:")
+    for name, fn in parts.items():
+        print(f"      {name}: {host_us(fn):.2f} us")
 
 
 def time_bf16_kernels(card, pace):
@@ -1624,12 +1811,14 @@ def phase_main_path(card, pace):
     torch.cuda.synchronize()
     tl.fused_fb_prox_grad.launches = 0
     tl.fused_fista_full_step.launches = 0
+    tl.fused_fista_packed_step.launches = 0
     t0 = time.perf_counter()
     outs = list(stream_solve(lambda _: solve(), range(N_STREAM), depth=2))
     torch.cuda.synchronize()
     dt = (time.perf_counter() - t0) / N_STREAM
     launches = {"fb_step": tl.fused_fb_prox_grad.launches,
-                "fista_step": tl.fused_fista_full_step.launches}
+                "fista_step": tl.fused_fista_full_step.launches,
+                "fista_packed_step": tl.fused_fista_packed_step.launches}
     print(f"main path launches over {N_STREAM} solves: {launches}")
     assert all(n > 0 for n in launches.values()), launches
 
@@ -1648,13 +1837,13 @@ def phase_main_path(card, pace):
     print(f"main path: {dt:.4f} s per solve, {problems.BATCH / dt:.1f} "
           f"problems/s (stream_solve depth 2, {N_STREAM} solves after one "
           f"warm-up)  [{card}]")
-    # the bulk phase runs k1 = 192 steps at full width, the narrow phase the
-    # rest at tail = 64 after its one fb_step
+    # the bulk phase runs k1 = 192 packed steps at full width, the narrow
+    # phase the rest at tail = 64 after its one fb_step
     per_solve = {k: n / N_STREAM for k, n in launches.items()}
-    assert per_solve["fista_step"] >= 192 and per_solve["fb_step"] == 1
-    device_time([("fista_step", MAIN_SHAPES[0], 192),
-                 ("fista_step", MAIN_SHAPES[1],
-                  per_solve["fista_step"] - 192),
+    assert per_solve["fista_packed_step"] == 192, per_solve
+    assert per_solve["fb_step"] == 1, per_solve
+    device_time([("fista_packed_step", MAIN_SHAPES[0], 192),
+                 ("fista_step", MAIN_SHAPES[1], per_solve["fista_step"]),
                  ("fb_step", MAIN_SHAPES[1], 1)], pace, dt, card)
 
     # The plain route on the card.  At this width the two routes sum in
@@ -1688,6 +1877,7 @@ def launch_counters():
             "read_reduce_bf16": (probe.read_reduce, "launches_bf16"),
             "fb_step": (tl.fused_fb_prox_grad, "launches"),
             "fista_step": (tl.fused_fista_full_step, "launches"),
+            "fista_packed_step": (tl.fused_fista_packed_step, "launches"),
             "fb_step_bf16": (tl.fused_fb_prox_grad, "launches_bf16"),
             "fista_step_bf16": (tl.fused_fista_full_step, "launches_bf16"),
             "fista_k_steps": (tl.fused_fista_k_steps, "launches"),
@@ -1809,7 +1999,8 @@ def phase_routes(card, pace):
     solve, check = lasso_route(*problems.lasso_problems(problems.BATCH),
                                3000)
     add(drive(f"route (c) flagship {MAIN_SHAPES[0]}", solve, check, TOL,
-              card, ("fista_step",), pace=pace, shape=MAIN_SHAPES[0]))
+              card, ("fista_packed_step",), pace=pace,
+              shape=MAIN_SHAPES[0]))
     # (d) tall strongly convex problems, mf = the smallest sigma_min^2
     rng = np.random.default_rng(0)
     B, M, N = problems.BATCH, problems.N, problems.M
@@ -1953,7 +2144,8 @@ def phase_lasso_rest(card, pace):
     _, it_r, done_r = tl.solve_lasso_batch_packed(*P, TOL, maxit=3000,
                                                   restart=True)
     assert bool(done_r.all())
-    for solver, expect in ((tl.solve_lasso_batch_packed, ("fista_step",)),
+    for solver, expect in ((tl.solve_lasso_batch_packed,
+                            ("fista_packed_step",)),
                            (tl.solve_lasso_batch,
                             ("fb_step", "fista_step"))):
         add(drive(f"route (i) {solver.__name__} step_mult=1.5 restart=True "
@@ -2722,8 +2914,8 @@ def flat_warm(card, As, bs, lams, Lfs):
             tol=WARM_TOL)(**kw), 20_000, card, 1.05 * WARM_TOL, check,
         launched=launches)
     moved = {k for k, v in launches.items() if v}
-    assert launches["fista_step"] > 0 and moved <= {"fb_step", "fista_step"}, \
-        launches
+    assert launches["fista_packed_step"] > 0 and moved <= {
+        "fb_step", "fista_step", "fista_packed_step"}, launches
     solver = WarmStartedBatchedAlgorithm(
         pt.make_fast_forward_backward_iteration, maxit=20_000, tol=WARM_TOL)
     (_, it1, _), wall1 = timed_solve(lambda: solver.warm(
@@ -3029,8 +3221,9 @@ def drivers_recording(card, As, bs, lams, Lfs, it_plain):
 
 def drivers_profiling(card, A, b, lam, Lf):
     """Route (v): one ``solve_lasso_batch_packed_tail`` solve of the main
-    path inside ``trace()``: the trace's device events of ``fista_step``
-    and ``fb_step`` equal the wrappers' launch counters for that solve,
+    path inside ``trace()``: the trace's device events of
+    ``fista_packed_step``, ``fista_step`` and ``fb_step`` equal the
+    wrappers' launch counters for that solve,
     and only warm-up records are lost (a plain profiler session of the
     same solve printed beside it); then ``compiled_stats`` of the same
     solve: the kernels' flops and bytes by the JAX package's formulas at
@@ -3086,7 +3279,9 @@ def drivers_profiling(card, A, b, lam, Lf):
                        default=None)
         warm = (0 if warm_end is None
                 else sum(e["ts"] < warm_end for e in runtime))
-        seen = {"fista_step": sum("fista_step_kernel" in n for n in names),
+        seen = {"fista_packed_step": sum("fista_packed_step_kernel" in n
+                                         for n in names),
+                "fista_step": sum("fista_step_kernel" in n for n in names),
                 "fb_step": sum("fb_step_kernel" in n for n in names),
                 "kernel events": len(kernels), "launches": len(runtime)}
         return seen, lost, span, warm, launches, dt, path
@@ -3103,7 +3298,8 @@ def drivers_profiling(card, A, b, lam, Lf):
     seen, lost, span, warm, launches, t_trace, path = traced("trace", trace)
     print(f"  (v) trace() of one main-path solve ({t_trace:.2f} s, "
           f"{os.path.getsize(path)} bytes): device events {seen}, launch "
-          f"counters fista_step {launches['fista_step']} fb_step "
+          f"counters fista_packed_step {launches['fista_packed_step']} "
+          f"fista_step {launches['fista_step']} fb_step "
           f"{launches['fb_step']}; records lost {len(lost)}, at launches "
           f"{lost[:3]}..{lost[-3:]} ({span:.3f} ms from the first), the "
           f"warm-up's {warm} launches in {profiling.WARMUP_SECONDS * 1e3:g} "
@@ -3111,8 +3307,9 @@ def drivers_profiling(card, A, b, lam, Lf):
           f"solve: {raw}, records lost {len(raw_lost)}, at launches "
           f"{raw_lost[:3]}..{raw_lost[-3:]} ({raw_span:.3f} ms from the "
           f"first)  [{card}]")
-    assert {k: seen[k] for k in ("fista_step", "fb_step")} == {
-        k: launches[k] for k in ("fista_step", "fb_step")}, (seen, launches)
+    step_kernels = ("fista_packed_step", "fista_step", "fb_step")
+    assert {k: seen[k] for k in step_kernels} == {
+        k: launches[k] for k in step_kernels}, (seen, launches)
     assert warm > 0 and all(i < warm for i in lost), (warm, lost)
 
     for w, a in counters.values():
@@ -3122,12 +3319,14 @@ def drivers_profiling(card, A, b, lam, Lf):
     again = {k: getattr(w, a) for k, (w, a) in counters.items()}
     B, M, N = MAIN_SHAPES[0]
     tail = MAIN_SHAPES[1][0]
-    n_f, n_fb = again["fista_step"], again["fb_step"]
-    # phase 1: 192 fista_step at B = 256; phase 2: fb_step, then fista_step,
-    # at tail = 64
-    lanes_f = 192 * B + (n_f - 192) * tail
-    want = {"fista_step": (4 * lanes_f * M * N,
-                           4 * lanes_f * (M * N + 5 * N)),
+    n_p, n_f, n_fb = (again[k] for k in step_kernels)
+    # phase 1: 192 fista_packed_step at B = 256 (the JAX package's packed
+    # estimate, which counts b); phase 2: fb_step, then fista_step, at
+    # tail = 64
+    want = {"fista_packed_step": (4 * n_p * B * M * N,
+                                  4 * n_p * B * (M * N + M + 5 * N)),
+            "fista_step": (4 * n_f * tail * M * N,
+                           4 * n_f * tail * (M * N + 5 * N)),
             "fb_step": (4 * n_fb * tail * M * N,
                         4 * n_fb * tail * (M * N + 3 * N))}
     got = {k: (v["flops"], v["bytes accessed"])
@@ -3143,7 +3342,7 @@ def drivers_profiling(card, A, b, lam, Lf):
           f"device bytes {mem['peak_size_in_bytes']}, launches {again}  "
           f"[{card}]")
     assert launches == again, (launches, again)
-    assert n_fb == 1 and n_f >= 192, again
+    assert n_p == 192 and n_fb == 1 and n_f >= 1, again
     assert got == want, (got, want)
     assert cost["flops"] == sum(f for f, _ in got.values()), cost
 
@@ -3291,7 +3490,7 @@ def sharding_one_rank(card):
             A, b, lam, Lf, TOL, mesh=mesh, maxit=MAXIT, restart=True),
         lambda: tl.solve_lasso_batch_packed(A, b, lam, Lf, TOL, maxit=MAXIT,
                                             restart=True),
-        card, ("fista_step",), check)
+        card, ("fista_packed_step",), check)
     assert check(packed[0]) <= 1.1 * TOL, check(packed[0])
     add(launches)
     add(sharded_pair(
@@ -3548,7 +3747,8 @@ def sharding_two_ranks(card, packed):
           f"{plans[B]}; {apart.size} of {B} lanes apart from (w) "
           f"{apart.tolist()}; recheck {worst:.3e}; every lane done; ranks' "
           f"walls {out['flagship__walls'].round(4).tolist()} s, two-rank "
-          f"wall {float(out['flagship__both']):.4f} s, fista_step launches "
+          f"wall {float(out['flagship__both']):.4f} s, fista_packed_step "
+          f"launches "
           f"{out['flagship__launches'].astype(int).tolist()}; the worker "
           f"{dt:.1f} s  [{card}]")
 
@@ -4066,9 +4266,10 @@ SCALING_BUDGET_S = 90.0
 SCALING_REDUCED_MAXIT = 500
 # the blocks of docs/tpu_scaling.md that reach the kernels: 9
 # (solve_lasso_batch: fb_step, then fista_step) and 11
-# (solve_lasso_batch_packed under stream_solve: fista_step from the first
-# step, the packed kernel's port)
-SCALING_KERNELS = {9: {"fb_step", "fista_step"}, 11: {"fista_step"}}
+# (solve_lasso_batch_packed under stream_solve: fista_packed_step from the
+# first step)
+SCALING_KERNELS = {9: {"fb_step", "fista_step"},
+                   11: {"fista_packed_step"}}
 
 
 def _stats(iters):
@@ -4418,6 +4619,9 @@ def kernel_bounds():
                     *lasso_bound(B, M, N, *STEP_OPERANDS["fb_step"], 1)),
         "fista_step": ((B, M, N),
                        *lasso_bound(B, M, N, *STEP_OPERANDS["fista_step"], 1)),
+        # the same operands and results as fista_step's, packed
+        "fista_packed_step": ((B, M, N), *lasso_bound(
+            B, M, N, *STEP_OPERANDS["fista_packed_step"], 1)),
         # the bfloat16-A instances: A at 2 bytes an entry
         "fb_step_bf16": ((B, M, N), *lasso_bound(
             B, M, N, *STEP_OPERANDS["fb_step"], 1, a_bytes=2)),
@@ -4449,6 +4653,7 @@ def main():
     dryrun = start_dryrun()
     print("kernel vs plain on the card:")
     worst = phase("check f32", check_kernels)
+    worst["fista_packed_step"] = phase("check packed", check_packed_kernel)
     worst.update(phase("check k-steps, box QP", check_new_kernels))
     worst["cp_k_steps"] = phase("check TV", check_tv_kernel)
     worst["read_reduce"], worst["read_reduce_bf16"] = phase(
@@ -4456,6 +4661,8 @@ def main():
     worst.update(phase("check bf16", check_bf16_kernels))
     dryrun = phase("wait for block 12", dryrun.result)
     times, pace = phase("time one-step", time_kernels, card)
+    times["fista_packed_step"] = phase("time packed", time_packed_kernel,
+                                       card, pace)
     bf16_times, bf16_library, bf16_floor_launches = phase(
         "time bf16", time_bf16_kernels, card, pace)
     times.update(bf16_times)
@@ -4520,6 +4727,8 @@ def main():
     launches["read_reduce_bf16"] = bf16_floor_launches
     kernels = {
         "fista_step": ("lasso_step.cu", "proxtpu/kernels/lasso.py:156"),
+        "fista_packed_step": ("fista_packed_step.cu",
+                              "proxtpu/kernels/lasso.py:1238"),
         "fb_step": ("lasso_step.cu", "proxtpu/kernels/lasso.py:37"),
         "fista_step_bf16": ("lasso_step.cu", "proxtpu/kernels/lasso.py:156"),
         "fb_step_bf16": ("lasso_step.cu", "proxtpu/kernels/lasso.py:37"),

@@ -144,23 +144,37 @@ __device__ __forceinline__ void mbarrier_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
+// One thread: arrive on the stage's barrier, which then waits for `bytes`
+// more bytes of bulk copies.
+__device__ __forceinline__ void mbarrier_expect_bytes(uint64_t* bar,
+                                                      uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(shared_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// One thread: start the bulk copy of `bytes` (a multiple of 16, source and
+// destination on 16 bytes) to `dst` in shared memory, which reports its
+// bytes to `bar`.
+template <typename T>
+__device__ __forceinline__ void bulk_copy(T* dst, const T* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(shared_addr(dst)),
+      "l"(src), "r"(bytes), "r"(shared_addr(bar))
+      : "memory");
+}
+
 // One thread: arm the stage's barrier with `bytes` and start the bulk copy
-// of `bytes` (a multiple of 16, source and destination on 16 bytes) into
-// the stage.
+// of `bytes` into the stage.
 template <typename T>
 __device__ __forceinline__ void fill_stage_bulk(T* stage, const T* src,
                                                 uint32_t bytes,
                                                 uint64_t* bar) {
-  const uint32_t bar_addr = shared_addr(bar);
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(bar_addr),
-               "r"(bytes)
-               : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(shared_addr(stage)),
-      "l"(src), "r"(bytes), "r"(bar_addr)
-      : "memory");
+  mbarrier_expect_bytes(bar, bytes);
+  bulk_copy(stage, src, bytes, bar);
 }
 
 // Every thread: copy `count` entries into the stage with ordinary loads,
@@ -180,32 +194,61 @@ __device__ __forceinline__ void fill_stage_loads(T* stage,
   for (; k < count; k += THREADS) stage[k] = __ldg(src + k);
 }
 
+// Where the N entries of a row lie in device memory, `stride` entries from
+// one row to the next.  In the natural layout (PACKED false) a row is one
+// run.  In the lane-packed layout of kernels/lasso.py (pack_lasso_batch) a
+// problem's row is two runs: its first `nfull` entries, and the other
+// N - nfull `gap` entries further on; entry n is at offset map(n).
+template <bool PACKED>
+struct RowMap {
+  size_t stride;
+  int nfull;
+  size_t gap;
+  __device__ __forceinline__ size_t operator()(int n) const {
+    if constexpr (PACKED)
+      return n < nfull ? (size_t)n : (size_t)n + gap;
+    else
+      return (size_t)n;
+  }
+};
+
+// The rows of an operator in the natural layout: one run of N entries each.
+__host__ __device__ inline RowMap<false> natural_rows(int N) {
+  return RowMap<false>{(size_t)N, N, 0};
+}
+
 // Pass 1 on a tile: out[m] = a_m . x - c[m] (or + c[m] where ADD) for its
-// `rows` rows.  A warp takes rows with a stride; a lane strides the row by
-// 32 in one fmaf chain, then the warp's tree.  The loads of a row are issued
-// kUnroll at a time before their products are summed: a pass is bound by how
-// many reads are in flight, and the compiler does not batch them across the
-// dependent sum on its own.  The row's tail (fewer than kUnroll entries a
-// lane) is one more batch under a predicate, so that its loads too are in
-// flight together.  The order of the sum does not depend on kUnroll.  `tile`
-// is in shared memory (or, read in place, in device memory); x in shared
-// memory.
-template <int THREADS, bool ADD = false, typename T = float>
+// `rows` rows, row m's entry n at tile + m map.stride + map(n) (RowMap: a
+// tile in shared memory, or a natural lane read in place, is natural_rows;
+// a packed lane read in place, two runs a row).  A warp takes rows with a
+// stride; a lane strides the row by 32 in one fmaf chain, then the warp's
+// tree.  The loads of a row are issued kUnroll at a time before their
+// products are summed: a pass is bound by how many reads are in flight, and
+// the compiler does not batch them across the dependent sum on its own.  The
+// row's tail (fewer than kUnroll entries a lane) is one more batch under a
+// predicate, so that its loads too are in flight together.  The order of the
+// sum depends neither on kUnroll nor on the map.  `tile` is in shared memory
+// (or, read in place, in device memory); x in shared memory.  c may be out
+// itself (a packed lane's b, gathered into r): lane 0 reads c[m] before it
+// writes out[m], and no other thread touches either, so c is not
+// __restrict__.
+template <int THREADS, bool ADD = false, typename T = float, bool PACKED>
 __device__ __forceinline__ void tile_rows_dot(const T* tile,
-                                              const float* __restrict__ c,
-                                              const float* x, float* out,
-                                              int rows, int N) {
+                                              RowMap<PACKED> map,
+                                              const float* c, const float* x,
+                                              float* out, int rows, int N) {
   constexpr int kWarps = THREADS / 32;
   constexpr int kUnroll = 8;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   for (int m = warp; m < rows; m += kWarps) {
-    const T* row = tile + (size_t)m * N;
+    const T* row = tile + (size_t)m * map.stride;
     float acc = 0.f;
     int n = lane;
     for (; n + 32 * (kUnroll - 1) < N; n += 32 * kUnroll) {
       float a[kUnroll];
 #pragma unroll
-      for (int j = 0; j < kUnroll; ++j) a[j] = to_float(row[n + 32 * j]);
+      for (int j = 0; j < kUnroll; ++j)
+        a[j] = to_float(row[map(n + 32 * j)]);
 #pragma unroll
       for (int j = 0; j < kUnroll; ++j) acc = fmaf(a[j], x[n + 32 * j], acc);
     }
@@ -214,7 +257,7 @@ __device__ __forceinline__ void tile_rows_dot(const T* tile,
 #pragma unroll
       for (int j = 0; j < kUnroll - 1; ++j) {
         const bool in = n + 32 * j < N;
-        a[j] = in ? to_float(row[n + 32 * j]) : 0.f;
+        a[j] = in ? to_float(row[map(n + 32 * j)]) : 0.f;
         xv[j] = in ? x[n + 32 * j] : 0.f;
       }
 #pragma unroll
@@ -226,21 +269,32 @@ __device__ __forceinline__ void tile_rows_dot(const T* tile,
   }
 }
 
+// Pass 1 on a tile of rows in the natural layout.
+template <int THREADS, bool ADD = false, typename T = float>
+__device__ __forceinline__ void tile_rows_dot(const T* tile,
+                                              const float* __restrict__ c,
+                                              const float* x, float* out,
+                                              int rows, int N) {
+  tile_rows_dot<THREADS, ADD, T>(tile, natural_rows(N), c, x, out, rows, N);
+}
+
 // Pass 2 on one column of a tile: acc + sum over the tile's rows, ascending,
 // of r[m] * A[m, n], in one fmaf chain; `col` points at the column's first
-// entry.  r is in shared memory: where it starts on 16 bytes, eight of its
-// entries are two loads.  The tail (fewer than kUnroll rows) is one more
-// batch under a predicate.
+// entry, and the next row's is `stride` entries on (N in a tile).  r is in
+// shared memory: where it starts on 16 bytes, eight of its entries are two
+// loads.  The tail (fewer than kUnroll rows) is one more batch under a
+// predicate.
 template <typename T>
 __device__ __forceinline__ float tile_col_fma(const T* col, const float* r,
-                                              int rows, int N, float acc) {
+                                              int rows, size_t stride,
+                                              float acc) {
   constexpr int kUnroll = 8;
   const bool vec = (reinterpret_cast<uintptr_t>(r) & 15) == 0;
   int m = 0;
   for (; m + kUnroll <= rows; m += kUnroll) {
     float a[kUnroll], rv[kUnroll];
 #pragma unroll
-    for (int j = 0; j < kUnroll; ++j) a[j] = col[(size_t)(m + j) * N];
+    for (int j = 0; j < kUnroll; ++j) a[j] = col[(m + j) * stride];
     if (vec) {
       const float4 lo = *reinterpret_cast<const float4*>(r + m);
       const float4 hi = *reinterpret_cast<const float4*>(r + m + 4);
@@ -258,7 +312,7 @@ __device__ __forceinline__ float tile_col_fma(const T* col, const float* r,
 #pragma unroll
     for (int j = 0; j < kUnroll - 1; ++j) {
       const bool in = m + j < rows;
-      a[j] = in ? to_float(col[(size_t)(m + j) * N]) : 0.f;
+      a[j] = in ? to_float(col[(m + j) * stride]) : 0.f;
       rv[j] = in ? r[m + j] : 0.f;
     }
 #pragma unroll
@@ -432,15 +486,24 @@ __host__ __device__ inline size_t round_up(size_t v, size_t to) {
 //               ring.refill(ring.q);
 //   or, pass 1 alone, per sweep:  ring.sweep_rows(c, x, out);
 //
-// After sweep(), r[m] = a_m . x - c[m] for the slab's rows, and g[n] = sum
-// over the slab's rows, ascending, of r[m] A[m, n], which the thread that
-// owns column n (n = threadIdx.x + k THREADS) may read at once; A crossed
-// the memory system once.  After sweep_rows(), out[m] = a_m . x + c[m] for
-// the slab's rows, readable after the block's next barrier; a tile's stage
-// is refilled right after the barrier that ends its pass 1.  With ordinary loads a refill is read at least one
-// tile's barrier after its stores, which needs S >= 3 or a slab of one tile
-// (no refill at all).  Every thread of the block makes every call.
-template <int THREADS, int FILL, typename T = float>
+// After sweep(), r[m] = a_m . x - c[m] for the slab's rows (c may be r
+// itself: tile_rows_dot), and g[n] = sum over the slab's rows, ascending, of
+// r[m] A[m, n], which the thread that owns column n (n = threadIdx.x + k
+// THREADS) may read at once; A crossed the memory system once.  After
+// sweep_rows(), out[m] = a_m . x + c[m] for the slab's rows, readable after
+// the block's next barrier; a tile's stage is refilled right after the
+// barrier that ends its pass 1.  With ordinary loads a refill is read at
+// least one tile's barrier after its stores, which needs S >= 3 or a slab of
+// one tile (no refill at all).  Every thread of the block makes every call.
+//
+// With PACKED, the slab's rows lie as `map` says (RowMap: two runs a row,
+// `map.stride` entries apart) and a fill gathers a tile's rows into the
+// stage as if they were one run of rows * N entries, so that the passes
+// read the same tile: by bulk copies, two a row, that the last warp's lanes
+// start after one of them has armed the stage's barrier with the tile's
+// bytes (every run then starts and ends on 16 bytes: N % 4 == 0), or by
+// ordinary loads.
+template <int THREADS, int FILL, typename T = float, bool PACKED = false>
 struct TileRing {
   T* stages;            // S stages of stage_elems entries, on 128 bytes
   size_t stage_elems;
@@ -450,15 +513,16 @@ struct TileRing {
   int fq, fj, fs;       // next tile to fill: number, tile of the slab, stage
   int q, cs;            // tiles consumed; the stage of tile q
   uint32_t parity;      // the phase tile q's barrier completes, mod 2
+  RowMap<PACKED> map;   // where the slab's rows lie (PACKED only)
 
   __device__ __forceinline__ TileRing(T* stages, size_t stage_elems,
                                       uint64_t* bars, const T* slab,
                                       int rows, int N, int R, int S,
-                                      int sweeps)
+                                      int sweeps, RowMap<PACKED> map = {})
       : stages(stages), stage_elems(stage_elems), bars(bars), slab(slab),
         rows(rows), N(N), R(R), S(S), ntiles((rows + R - 1) / R),
         total(sweeps * ((rows + R - 1) / R)), fq(0), fj(0), fs(0), q(0),
-        cs(0), parity(0) {}
+        cs(0), parity(0), map(map) {}
 
   // before the block barrier that precedes prime()
   __device__ __forceinline__ void init_barriers() {
@@ -474,7 +538,10 @@ struct TileRing {
         const T* src = slab + (size_t)fj * R * N;
         const int count = min(R, rows - fj * R) * N;
         T* stage = stages + fs * stage_elems;
-        if (FILL == kFillBulk) {
+        if constexpr (PACKED) {
+          fill_packed(stage, slab + (size_t)fj * R * map.stride,
+                      min(R, rows - fj * R), &bars[fs]);
+        } else if (FILL == kFillBulk) {
           // by the last warp, which has no row of a short tile in pass 1
           if (threadIdx.x == THREADS - 32)
             fill_stage_bulk(stage, src, (uint32_t)count * sizeof(T),
@@ -496,13 +563,13 @@ struct TileRing {
     if (FILL == kFillLoads) __syncthreads();
   }
 
-  __device__ __forceinline__ void sweep(const float* __restrict__ c,
-                                        const float* x, float* r, float* g) {
+  __device__ __forceinline__ void sweep(const float* c, const float* x,
+                                        float* r, float* g) {
     for (int j = 0; j < ntiles; ++j) {
       const int tile_rows = min(R, rows - j * R);
       const T* tile = wait_tile(j);
-      tile_rows_dot<THREADS, false, T>(tile, c + j * R, x, r + j * R,
-                                       tile_rows, N);
+      tile_rows_dot<THREADS, false, T>(tile, natural_rows(N), c + j * R, x,
+                                       r + j * R, tile_rows, N);
       // r of this tile complete; every thread is past pass 2 of the tile
       // before, whose stage is free
       __syncthreads();
@@ -542,6 +609,35 @@ struct TileRing {
   }
 
  private:
+  // PACKED: the tile of `nrows` rows from `src` into `stage`, row k's
+  // entries at stage + k N, as the natural layout's one run would put them
+  __device__ __forceinline__ void fill_packed(T* stage, const T* src,
+                                              int nrows, uint64_t* bar) {
+    if (FILL == kFillBulk) {
+      // by the last warp, which has no row of a short tile in pass 1
+      if (threadIdx.x >= THREADS - 32) {
+        const int lane = threadIdx.x % 32, left = N - map.nfull;
+        if (lane == 0)
+          mbarrier_expect_bytes(bar, (uint32_t)(nrows * N * sizeof(T)));
+        __syncwarp();
+        for (int k = lane; k < nrows; k += 32) {
+          const T* row = src + (size_t)k * map.stride;
+          T* dst = stage + (size_t)k * N;
+          if (map.nfull > 0)
+            bulk_copy(dst, row, (uint32_t)(map.nfull * sizeof(T)), bar);
+          if (left > 0)
+            bulk_copy(dst + map.nfull, row + map(map.nfull),
+                      (uint32_t)(left * sizeof(T)), bar);
+        }
+      }
+    } else {
+      for (int k = threadIdx.x; k < nrows * N; k += THREADS) {
+        const int m = k / N;
+        stage[k] = __ldg(src + (size_t)m * map.stride + map(k - m * N));
+      }
+    }
+  }
+
   // tile j of the slab: in its stage once its copy has landed, or in place
   __device__ __forceinline__ const T* wait_tile(int j) {
     if (FILL == kFillNone) return slab + (size_t)j * R * N;

@@ -2,10 +2,8 @@
 //
 // Replaces the Pallas TPU kernels of proxtpu/kernels/lasso.py:
 //   fista_step  <- _fista_full_step_kernel (lasso.py:156, via fused_fista_full_step)
-//                  and _fista_packed_step_kernel (lasso.py:1238, via
-//                  fused_fista_packed_step): the packed kernel computes the
-//                  same per-problem math in a layout that only strips the
-//                  TPU's 128-lane padding; a 400-float row has none here.
+//                  (its body, fista_step_lane in lasso_step.cuh, also runs
+//                  on the lane-packed layout: fista_packed_step.cu)
 //   fb_step     <- _fb_step_kernel (lasso.py:37, via fused_fb_prox_grad)
 //   fista_k_steps <- _fb_k_steps_kernel (lasso.py:768, via fused_fista_k_steps)
 //
@@ -144,18 +142,22 @@ namespace {
 
 using proxtpu::block_reduce;
 using proxtpu::FbStep;
+using proxtpu::fista_step_lane;
 using proxtpu::FistaStep;
 using proxtpu::kFillBulk;
 using proxtpu::kFillLoads;
 using proxtpu::kFillNone;
 using proxtpu::kOrderThreads;
+using proxtpu::launch_step;
 using proxtpu::nanmax;
+using proxtpu::natural_rows;
 using proxtpu::prepare;
 using proxtpu::prepare_once;
 using proxtpu::prox_point;
 using proxtpu::round_up;
 using proxtpu::step_blocks;
-using proxtpu::StepLayout;
+using proxtpu::step_fill;
+using proxtpu::step_prox;
 using proxtpu::threads_index;
 using proxtpu::TileRing;
 using proxtpu::Variant;
@@ -163,55 +165,6 @@ using Bf16 = __nv_bfloat16;
 
 // fista_k_steps: 32 warps for pass 1, a column a thread at N = 1024
 constexpr int kKThreads = 1024;
-
-// One lane's FB step up to the prox: x into shared memory, one sweep of the
-// ring over the lane's M rows (or, FILL == kFillNone, both passes on the lane
-// in place), then z at every column n by the thread that owns it, handed to
-// finish(n, x_n, z).  The fills start before x is asked for.  A's entries
-// are of type T (float or bf16).
-template <int THREADS, int FILL, typename T, typename Finish>
-__device__ __forceinline__ void step_prox(unsigned char* smem_raw,
-                                          const T* __restrict__ Ai,
-                                          const float* __restrict__ bi,
-                                          const float* xi, int M, int N,
-                                          int R, int S, float gamma,
-                                          float thr, const float* shrink,
-                                          int i, Finish finish) {
-  const StepLayout lay(M, N, R, S, sizeof(T));
-  float* xs = reinterpret_cast<float*>(smem_raw);
-  float* r = reinterpret_cast<float*>(smem_raw + lay.r);
-  const float si = shrink ? shrink[i] : 1.f;
-  auto prox = [&](float xv, float g) {
-    return shrink ? prox_point<true>(xv, g, gamma, thr, si)
-                  : prox_point<false>(xv, g, gamma, thr, 1.f);
-  };
-  if (FILL == kFillNone) {
-    for (int n = threadIdx.x; n < N; n += THREADS) xs[n] = xi[n];
-    __syncthreads();
-    proxtpu::tile_rows_dot<THREADS, false, T>(Ai, bi, xs, r, M, N);
-    __syncthreads();
-    for (int n = threadIdx.x; n < N; n += THREADS) {
-      const float xv = xs[n];
-      finish(n, xv, prox(xv, proxtpu::tile_col_fma(Ai + n, r, M, N, 0.f)));
-    }
-  } else {
-    float* g = xs + lay.Np;
-    TileRing<THREADS, FILL, T> ring(
-        reinterpret_cast<T*>(smem_raw + lay.stage0),
-        lay.stage_bytes / sizeof(T),
-        reinterpret_cast<uint64_t*>(smem_raw + lay.bars), Ai, M, N, R, S, 1);
-    ring.init_barriers();
-    __syncthreads();
-    ring.prime();
-    for (int n = threadIdx.x; n < N; n += THREADS) xs[n] = xi[n];
-    __syncthreads();
-    ring.sweep(bi, xs, r, g);
-    for (int n = threadIdx.x; n < N; n += THREADS) {
-      const float xv = xs[n];
-      finish(n, xv, prox(xv, g[n]));
-    }
-  }
-}
 
 template <int THREADS, int FILL, typename T>
 __global__ void __launch_bounds__(THREADS, step_blocks(THREADS))
@@ -226,47 +179,11 @@ fista_step_kernel(const T* __restrict__ A, const float* __restrict__ b,
   extern __shared__ __align__(128) unsigned char smem_raw[];
   __shared__ float scratch[2 * (kOrderThreads / 32)];
 
-  const int i = blockIdx.x;
-  if (done[i] != 0.f) {  // frozen lane: carries untouched, read-outs 0
-    if (threadIdx.x == 0) {
-      res[i] = 0.f;
-      rs[i] = 0.f;
-    }
-    return;
-  }
-  float* xi = x + (size_t)i * N;
-  float* zpi = zp + (size_t)i * N;
-  const float beta_i = beta[i];  // asked for before the sweep, used after
-  float* zs = reinterpret_cast<float*>(smem_raw);  // z takes x's place
-  step_prox<THREADS, FILL, T>(smem_raw, A + (size_t)i * M * N,
-                              b + (size_t)i * M, xi, M, N, R, S, gamma[i],
-                              thr[i], shrink, i,
-                              [&](int n, float, float z) { zs[n] = z; });
-  __syncthreads();  // z complete
-
-  // res and rs as a block of kOrderThreads threads sums them: thread t
-  // chains the columns t, t + kOrderThreads, ..., then block_reduce's trees
-  float mx = 0.f, dot = 0.f;
-  if (threadIdx.x < kOrderThreads) {
-    for (int n = threadIdx.x; n < N; n += kOrderThreads) {
-      const float z = zs[n];
-      const float d = xi[n] - z;  // x is still in device memory
-      mx = nanmax(mx, fabsf(d));
-      dot = fmaf(d, z - zpi[n], dot);
-    }
-  }
-  block_reduce<kOrderThreads>(mx, dot, scratch);
-
-  const float bi = (restart && dot > 0.f) ? 0.f : beta_i;
-  for (int n = threadIdx.x; n < N; n += THREADS) {
-    const float z = zs[n];
-    xi[n] = __fadd_rn(z, __fmul_rn(bi, z - zpi[n]));
-    zpi[n] = z;
-  }
-  if (threadIdx.x == 0) {
-    res[i] = mx;
-    rs[i] = dot;
-  }
+  const size_t i = blockIdx.x;
+  fista_step_lane<THREADS, FILL, T>(
+      smem_raw, scratch, A + i * M * N, natural_rows(N), b + i * M, 1,
+      x + i * N, zp + i * N, beta, gamma, thr, done, shrink, res, rs, M, N,
+      R, S, restart);
 }
 
 template <int THREADS, int FILL, typename T>
@@ -283,8 +200,9 @@ fb_step_kernel(const T* __restrict__ A, const float* __restrict__ b,
   float* zi = z_out + (size_t)i * N;
   float mx = 0.f, unused = 0.f;
   step_prox<THREADS, FILL, T>(smem_raw, A + (size_t)i * M * N,
-                              b + (size_t)i * M, x + (size_t)i * N, M, N, R,
-                              S, gamma[i], thr[i], shrink, i,
+                              natural_rows(N), b + (size_t)i * M, 1,
+                              x + (size_t)i * N, M, N, R, S, gamma[i],
+                              thr[i], shrink, i,
                               [&](int n, float xv, float z) {
                                 mx = nanmax(mx, fabsf(xv - z));
                                 zi[n] = z;
@@ -482,26 +400,6 @@ Variant<FbStep<Bf16>>* fb_step_bf16_variant(int threads, int fill, int cols,
   return proxtpu::fb_step_bf16_ring(threads, fill, cols, xregs);
 }
 
-// The plan of kernels/lasso.py (step_plan), checked against the kernel's own
-// layout for A of `elem` bytes an entry: `threads` per block, tiles of R
-// rows through S stages (S = 0: the lane in place, 256 threads; S = 1 only
-// where the lane is one tile, so that nothing is refilled), `smem_bytes` of
-// dynamic shared memory.  A bulk copy moves less than 1 MB, its barrier's
-// limit, and needs rows and the lane's start on 16 bytes.  Returns the way
-// the tiles are filled, or -1 for a plan the kernels do not take.
-int step_fill(const void* A, int M, int N, int threads, int R, int S,
-              int smem_bytes, size_t elem) {
-  const bool ok = threads_index(threads) >= 0 && R >= 1 &&
-                  (S >= 3 || (S == 1 && R >= M) ||
-                   (S == 0 && threads == kOrderThreads)) &&
-                  (S == 0 || (size_t)R * N * elem < (1u << 20));
-  if (!ok || StepLayout(M, N, R, S, elem).total != (size_t)smem_bytes)
-    return -1;
-  const bool aligned =
-      (size_t)N * elem % 16 == 0 && reinterpret_cast<uintptr_t>(A) % 16 == 0;
-  return S == 0 ? kFillNone : aligned ? kFillBulk : kFillLoads;
-}
-
 // The bf16 plan's two fields beside step_fill's: `cols` columns a thread in
 // pass 2 (2 only with a ring and N even, so that every row of a stage
 // starts on 4 bytes) and `xregs` (1: x in registers in pass 1, only with a
@@ -512,18 +410,6 @@ bool bf16_fields_ok(int M, int N, int threads, int S, int cols, int xregs) {
   if (S == 0) return cols == 1 && xregs == 0;
   return (cols == 1 || N % 2 == 0) &&
          (xregs == 0 || (N <= 32 * proxtpu::kXRegs && threads <= 512));
-}
-
-// fista_step and fb_step launch the plan they are given (see step_fill and
-// bf16_fields_ok) or return cudaErrorInvalidValue; they never launch
-// another.
-template <typename Kernel, typename... Args>
-int launch_step(Variant<Kernel>* v, int B, int threads, int smem_bytes,
-                void* stream, Args... args) {
-  cudaError_t err = prepare_once(v->prepared, v->kernel, smem_bytes);
-  if (err != cudaSuccess) return (int)err;
-  v->kernel<<<B, threads, smem_bytes, (cudaStream_t)stream>>>(args...);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace

@@ -1,9 +1,10 @@
 // What the sources of the one-step lasso kernels, fb_step and fista_step,
 // share: lasso_step.cu (the float32 instances, a bf16 lane read in place,
-// fista_k_steps and the C entries) and fista_step_bf16.cu, fb_step_bf16.cu
+// fista_k_steps and the C entries), fista_step_bf16.cu, fb_step_bf16.cu
 // (the bfloat16-A instances' ring variants; lasso_step.cu's note says what
-// bounds them and what their design does).  Apart, the three compile side
-// by side.
+// bounds them and what their design does) and fista_packed_step.cu
+// (fista_step's body on the lane-packed layout).  Apart, the four compile
+// side by side.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -61,6 +62,146 @@ struct StepLayout {
   }
 };
 
+// One lane's FB step up to the prox: x into shared memory, one sweep of the
+// ring over the lane's M rows (or, FILL == kFillNone, both passes on the lane
+// in place), then z at every column n by the thread that owns it, handed to
+// finish(n, x_n, z).  The fills start before x is asked for.  A's entries
+// are of type T (float or bf16).  Row m of the lane's A starts at
+// Ai + m map.stride, its entry n, and x's, at offset map(n) (RowMap: the
+// natural layout, or the packed one, float32 only); b_m is bi[m bstep].
+// The natural layout's pass 1 reads b in place; a packed lane's b is first
+// gathered into r, which pass 1 reads before it writes r[m] over it.
+template <int THREADS, int FILL, typename T, bool PACKED, typename Finish>
+__device__ __forceinline__ void step_prox(unsigned char* smem_raw,
+                                          const T* __restrict__ Ai,
+                                          RowMap<PACKED> map,
+                                          const float* __restrict__ bi,
+                                          int bstep, const float* xi, int M,
+                                          int N, int R, int S, float gamma,
+                                          float thr, const float* shrink,
+                                          int i, Finish finish) {
+  const StepLayout lay(M, N, R, S, sizeof(T));
+  float* xs = reinterpret_cast<float*>(smem_raw);
+  float* r = reinterpret_cast<float*>(smem_raw + lay.r);
+  const float si = shrink ? shrink[i] : 1.f;
+  auto prox = [&](float xv, float g) {
+    return shrink ? prox_point<true>(xv, g, gamma, thr, si)
+                  : prox_point<false>(xv, g, gamma, thr, 1.f);
+  };
+  const float* c = PACKED ? r : bi;  // pass 1's b
+  auto load = [&] {  // x, and a packed lane's b into r
+    for (int n = threadIdx.x; n < N; n += THREADS) xs[n] = xi[map(n)];
+    if constexpr (PACKED)
+      for (int m = threadIdx.x; m < M; m += THREADS)
+        r[m] = bi[(size_t)m * bstep];
+  };
+  if constexpr (FILL == kFillNone) {
+    // both passes of the ring's sweep on the lane in place, through the map
+    load();
+    __syncthreads();
+    tile_rows_dot<THREADS, false, T>(Ai, map, c, xs, r, M, N);
+    __syncthreads();
+    for (int n = threadIdx.x; n < N; n += THREADS) {
+      const float xv = xs[n];
+      finish(n, xv, prox(xv, tile_col_fma(Ai + map(n), r, M, map.stride,
+                                          0.f)));
+    }
+  } else {
+    float* g = xs + lay.Np;
+    TileRing<THREADS, FILL, T, PACKED> ring(
+        reinterpret_cast<T*>(smem_raw + lay.stage0),
+        lay.stage_bytes / sizeof(T),
+        reinterpret_cast<uint64_t*>(smem_raw + lay.bars), Ai, M, N, R, S, 1,
+        map);
+    ring.init_barriers();
+    __syncthreads();
+    ring.prime();
+    load();
+    __syncthreads();
+    ring.sweep(c, xs, r, g);
+    for (int n = threadIdx.x; n < N; n += THREADS) {
+      const float xv = xs[n];
+      finish(n, xv, prox(xv, g[n]));
+    }
+  }
+}
+
+// fista_step on one lane, the block's (i = blockIdx.x): lane i's A, b, x
+// and z_prev as step_prox takes them (`map`, `bstep`), its scalars at i.
+// x and z_prev are updated in place; a frozen lane (done != 0) keeps them
+// untouched and reports res = rs = 0.  `scratch` holds 2 kOrderThreads / 32
+// floats.
+template <int THREADS, int FILL, typename T, bool PACKED>
+__device__ __forceinline__ void fista_step_lane(
+    unsigned char* smem_raw, float* scratch, const T* __restrict__ Ai,
+    RowMap<PACKED> map, const float* __restrict__ bi, int bstep, float* xi,
+    float* zpi, const float* __restrict__ beta,
+    const float* __restrict__ gamma, const float* __restrict__ thr,
+    const float* __restrict__ done, const float* __restrict__ shrink,
+    float* __restrict__ res, float* __restrict__ rs, int M, int N, int R,
+    int S, int restart) {
+  const int i = blockIdx.x;
+  if (done[i] != 0.f) {  // frozen lane: carries untouched, read-outs 0
+    if (threadIdx.x == 0) {
+      res[i] = 0.f;
+      rs[i] = 0.f;
+    }
+    return;
+  }
+  const float beta_i = beta[i];  // asked for before the sweep, used after
+  float* zs = reinterpret_cast<float*>(smem_raw);  // z takes x's place
+  step_prox<THREADS, FILL, T>(smem_raw, Ai, map, bi, bstep, xi, M, N, R, S,
+                              gamma[i], thr[i], shrink, i,
+                              [&](int n, float, float z) { zs[n] = z; });
+  __syncthreads();  // z complete
+
+  // res and rs as a block of kOrderThreads threads sums them: thread t
+  // chains the columns t, t + kOrderThreads, ..., then block_reduce's trees
+  float mx = 0.f, dot = 0.f;
+  if (threadIdx.x < kOrderThreads) {
+    for (int n = threadIdx.x; n < N; n += kOrderThreads) {
+      const float z = zs[n];
+      const float d = xi[map(n)] - z;  // x is still in device memory
+      mx = nanmax(mx, fabsf(d));
+      dot = fmaf(d, z - zpi[map(n)], dot);
+    }
+  }
+  block_reduce<kOrderThreads>(mx, dot, scratch);
+
+  const float beta_used = (restart && dot > 0.f) ? 0.f : beta_i;
+  for (int n = threadIdx.x; n < N; n += THREADS) {
+    const float z = zs[n];
+    const size_t c = map(n);
+    xi[c] = __fadd_rn(z, __fmul_rn(beta_used, z - zpi[c]));
+    zpi[c] = z;
+  }
+  if (threadIdx.x == 0) {
+    res[i] = mx;
+    rs[i] = dot;
+  }
+}
+
+// The plan of kernels/lasso.py (step_plan), checked against the kernel's own
+// layout for A of `elem` bytes an entry: `threads` per block, tiles of R
+// rows through S stages (S = 0: the lane in place, 256 threads; S = 1 only
+// where the lane is one tile, so that nothing is refilled), `smem_bytes` of
+// dynamic shared memory.  A bulk copy moves less than 1 MB, its barrier's
+// limit, and needs rows and the lane's start on 16 bytes (in the packed
+// layout every run's start and end then lie on 16 bytes too).  Returns the
+// way the tiles are filled, or -1 for a plan the kernels do not take.
+inline int step_fill(const void* A, int M, int N, int threads, int R, int S,
+                     int smem_bytes, size_t elem) {
+  const bool ok = threads_index(threads) >= 0 && R >= 1 &&
+                  (S >= 3 || (S == 1 && R >= M) ||
+                   (S == 0 && threads == kOrderThreads)) &&
+                  (S == 0 || (size_t)R * N * elem < (1u << 20));
+  if (!ok || StepLayout(M, N, R, S, elem).total != (size_t)smem_bytes)
+    return -1;
+  const bool aligned =
+      (size_t)N * elem % 16 == 0 && reinterpret_cast<uintptr_t>(A) % 16 == 0;
+  return S == 0 ? kFillNone : aligned ? kFillBulk : kFillLoads;
+}
+
 // A launchable kernel of fb_step or fista_step (A's entries of type T) with
 // its launch attributes, set once.
 template <typename T>
@@ -77,6 +218,18 @@ struct Variant {
   Kernel kernel;
   Prepared prepared;
 };
+
+// The one-step kernels launch the plan they are given (see step_fill and
+// bf16_fields_ok) or return cudaErrorInvalidValue; they never launch
+// another.
+template <typename Kernel, typename... Args>
+int launch_step(Variant<Kernel>* v, int B, int threads, int smem_bytes,
+                void* stream, Args... args) {
+  cudaError_t err = prepare_once(v->prepared, v->kernel, smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  v->kernel<<<B, threads, smem_bytes, (cudaStream_t)stream>>>(args...);
+  return (int)cudaGetLastError();
+}
 
 // The ring variants (fill kFillBulk or kFillLoads) of the bf16 instances at
 // `threads` per block, `cols` columns a thread in pass 2 and x in registers

@@ -496,8 +496,9 @@ def streaming(device="cuda", payloads=PAYLOADS, lanes=FLAGSHIP,
     """Block 11 (``:428-438``): ``payloads`` batches of ``lanes`` flagship
     lanes (float32, lanes ``k * lanes`` on of block 1's) through
     ``stream_solve`` of ``solve_lasso_batch_packed(..., restart=True)`` at
-    depth 2 (on the card ``fista_step`` from the first step); beside it the
-    same calls one at a time, each fenced."""
+    depth 2 (on the card ``fista_packed_step`` from the first step, 8
+    lanes a packed row); beside it the same calls one at a time, each
+    fenced."""
     from ..kernels.lasso import solve_lasso_batch_packed
     from ..parallel import stream_solve
 

@@ -23,9 +23,12 @@ from .lasso import (
     fused_fb_prox_grad,
     fused_fista_full_step,
     fused_fista_k_steps,
+    fused_fista_packed_step,
+    pack_lasso_batch,
     reference_fb_prox_grad,
     reference_fista_full_step,
     reference_fista_k_steps,
+    reference_fista_packed_step,
     solve_lasso_batch,
     solve_lasso_batch_blocked,
     solve_lasso_batch_compacting,
@@ -39,8 +42,9 @@ __all__ = [
     "fused_pg_box_k_steps", "fused_pg_box_step", "reference_pg_box_k_steps",
     "reference_pg_box_step", "solve_box_qp_batch",
     "solve_box_qp_batch_blocked", "fused_fb_prox_grad",
-    "fused_fista_full_step", "fused_fista_k_steps", "reference_fb_prox_grad",
-    "reference_fista_full_step", "reference_fista_k_steps",
+    "fused_fista_full_step", "fused_fista_k_steps", "fused_fista_packed_step",
+    "pack_lasso_batch", "reference_fb_prox_grad", "reference_fista_full_step",
+    "reference_fista_k_steps", "reference_fista_packed_step",
     "solve_lasso_batch", "solve_lasso_batch_blocked",
     "solve_lasso_batch_compacting", "solve_lasso_batch_mixed",
     "solve_lasso_batch_packed", "solve_lasso_batch_packed_tail",

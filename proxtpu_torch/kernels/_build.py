@@ -21,7 +21,8 @@ from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _SOURCES = ("lasso_step.cu", "fista_step_bf16.cu", "fb_step_bf16.cu",
-            "box_qp_step.cu", "tv_step.cu", "probe.cu")
+            "fista_packed_step.cu", "box_qp_step.cu", "tv_step.cu",
+            "probe.cu")
 _HEADERS = ("common.cuh", "lasso_step.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -38,6 +39,9 @@ _SIGNATURES = {
     # thread in pass 2) and xregs (x in registers) before the stream
     "proxtpu_fista_step": [_P] * 11 + [_I] * 8 + [_P],
     "proxtpu_fista_step_bf16": [_P] * 11 + [_I] * 10 + [_P],
+    # Ap, bp, x, z_prev, beta, gamma, thr, done, res, rs (packed layout),
+    # B, M, N, pack, restart, threads, R, S, shared bytes, stream
+    "proxtpu_fista_packed_step": [_P] * 10 + [_I] * 9 + [_P],
     # A, b, x, gamma, thr, shrink, z, res, B, M, N, threads, R, S, shared
     # bytes, stream; the _bf16 entry as above
     "proxtpu_fb_step": [_P] * 8 + [_I] * 7 + [_P],

@@ -38,12 +38,13 @@ it.
 
 from __future__ import annotations
 
-import math
-
 import torch
 
 from ..parallel.sharded_ops import holds_row_stripes
 from ..utils.tree import real_dtype_of
+# problems per packed row (lasso.py): decides, as in the reference, which
+# problems take the packed solver, and its layout
+from .lasso import _pack_count
 
 # the blocked routes' threshold: bytes of A (or Q) per lane
 BLOCKED_LANE_BYTES = 1 << 20
@@ -68,18 +69,6 @@ def _scalar_or_vec(v, B, dtype, device):
     if tuple(t.shape) == (B,):
         return t.to(dtype)
     return None
-
-
-def _pack_count(N, B):
-    """Problems per packed row of the reference's packed layout: p =
-    128/gcd(N, 128), or 1 when N is lane-aligned, N < 128 or p does not
-    divide B (``proxtpu/kernels/lasso.py:1176``).  The port runs the natural
-    layout, but the count still decides, as in the reference, which
-    problems take the packed solver."""
-    p = 128 // math.gcd(N, 128)
-    if p == 1 or B % p != 0 or N < 128:
-        return 1
-    return p
 
 
 def _restart_of(seq):

@@ -29,10 +29,13 @@ driver (:func:`solve_lasso_batch_compacting`), the shared-A solver
 no hand-written kernel, as the reference leaves it to XLA) and the
 two-stage mixed-precision solver (:func:`solve_lasso_batch_mixed`).
 
-The TPU's lane-packed layout (``pack_lasso_batch``) is not ported: it only
-strips the 128-lane padding of the TPU's tiles, and a row on the card has
-none.  ``solve_lasso_batch_packed`` keeps its signature and results and runs
-the natural layout through the full-step kernel.
+The lane-packed layout of the JAX package (:func:`pack_lasso_batch`:
+``pack`` problems side by side in each row, which on the TPU strips the
+128-lane padding of a row) is ported as it is: ``solve_lasso_batch_packed``
+packs once and runs :func:`fused_fista_packed_step` on the packed operands,
+whose kernel (``csrc/fista_packed_step.cu``) runs the full-step kernel's
+body through the layout's column map and returns its bits, so the packed
+route's counts and solutions are the natural route's.
 """
 
 from __future__ import annotations
@@ -121,10 +124,18 @@ def _check_operands(A, b, vectors, scalars, smem_bytes, a_dtypes=(
     named = [("A", A, (B, M, N)), ("b", b, (B, M))]
     named += [(n, t, (B, N)) for n, t in vectors]
     named += [(n, t, (B,)) for n, t in scalars]
+    _check_named(named, A.device, a_dtypes)
+    _build.check_shared_bytes(smem_bytes, A.device)
+
+
+def _check_named(named, device, a_dtypes=(torch.float32,)):
+    """Raise unless every ``(name, tensor, shape)`` of ``named`` is on the
+    CUDA ``device``, contiguous, of that shape and float32 (the one named
+    "A" of ``a_dtypes``)."""
     for name, t, shape in named:
-        if not t.is_cuda or t.device != A.device:
+        if not t.is_cuda or t.device != device:
             raise ValueError(f"{name} is on {t.device}; the kernel needs "
-                             f"every operand on one CUDA device ({A.device})")
+                             f"every operand on one CUDA device ({device})")
         dtypes = a_dtypes if name == "A" else (torch.float32,)
         if t.dtype not in dtypes:
             raise TypeError(f"{name} is {t.dtype}; the kernel takes "
@@ -134,7 +145,6 @@ def _check_operands(A, b, vectors, scalars, smem_bytes, a_dtypes=(
                              f"expected {shape}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    _build.check_shared_bytes(smem_bytes, A.device)
 
 
 # A's types the one-step kernels take: float32, or bfloat16 storage
@@ -301,11 +311,12 @@ cached_step_plan = functools.lru_cache(maxsize=None)(step_plan)
 _entries = {}
 
 
-def _launch_step(name, A, args, flags):
-    """Launch the one-step kernel ``name`` at A's cached plan on the current
-    stream of A's device, its float32 or its bfloat16 instance by A's type;
-    ``args`` are the tensors (None for an absent one) and ``flags`` the
-    integers between the shape and the plan."""
+def _launch_step(name, A, args, flags, shape=None):
+    """Launch the one-step kernel ``name`` at the cached plan of ``shape``
+    (B, M, N) (by default A's) on the current stream of A's device, its
+    float32 or its bfloat16 instance by A's type; ``args`` are the tensors
+    (None for an absent one) and ``flags`` the integers between the shape
+    and the plan."""
     elem = A.element_size()
     if elem == 2:
         name += "_bf16"
@@ -313,7 +324,7 @@ def _launch_step(name, A, args, flags):
     if entry is None:
         entry = _entries[name] = getattr(_build.library(), "proxtpu_" + name)
     index = A.get_device()
-    B, M, N = A.shape
+    B, M, N = A.shape if shape is None else shape
     limit = _build.max_shared_bytes(index)
     plan = cached_step_plan(B, M, N, _build.sm_count(index), limit, elem)
     if plan[3] > limit:
@@ -332,8 +343,7 @@ def _launch_step(name, A, args, flags):
 
 
 # The JAX package's pl.CostEstimate of each kernel (lasso.py:146, :262,
-# :860), what the wrappers report to utils.profiling.compiled_stats; the
-# packed kernel that fista_step serves takes the natural layout's formula.
+# :860, :1403), what the wrappers report to utils.profiling.compiled_stats.
 def _fb_step_cost(A, b, x, *args, **kwargs):
     B, M, N = A.shape
     return estimate(4 * B * M * N, B * M * N * A.element_size()
@@ -344,6 +354,13 @@ def _fista_step_cost(A, b, x, *args, **kwargs):
     B, M, N = A.shape
     return estimate(4 * B * M * N, B * M * N * A.element_size()
                     + 5 * B * N * x.element_size())
+
+
+def _fista_packed_step_cost(Ap, bp, x, *args, **kwargs):
+    Bp, M, W = Ap.shape
+    pack = bp.shape[2]
+    return estimate(4 * Bp * M * W, (Bp * M * (W + pack) + 5 * Bp * W)
+                    * x.element_size())
 
 
 def _fista_k_steps_cost(A, b, x, z_prev, t, gamma, thr, done_mask, K=8,
@@ -424,6 +441,211 @@ def fused_fista_full_step(A, b, x, z_prev, beta, gamma, thr, done_mask,
 
 fused_fista_full_step.launches = 0
 fused_fista_full_step.launches_bf16 = 0
+
+
+# ---- The lane-packed layout (proxtpu/kernels/lasso.py:1176-1235) ---------
+
+def _pack_count(N, B):
+    """Problems per packed row, the JAX package's rule: the smallest p with
+    N p a multiple of 128, p = 128 / gcd(N, 128); 1 where N is a multiple of
+    128, N < 128 (no 128-column first run) or p does not divide B."""
+    p = 128 // math.gcd(N, 128)
+    if p == 1 or B % p != 0 or N < 128:
+        return 1
+    return p
+
+
+def _pack_cols(v, pack, nfull):
+    """(Bp, pack, M, N) -> (Bp, M, W = pack N): problem i's first ``nfull``
+    columns at [nfull i, nfull (i + 1)), its other ``rem = N - nfull`` in
+    the trailing region, at [pack nfull + rem i, pack nfull + rem (i + 1))."""
+    Bp, _, M, N = v.shape
+    main = v[..., :nfull].permute(0, 2, 1, 3).reshape(Bp, M, pack * nfull)
+    if N == nfull:
+        return main.contiguous()
+    left = v[..., nfull:].permute(0, 2, 1, 3).reshape(
+        Bp, M, pack * (N - nfull))
+    return torch.cat([main, left], dim=2)
+
+
+def _unpack_cols(vp, pack, N):
+    """Inverse of :func:`_pack_cols`: (Bp, M, W) -> (Bp pack, M, N)."""
+    Bp, M, _ = vp.shape
+    nfull = (N // 128) * 128
+    v = vp[..., :pack * nfull].reshape(Bp, M, pack, nfull)
+    if nfull < N:
+        v = torch.cat([v, vp[..., pack * nfull:].reshape(
+            Bp, M, pack, N - nfull)], dim=3)
+    return v.permute(0, 2, 1, 3).reshape(Bp * pack, M, N)
+
+
+def pack_lasso_batch(A, b, pack):
+    """The lane-packed layout of the JAX package: A (B, M, N) -> Ap
+    (B / pack, M, pack N), b (B, M) -> bp (B / pack, M, pack); problem
+    q pack + i is slot i of group q, its columns in :func:`_pack_cols`'
+    order.  A permutation of the entries, contiguous on A's device."""
+    B, M, N = A.shape
+    Bp = B // pack
+    nfull = (N // 128) * 128
+    Ap = _pack_cols(A.reshape(Bp, pack, M, N), pack, nfull)
+    bp = b.reshape(Bp, pack, M).transpose(1, 2).contiguous()
+    return Ap, bp
+
+
+def _pack_rows(x, pack, nfull):
+    """(B, N) iterate rows -> (Bp, W) packed rows (:func:`_pack_cols`'
+    column order)."""
+    B, N = x.shape
+    Bp = B // pack
+    return _pack_cols(x.reshape(Bp, pack, 1, N), pack, nfull).reshape(
+        Bp, pack * N)
+
+
+def _unpack_rows(xp, pack, N):
+    """Inverse of :func:`_pack_rows`: (Bp, W) -> (B, N)."""
+    Bp, W = xp.shape
+    return _unpack_cols(xp.reshape(Bp, 1, W), pack, N).reshape(Bp * pack, N)
+
+
+def reference_fista_packed_step(Ap, bp, x, z_prev, beta, gamma, thr,
+                                done_mask, N, pack, restart=False):
+    """Plain version of one full FISTA iteration on the packed layout:
+    unpack, :func:`reference_fista_full_step`, pack again.  Ap (Bp, M, W),
+    bp (Bp, M, pack), x and z_prev (Bp, W), the per-problem scalars
+    (Bp, pack).  Returns new tensors ``(x_new, z (Bp, W), res_inf, rs
+    (Bp, pack))``."""
+    Bp, M, _ = Ap.shape
+    B = Bp * pack
+    x_new, z, res, rs = reference_fista_full_step(
+        _unpack_cols(Ap, pack, N), bp.transpose(1, 2).reshape(B, M),
+        _unpack_rows(x, pack, N), _unpack_rows(z_prev, pack, N),
+        *(v.reshape(B) for v in (beta, gamma, thr, done_mask)),
+        restart=restart)
+    nfull = (N // 128) * 128
+    return (_pack_rows(x_new, pack, nfull), _pack_rows(z, pack, nfull),
+            res.reshape(Bp, pack), rs.reshape(Bp, pack))
+
+
+def _check_packed(Ap, bp, vectors, scalars, N, pack):
+    """Raise unless ``fista_packed_step`` takes these operands: float32,
+    contiguous, on Ap's CUDA device; Ap (Bp, M, pack N), bp (Bp, M, pack),
+    ``vectors`` (Bp, pack N) and ``scalars`` (Bp, pack), both as
+    ``(name, tensor)`` pairs."""
+    if Ap.dim() != 3 or pack < 1 or Ap.shape[2] != pack * N:
+        raise ValueError(f"Ap must be (Bp, M, pack * N = {pack * N}), got "
+                         f"shape {tuple(Ap.shape)}")
+    Bp, M, W = Ap.shape
+    named = [("Ap", Ap, (Bp, M, W)), ("bp", bp, (Bp, M, pack))]
+    named += [(n, t, (Bp, W)) for n, t in vectors]
+    named += [(n, t, (Bp, pack)) for n, t in scalars]
+    _check_named(named, Ap.device)
+
+
+def _packed_ok(Ap, bp, vectors, scalars, N, pack):
+    """Whether :func:`_check_packed` would pass these tensors: the same
+    tests with no name, list or message built, for the wrapper that runs
+    once per iteration.  Where it says no, ``_check_packed`` raises."""
+    if Ap.dim() != 3 or not Ap.is_cuda or pack < 1:
+        return False
+    Bp, M, W = Ap.shape
+    index, f32 = Ap.get_device(), torch.float32
+    if W != pack * N or Ap.dtype is not f32 or not Ap.is_contiguous():
+        return False
+    for tensors, shape in (((bp,), (Bp, M, pack)), (vectors, (Bp, W)),
+                           (scalars, (Bp, pack))):
+        for t in tensors:
+            if (t.shape != shape or not t.is_cuda
+                    or t.get_device() != index or t.dtype is not f32
+                    or not t.is_contiguous()):
+                return False
+    return True
+
+
+@kernel_cost("fista_packed_step", _fista_packed_step_cost)
+def fused_fista_packed_step(Ap, bp, x, z_prev, beta, gamma, thr, done_mask,
+                            N, pack, restart=False):
+    """One full FISTA iteration on the packed layout (see
+    :func:`reference_fista_packed_step`), through the ``fista_packed_step``
+    kernel for CUDA tensors, at the launch plan of :func:`step_plan` at the
+    unpacked shape (B = Bp pack, M, N); it returns the bits of
+    :func:`fused_fista_full_step` on the unpacked operands.  float32 only.
+
+    ``x`` and ``z_prev`` (Bp, W) are updated IN PLACE to ``(x_new, z)`` and
+    returned; they must be separate buffers.  ``done_mask`` (Bp, pack) is
+    float, nonzero for frozen problems.  Returns ``(x, z_prev, res_inf,
+    rs)``, the last two (Bp, pack)."""
+    if x.data_ptr() == z_prev.data_ptr():
+        raise ValueError("x and z_prev must be separate buffers: both are "
+                         "updated in place")
+    if Ap.device.type == "cpu":
+        x_new, z, res, rs = reference_fista_packed_step(
+            Ap, bp, x, z_prev, beta, gamma, thr, done_mask, N, pack, restart)
+        x.copy_(x_new)
+        z_prev.copy_(z)
+        return x, z_prev, res, rs
+    scalars = (beta, gamma, thr, done_mask)
+    if not _packed_ok(Ap, bp, (x, z_prev), scalars, N, pack):
+        _check_packed(Ap, bp, (("x", x), ("z_prev", z_prev)),
+                      zip(("beta", "gamma", "thr", "done_mask"), scalars),
+                      N, pack)
+    Bp, M, _ = Ap.shape
+    res = x.new_empty((Bp, pack))
+    rs = torch.empty_like(res)
+    _launch_step("fista_packed_step", Ap, (Ap, bp, x, z_prev, beta, gamma,
+                                           thr, done_mask, res, rs),
+                 (pack, int(restart)), shape=(Bp * pack, M, N))
+    fused_fista_packed_step.launches += 1
+    return x, z_prev, res, rs
+
+
+fused_fista_packed_step.launches = 0
+
+
+class _Layout:
+    """Where a solve keeps its lanes: the natural layout (``pack == 1``: A
+    (B, M, N), carries (B, N), per-lane values (B,)), or the lane-packed one
+    of :func:`pack_lasso_batch`, packed once (carries (Bp, W), per-lane
+    values (Bp, pack), problem i at flat index i).  :meth:`step` is the full
+    FISTA step in the layout; ``lanes`` and ``unlanes`` map (B,) values
+    into the layout's ``shape`` and back, ``rows`` and ``unrows`` (B, N)
+    rows, ``spread`` a per-lane value onto each lane's columns."""
+
+    def __init__(self, A, b, pack, use_kernel):
+        self.A, self.b, self.pack, self.use_kernel = A, b, pack, use_kernel
+        self.B, _, self.N = A.shape
+        self.nfull = (self.N // 128) * 128
+        self.shape = (self.B,) if pack == 1 else (self.B // pack, pack)
+        if pack > 1:
+            self.Ap, self.bp = pack_lasso_batch(A, b, pack)
+
+    def step(self, x, z_prev, beta, gamma, thr, done_mask, restart):
+        if self.pack == 1:
+            step = (fused_fista_full_step if self.use_kernel
+                    else reference_fista_full_step)
+            return step(self.A, self.b, x, z_prev, beta, gamma, thr,
+                        done_mask, restart=restart)
+        step = (fused_fista_packed_step if self.use_kernel
+                else reference_fista_packed_step)
+        return step(self.Ap, self.bp, x, z_prev, beta, gamma, thr, done_mask,
+                    self.N, self.pack, restart=restart)
+
+    def lanes(self, v):
+        return v.reshape(self.shape)
+
+    def unlanes(self, v):
+        return v.reshape(self.B)
+
+    def rows(self, v):
+        return v if self.pack == 1 else _pack_rows(v, self.pack, self.nfull)
+
+    def unrows(self, v):
+        return v if self.pack == 1 else _unpack_rows(v, self.pack, self.N)
+
+    def spread(self, v):
+        if self.pack == 1:
+            return v[:, None]
+        return _pack_rows(v.reshape(self.B, 1).expand(self.B, self.N),
+                          self.pack, self.nfull)
 
 
 def reference_fista_k_steps(A, b, x, z_prev, t, gamma, thr, done_mask, K=8,
@@ -681,8 +903,8 @@ def solve_lasso_batch(A, b, lam, Lf, tol, maxit=1000, use_kernel=True,
     lam = _per_lane(lam, B, A)
     x0 = _x0_or_zeros(x0, B, N, A)
     if step_mult != 1.0:
-        return _solve_overrelaxed(A, b, lam, Lf, step_mult, tol, x0,
-                                  maxit=maxit, use_kernel=use_kernel,
+        return _solve_overrelaxed(_Layout(A, b, 1, use_kernel), lam, Lf,
+                                  step_mult, tol, x0, maxit=maxit,
                                   stall_patience=stall_patience,
                                   full_step_init=False)
     gamma = 1.0 / _per_lane(Lf, B, A)
@@ -713,15 +935,21 @@ def solve_lasso_batch(A, b, lam, Lf, tol, maxit=1000, use_kernel=True,
 
 
 def _make_fista_body(A, b, gamma, thr, tol, *, use_kernel, restart,
-                     shrink=None, beta_const=None):
+                     shrink=None, beta_const=None, full_step=None):
     """One iteration ``body(k, (x, z_prev, t, done, iters))`` -> the next
     state, where ``k`` is the new iteration number.  ``beta_const`` (B,)
     replaces the t-recursion by a constant per-lane coefficient (the
     mf > 0 variant).  A may be stored in bfloat16; the state is in
-    gamma's dtype."""
+    gamma's dtype.  ``full_step`` (a :meth:`_Layout.step`) takes the
+    step's place where given; else ``use_kernel`` chooses the full-step
+    kernel or the plain operations on the natural layout."""
     dtype = gamma.dtype
+    if full_step is None and use_kernel:
+        def full_step(x, z_prev, beta, gamma, thr, done_mask, restart):
+            return fused_fista_full_step(A, b, x, z_prev, beta, gamma, thr,
+                                         done_mask, shrink, restart=restart)
 
-    if use_kernel:
+    if full_step is not None:
         def body(k, state):
             x, z_prev, t, done, iters = state
             if beta_const is not None:
@@ -729,9 +957,8 @@ def _make_fista_body(A, b, gamma, thr, tol, *, use_kernel, restart,
             else:
                 t_new = (1 + torch.sqrt(1 + 4 * t * t)) / 2
                 beta = (t - 1) / t_new
-            x, z, res, rs = fused_fista_full_step(
-                A, b, x, z_prev, beta, gamma, thr, done.to(dtype), shrink,
-                restart=restart)
+            x, z, res, rs = full_step(x, z_prev, beta, gamma, thr,
+                                      done.to(dtype), restart)
             if restart:
                 # the kernel zeroed the triggering lane's beta for THIS
                 # extrapolation (t reset to 1 before the coefficient), so
@@ -774,42 +1001,43 @@ def _run_loop(body, state, maxit):
     return z, torch.where(done, iters, k), done
 
 
-def _solve_overrelaxed(A, b, lam, Lf, step_mult, tol, x0, *, maxit,
-                       use_kernel, stall_patience, full_step_init):
+def _solve_overrelaxed(lay, lam, Lf, step_mult, tol, x0, *, maxit,
+                       stall_patience, full_step_init):
     """Over-relaxed restart-FISTA with the per-lane stall safeguard (see
-    :func:`solve_lasso_batch`, ``step_mult``): the reference's
-    ``_solve_lasso_batch_overrelaxed`` and, with ``full_step_init``,
-    ``_solve_packed_overrelaxed``, whose init is the full step at beta = 0
-    from ``z_prev = x0`` instead of the FB step.  A lane's step ``gam``
-    lives in the loop's state, so that a stalling lane falls back to
-    ``1 / Lf`` mid-solve; the kernels take the per-lane step and threshold
-    as operands of every call.  ``lam`` is (B,); ``x0`` is not modified."""
-    B = A.shape[0]
+    :func:`solve_lasso_batch`, ``step_mult``) in the layout ``lay``
+    (:class:`_Layout`): the reference's ``_solve_lasso_batch_overrelaxed``
+    and, with ``full_step_init``, ``_solve_packed_overrelaxed``, whose init
+    is the full step at beta = 0 from ``z_prev = x0`` instead of the FB
+    step (natural layout only).  A lane's step ``gam`` lives in the loop's
+    state, so that a stalling lane falls back to ``1 / Lf`` mid-solve; the
+    kernels take the per-lane step and threshold as operands of every call.
+    ``lam`` is (B,); ``x0`` (B, N) is not modified."""
+    A, B, shape = lay.A, lay.B, lay.shape
     dtype = A.dtype
-    Lf = _per_lane(Lf, B, A)
+    lam, Lf = lay.lanes(lam), lay.lanes(_per_lane(Lf, B, A))
     gamma0 = 1.0 / Lf                # canonical 1/L (the criterion)
     gamma_init = step_mult / Lf      # the step
-    step = fused_fista_full_step if use_kernel else reference_fista_full_step
+    x0 = lay.rows(x0)
 
     def full_step(x, zp, beta, gam, dm):
-        return step(A, b, x, zp, beta, gam, gam * lam, dm, restart=True)
+        return lay.step(x, zp, beta, gam, gam * lam, dm, True)
 
     if full_step_init:
-        zeros = torch.zeros((B,), dtype=dtype, device=A.device)
+        zeros = torch.zeros(shape, dtype=dtype, device=A.device)
         x, z_prev, res0, _ = full_step(x0.clone(), x0.clone(), zeros,
                                        gamma_init, zeros)
     else:
-        fb = fused_fb_prox_grad if use_kernel else reference_fb_prox_grad
-        z0, res0 = fb(A, b, x0, gamma_init, gamma_init * lam)
+        fb = fused_fb_prox_grad if lay.use_kernel else reference_fb_prox_grad
+        z0, res0 = fb(A, lay.b, x0, gamma_init, gamma_init * lam)
         x, z_prev = z0.clone(), z0
     crit0 = res0 / gamma0
-    t0 = torch.ones((B,), dtype=dtype, device=A.device)
+    t0 = torch.ones(shape, dtype=dtype, device=A.device)
     state = (x, z_prev, (1 + torch.sqrt(1 + 4 * t0 * t0)) / 2,
-             crit0 <= tol, torch.ones((B,), dtype=torch.int32,
+             crit0 <= tol, torch.ones(shape, dtype=torch.int32,
                                       device=A.device),
              gamma_init,                    # per-lane step (may back off)
              crit0,                         # best criterion seen
-             torch.zeros((B,), dtype=torch.int32, device=A.device))
+             torch.zeros(shape, dtype=torch.int32, device=A.device))
 
     def body(k, state):
         x, z_prev, t, done, iters, gam, best, since = state
@@ -834,29 +1062,37 @@ def _solve_overrelaxed(A, b, lam, Lf, step_mult, tol, x0, *, maxit,
         gam = torch.where(stall, gamma0, gam)
         t_new = torch.where(stall, 1.0, t_new)
         since = torch.where(stall, 0, since)
-        x_new = torch.where(stall[:, None], x0, x_new)
-        z = torch.where(stall[:, None], x0, z)
+        stall_cols = lay.spread(stall)
+        x_new = torch.where(stall_cols, x0, x_new)
+        z = torch.where(stall_cols, x0, z)
         iters = torch.where(done, iters, k)
         return (x_new, z, torch.where(done, t, t_new), done | (crit <= tol),
                 iters, gam, best, since)
 
-    return _run_loop(body, state, maxit)
+    z, iters, done = _run_loop(body, state, maxit)
+    return lay.unrows(z), lay.unlanes(iters), lay.unlanes(done)
 
 
 @lane_parallel
 def solve_lasso_batch_packed(A, b, lam, Lf, tol, maxit=1000, restart=False,
                              x0=None, pack=None, mf=None, step_mult=1.0,
                              stall_patience=100, lam2=None, use_kernel=True):
-    """Batched FISTA, the bulk solver of the main path.
+    """Batched FISTA on the lane-packed layout, the bulk solver of the main
+    path.
 
     Same signature and results as
-    ``proxtpu.kernels.lasso.solve_lasso_batch_packed``.  ``pack`` is checked
-    (it must divide B) but selects no layout: the packing exists only to
-    strip the TPU's lane padding, so the natural layout runs through the
-    full-step kernel.  ``use_kernel=False`` runs the plain route (it takes
-    the place of the JAX ``interpret`` flag).  ``mf``, ``step_mult`` and
-    ``stall_patience`` as in :func:`solve_lasso_batch`; the over-relaxed
-    solve starts, as every solve here, with the full step at beta = 0."""
+    ``proxtpu.kernels.lasso.solve_lasso_batch_packed``, with
+    ``use_kernel=False`` (the plain route, in place of the JAX ``interpret``
+    flag).  ``pack`` problems a row (default :func:`_pack_count`, which must
+    divide B): where it is above 1 and ``lam2`` is None, A and b are packed
+    once (:func:`pack_lasso_batch`) and every step is
+    :func:`fused_fista_packed_step` (its plain version on the same layout
+    with ``use_kernel=False``), whose bits are the natural layout's; with
+    ``pack == 1`` the natural layout runs through the full-step kernel.
+    ``lam2`` takes :func:`solve_lasso_batch`, as in the JAX package.
+    ``mf``, ``step_mult`` and ``stall_patience`` as in
+    :func:`solve_lasso_batch`; every solve here starts with the full step
+    at beta = 0."""
     _real_operands(A, b, x0)
     _check_options(mf, restart, lam2, step_mult)
     B, M, N = A.shape
@@ -868,44 +1104,45 @@ def solve_lasso_batch_packed(A, b, lam, Lf, tol, maxit=1000, restart=False,
                                  use_kernel=use_kernel, restart=restart,
                                  x0=x0, lam2=lam2)
     x0 = _x0_or_zeros(x0, B, N, A)
+    lay = _Layout(A, b, _pack_count(N, B) if pack is None else pack,
+                  use_kernel)
     if step_mult != 1.0:
-        return _solve_overrelaxed(A, b, _per_lane(lam, B, A), Lf, step_mult,
-                                  tol, x0, maxit=maxit, use_kernel=use_kernel,
+        return _solve_overrelaxed(lay, _per_lane(lam, B, A), Lf, step_mult,
+                                  tol, x0, maxit=maxit,
                                   stall_patience=stall_patience,
                                   full_step_init=True)
-    return _solve_packed_core(A, b, lam, Lf, tol, x0, maxit=maxit,
-                              restart=restart, use_kernel=use_kernel, mf=mf)
+    return _solve_packed_core(lay, lam, Lf, tol, x0, maxit=maxit,
+                              restart=restart, mf=mf)
 
 
-def _solve_packed_core(A, b, lam, Lf, tol, x0, *, maxit, restart,
-                       use_kernel, mf=None):
-    """FISTA from ``x0`` whose init is the full step with beta = 0,
-    z_prev = x0 and no lane frozen (the restart signal there is
-    ``-||x - z||^2 <= 0``, so no spurious reset).  Returns
-    ``(xs, iters, done)``; ``x0`` is not modified."""
-    B = A.shape[0]
+def _solve_packed_core(lay, lam, Lf, tol, x0, *, maxit, restart, mf=None):
+    """FISTA in the layout ``lay`` (:class:`_Layout`) from ``x0`` (B, N),
+    whose init is the full step with beta = 0, z_prev = x0 and no lane
+    frozen (the restart signal there is ``-||x - z||^2 <= 0``, so no
+    spurious reset).  Returns ``(xs, iters, done)``, unpacked; ``x0`` is
+    not modified."""
+    A, B, shape = lay.A, lay.B, lay.shape
     dtype = A.dtype
-    gamma = 1.0 / _per_lane(Lf, B, A)
-    thr = gamma * _per_lane(lam, B, A)
-    zeros = torch.zeros((B,), dtype=dtype, device=A.device)
-    if use_kernel:
-        x, z_prev, res0, _ = fused_fista_full_step(
-            A, b, x0.clone(), x0.clone(), zeros, gamma, thr, zeros,
-            restart=restart)
-    else:
-        x, z_prev, res0, _ = reference_fista_full_step(
-            A, b, x0, x0, zeros, gamma, thr, zeros, restart=restart)
-    t1 = torch.full((B,), _PHI, dtype=dtype, device=A.device)
-    iters0 = torch.ones((B,), dtype=torch.int32, device=A.device)
+    gamma = lay.lanes(1.0 / _per_lane(Lf, B, A))
+    thr = gamma * lay.lanes(_per_lane(lam, B, A))
+    zeros = torch.zeros(shape, dtype=dtype, device=A.device)
+    x0 = lay.rows(x0)
+    x, z_prev, res0, _ = lay.step(x0.clone(), x0.clone(), zeros, gamma, thr,
+                                  zeros, restart)
+    t1 = torch.full(shape, _PHI, dtype=dtype, device=A.device)
+    iters0 = torch.ones(shape, dtype=torch.int32, device=A.device)
     beta_const = None
     if mf is not None:
         beta1, beta_const = _mf_beta_pair(gamma, mf, dtype)
         # the first extrapolation takes beta1 (see solve_lasso_batch)
-        x = z_prev + beta1[:, None] * (z_prev - x0)
-    body = _make_fista_body(A, b, gamma, thr, tol, use_kernel=use_kernel,
-                            restart=restart, beta_const=beta_const)
-    return _run_loop(body, (x, z_prev, t1, res0 / gamma <= tol, iters0),
-                     maxit)
+        x = z_prev + lay.spread(beta1) * (z_prev - x0)
+    body = _make_fista_body(
+        A, lay.b, gamma, thr, tol, use_kernel=lay.use_kernel,
+        restart=restart, beta_const=beta_const,
+        full_step=lay.step if lay.pack > 1 else None)
+    z, iters, done = _run_loop(
+        body, (x, z_prev, t1, res0 / gamma <= tol, iters0), maxit)
+    return lay.unrows(z), lay.unlanes(iters), lay.unlanes(done)
 
 
 @lane_parallel

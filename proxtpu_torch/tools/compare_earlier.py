@@ -9,12 +9,11 @@ the earlier tree, for example
     mkdir -p build/parent_csrc && git archive COMMIT proxtpu_torch/csrc \\
         | tar -x --strip-components=2 -C build/parent_csrc
 
-whose entries ``proxtpu_fista_step``, ``proxtpu_fb_step``,
-``proxtpu_fista_k_steps``, ``proxtpu_read_reduce``, ``proxtpu_pg_k_steps``
-and ``proxtpu_cp_k_steps`` take the arguments they take in this tree (the
-sources of commit 266b08f and later), and whose ``proxtpu_fista_step_bf16``
-and ``proxtpu_fb_step_bf16`` take the plan without this tree's ``cols`` and
-``xregs`` (the sources of commit 3baaa92 and earlier).
+whose entries ``proxtpu_fista_step``, ``proxtpu_fb_step``, their bfloat16
+instances, ``proxtpu_fista_k_steps``, ``proxtpu_read_reduce``,
+``proxtpu_pg_k_steps`` and ``proxtpu_cp_k_steps`` take the arguments they
+take in this tree: the sources of commit 00b8358 and later.  Earlier trees,
+whose bf16 entries take no ``cols`` and ``xregs``, are out of scope.
 
 ``fista_step`` and ``fb_step``: at every shape a path gives them, a ragged
 one, one whose rows take ordinary loads through the ring, one read in place
@@ -22,17 +21,16 @@ and one that fits a single stage, the two kernels run on the same inputs,
 restart off and on, shrink off and on, with and without frozen lanes: x,
 z_prev (= z), ``res`` and ``rs`` must be equal to the last bit; so must this
 tree's bfloat16-A instance of each against the earlier float32 kernel on
-``A16.float()`` and against the earlier bfloat16 instance, each at its own
+``A16.float()`` and against the earlier bfloat16 instance at the same
 plan.  Then both are timed, earlier, this, this, earlier, in an eager loop
 (CUDA events around the C entries) and at the device's pace (CUDA graph),
-and the bfloat16 instances likewise at the device's pace, the earlier one
-at the plan it had (the float32 rule at 2 bytes an entry), beside this
+and the bfloat16 instances likewise at the device's pace, beside this
 tree's float32 instance.  ``--plans`` also times this tree's
 ``fista_step`` over a grid of threads per block, rows per tile and stages,
 with the blocks one SM holds at each plan; and the bfloat16 instances over
 threads, rows per tile and stages, the earlier kernel and this one at each
-plan (each plan's bits held), then this one at its plan with each of its
-passes' choices (x in registers, two columns a thread) on and off.
+plan (each plan's bits held), then both at this tree's plan with each of
+the passes' choices (x in registers, two columns a thread) on and off.
 
 ``fista_k_steps``: the two kernels at the wrapper's plan must be equal to the
 last bit, restart off and on, and are timed the same way.
@@ -98,13 +96,6 @@ BF16_PLAN_ROWS = (8, 16, 24, 29, 32, 40, 44, 48, 64, 67, 68, 80)
 BF16_PLAN_STAGES = (3, 4, 5, 6)
 # --plans, the bf16 read floor: chunks a lane
 FLOOR_CHUNKS = (1, 2, 3, 4, 5, 6, 8, 16)
-# the earlier bf16 entries take (threads, R, S, bytes) as their plan
-_EARLIER_BF16 = {
-    "proxtpu_fista_step_bf16": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8
-    + [ctypes.c_void_p],
-    "proxtpu_fb_step_bf16": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
-    + [ctypes.c_void_p],
-}
 FLOOR_SHAPES = [(256, 200, 400), (64, 200, 400), (64, 512, 1024),
                 (1024, 64, 128), (64, 512, 512), (256, 128, 128)]
 # the box-QP kernels: route (b), the small shape, ragged rows
@@ -132,12 +123,11 @@ def build_other(csrc):
                    check=True, capture_output=True, text=True)
     lib = ctypes.CDLL(str(out))
     for name in ("proxtpu_fista_step", "proxtpu_fb_step",
+                 "proxtpu_fista_step_bf16", "proxtpu_fb_step_bf16",
                  "proxtpu_fista_k_steps", "proxtpu_read_reduce",
                  "proxtpu_pg_k_steps", "proxtpu_cp_k_steps",
                  "proxtpu_cp_k_steps_halo"):
         getattr(lib, name).argtypes = _build._SIGNATURES[name]
-    for name, argtypes in _EARLIER_BF16.items():
-        getattr(lib, name).argtypes = argtypes
     return lib
 
 
@@ -238,18 +228,11 @@ def step_plan(B, M, N, elem=4):
                         _build.max_shared_bytes(0), elem)
 
 
-def earlier_bf16_plan(B, M, N):
-    """The plan the earlier bf16 instances had: the float32 rule at 2 bytes
-    an entry, ``(threads, R, S, bytes)``."""
-    return tl._step_plan(B, M, N, _build.sm_count(0),
-                         _build.max_shared_bytes(0), 2, whole_rounds=True)
-
-
 def call_fista_step(lib, d, state, restart, shrink, done, plan, A=None):
     """Launch ``proxtpu_fista_step`` of ``lib`` on ``state`` = (x, z_prev,
     res, rs), x and z_prev updated in place, at ``plan`` = ``(threads, R,
-    S, bytes)``; an ``A`` in bfloat16 takes ``proxtpu_fista_step_bf16``
-    (this tree's with ``(cols, xregs)`` after the bytes)."""
+    S, bytes)``; an ``A`` in bfloat16 takes ``proxtpu_fista_step_bf16``,
+    whose plan has ``(cols, xregs)`` after the bytes."""
     A = d["A"] if A is None else A
     B, M, N = A.shape
     x, zp, res, rs = state
@@ -353,19 +336,19 @@ def compare_steps(other, this, card, plans):
 def compare_bf16(other, this, d, plan):
     """This tree's bfloat16-A instances against the earlier float32 kernels
     on ``A16.float()`` (at the float32 plan ``plan``) and against the
-    earlier bf16 instances (at their own plan), shrink, restart, frozen
-    lanes: equal to the last bit."""
+    earlier bf16 instances (at this tree's bf16 plan), shrink, restart,
+    frozen lanes: equal to the last bit."""
     B, M, N = d["A"].shape
     A16 = d["A"].to(torch.bfloat16)
     d32 = dict(d, A=A16.float())
-    plan16, old16 = step_plan(B, M, N, 2), earlier_bf16_plan(B, M, N)
+    plan16 = step_plan(B, M, N, 2)
     live = torch.zeros_like(d["done"])
     cases = 0
     for shrink in (None, d["shrink"]):
         outs = [(torch.empty_like(d["x"]), torch.empty_like(d["t"]))
                 for _ in range(3)]
         call_fb_step(other, d32, outs[0], shrink, plan)
-        call_fb_step(other, d, outs[1], shrink, old16, A=A16)
+        call_fb_step(other, d, outs[1], shrink, plan16, A=A16)
         call_fb_step(this, d, outs[2], shrink, plan16, A=A16)
         torch.cuda.synchronize()
         assert all(torch.equal(a, b) for o in outs[1:]
@@ -377,7 +360,7 @@ def compare_bf16(other, this, d, plan):
                 call_fista_step(other, d32, states[0], restart, shrink, done,
                                 plan)
                 call_fista_step(other, d, states[1], restart, shrink, done,
-                                old16, A=A16)
+                                plan16, A=A16)
                 call_fista_step(this, d, states[2], restart, shrink, done,
                                 plan16, A=A16)
                 torch.cuda.synchronize()
@@ -387,16 +370,15 @@ def compare_bf16(other, this, d, plan):
                 cases += 1
     print(f"fista_step_bf16, fb_step_bf16 {(B, M, N)} plan {plan16}: equal "
           f"to the earlier float32 kernels' bits on A16.float() and to the "
-          f"earlier bf16 instances' (plan {old16}) in {cases} + 2 cases")
+          f"earlier bf16 instances' in {cases} + 2 cases")
 
 
 def time_bf16(other, this, d, state, out, card):
-    """The bf16 instances at the device's pace, the earlier at its plan and
-    this at its own, in turns, beside this tree's float32 instance."""
+    """The bf16 instances at the device's pace, the earlier and this at this
+    tree's plan, in turns, beside this tree's float32 instance."""
     B, M, N = d["A"].shape
     A16 = d["A"].to(torch.bfloat16)
     plan, plan16 = step_plan(B, M, N), step_plan(B, M, N, 2)
-    old16 = earlier_bf16_plan(B, M, N)
     for name in ("fista_step", "fb_step"):
         fista = name == "fista_step"
 
@@ -406,14 +388,15 @@ def time_bf16(other, this, d, state, out, card):
                                                d["done"], p, A=A)
             return lambda: call_fb_step(lib, d, out, None, p, A=A)
 
-        old_fn, new_fn = run(other, old16, A16), run(this, plan16, A16)
+        old_fn, new_fn = run(other, plan16, A16), run(this, plan16, A16)
         g = (graph_us(old_fn), graph_us(new_fn), graph_us(new_fn),
              graph_us(old_fn))
         f32 = graph_us(run(this, plan))
-        print(f"{name}_bf16 {(B, M, N)}: device pace earlier {g[0]:.1f} / "
-              f"{g[3]:.1f} us (plan {old16}), this {g[1]:.1f} / {g[2]:.1f} "
-              f"us (plan {plan16}, {blocks_per_sm(fista, M, N, plan16, 2)} "
-              f"blocks per SM); float32 instance {f32:.1f} us  [{card}]")
+        print(f"{name}_bf16 {(B, M, N)} plan {plan16}, "
+              f"{blocks_per_sm(fista, M, N, plan16, 2)} blocks per SM: "
+              f"device pace earlier {g[0]:.1f} / {g[3]:.1f} us, this "
+              f"{g[1]:.1f} / {g[2]:.1f} us; float32 instance {f32:.1f} us  "
+              f"[{card}]")
 
 
 def blocks_per_sm(fista, M, N, plan, elem=4):
@@ -478,17 +461,15 @@ def bf16_plan_grid(other, this, d, state, out, card):
                 smem = tl.step_shared_bytes(M, N, R, S, 2)
                 if R > M or smem + 512 > limit:
                     continue
-                base = (threads, R, S, smem)
-                plan = base + tl.bf16_fields(N, threads, S)
-                old_us = graph_us(held(other, base), reps=5)
+                plan = (threads, R, S, smem) + tl.bf16_fields(N, threads, S)
+                old_us = graph_us(held(other, plan), reps=5)
                 new_us = graph_us(held(this, plan), reps=5)
                 print(f"    threads={threads} R={R} S={S} ({smem} B, "
                       f"{blocks_per_sm(True, M, N, plan, 2)} per SM, "
                       f"{-(-M // R)} tiles): {old_us:.1f} / {new_us:.1f} us")
     plan16 = step_plan(B, M, N, 2)
-    old16 = earlier_bf16_plan(B, M, N)
-    print(f"  the bf16 instances {(B, M, N)} by design step, device pace, "
-          f"plan {plan16[:4]}  [{card}]:")
+    print(f"  the bf16 instances {(B, M, N)} by pass choice, device pace, "
+          f"plan {plan16[:4]}, earlier kernel / this one  [{card}]:")
     for name in ("fista_step", "fb_step"):
         fista = name == "fista_step"
 
@@ -497,16 +478,13 @@ def bf16_plan_grid(other, this, d, state, out, card):
                 return held(lib, plan)
             return lambda: call_fb_step(lib, d, out, None, plan, A=A16)
 
-        steps = {"earlier kernel, earlier plan": (other, old16),
-                 "earlier kernel, this plan": (other, plan16[:4])}
         most_cols, most_xregs = plan16[4:]
         for cols in range(1, most_cols + 1):
             for xregs in range(most_xregs + 1):
-                steps[f"this kernel, cols={cols} xregs={xregs}"] = (
-                    this, plan16[:4] + (cols, xregs))
-        for what, (lib, plan) in steps.items():
-            print(f"    {name}_bf16 {what}: "
-                  f"{graph_us(run(lib, plan), reps=10):.1f} us")
+                plan = plan16[:4] + (cols, xregs)
+                print(f"    {name}_bf16 cols={cols} xregs={xregs}: "
+                      f"{graph_us(run(other, plan), reps=10):.1f} / "
+                      f"{graph_us(run(this, plan), reps=10):.1f} us")
 
 
 def call_k_steps(lib, d, state, restart, plan):

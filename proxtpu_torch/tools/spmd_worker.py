@@ -1468,7 +1468,7 @@ def flagship(ctx):
     solve()  # warm-up
     _sync(ctx)
     dist.barrier()
-    tl.fused_fista_full_step.launches = 0
+    tl.fused_fista_packed_step.launches = 0
     t0 = time.perf_counter()
     with no_collectives("flagship"):
         z, it, done = solve()
@@ -1477,10 +1477,10 @@ def flagship(ctx):
     dist.barrier()
     # from the barrier before the solves to the barrier after them
     both = time.perf_counter() - t0
-    launches = tl.fused_fista_full_step.launches
+    launches = tl.fused_fista_packed_step.launches
     walls = _per_rank(ctx, wall)
     print(f"rank {ctx.rank}: flagship {per} lanes, {wall:.4f} s a solve, "
-          f"fista_step launches {launches}", flush=True)
+          f"fista_packed_step launches {launches}", flush=True)
     if ctx.rank == 0:
         print(f"flagship: ranks' walls {', '.join(f'{w:.4f}' for w in walls)}"
               f" s; two-rank wall {both:.4f} s (one card shared)",

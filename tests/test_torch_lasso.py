@@ -142,8 +142,9 @@ def test_full_step_rejects_aliased_carries(step_data):
 
 @pytest.mark.parametrize("restart", [False, True])
 def test_packed_step_matches_jax(restart):
-    """The JAX packed kernel (pack = 4 at N = 160), unpacked, against the
-    port's full step on the natural layout."""
+    """The JAX packed kernel (pack = 4 at N = 160) against the port's
+    packed step on the same packed operands, and, unpacked, against its
+    full step on the natural layout."""
     B, M, N, pack = 8, 16, 160, 4
     A, b, lam, Lf = _problems(B, M, N, 3)
     rng = np.random.default_rng(4)
@@ -163,6 +164,13 @@ def test_packed_step_matches_jax(restart):
         Ap, bp, rows(d["x"]), rows(d["z_prev"]), cols(d["beta"]),
         cols(d["gamma"]), cols(d["thr"]), cols(d["done"]), N=N, pack=pack,
         interpret=True, restart=restart)
+    Ap_t, bp_t = tl.pack_lasso_batch(_t(A), _t(b), pack)
+    packed = tl.fused_fista_packed_step(
+        Ap_t, bp_t, _t(rows(d["x"])), _t(rows(d["z_prev"])),
+        *(_t(cols(d[k])) for k in ("beta", "gamma", "thr", "done")), N,
+        pack, restart=restart)
+    for p, r in zip(packed, (x_n, z_n, res, rs)):
+        np.testing.assert_allclose(p.numpy(), np.asarray(r), atol=5e-6)
     ref = [jl._unpack_rows(x_n, pack, N), jl._unpack_rows(z_n, pack, N),
            res.reshape(B), rs.reshape(B)]
     port = _port_full_step(d, restart)

@@ -148,9 +148,8 @@ def _jax_cost(fn, *args, **kwargs):
 
 
 # name -> (wrapper call on CPU tensors, JAX's estimate at that shape): the
-# JAX wrapper traced on the same operands, in interpret mode.  fista_step
-# also serves the packed kernel; its estimate is the natural layout's
-# (proxtpu/kernels/lasso.py:262), not the packed one (:1403).
+# JAX wrapper traced on the same operands, in interpret mode.  The packed
+# step has the packed kernel's estimate (proxtpu/kernels/lasso.py:1403).
 def _case(name):
     B, Mk, Nk, K = 3, 20, 12, 4
     if name in ("fb_step", "fb_step_bf16"):
@@ -171,6 +170,19 @@ def _case(name):
                 _jax_cost(jl.fused_fista_full_step,
                           *(jnp.asarray(_np(t)) for t in ops),
                           interpret=True, restart=True))
+    if name == "fista_packed_step":
+        # 4 problems of 20 x 136, two to a packed row of 272 columns
+        A, b, x, z, gamma, thr, done = _lasso_operands(4, Mk, 136)
+        beta = torch.full((4,), 0.3)
+        Ap, bp = tl.pack_lasso_batch(A, b, 2)
+        rows = [tl._pack_rows(v, 2, 128) for v in (x, z)]
+        lanes = [v.reshape(2, 2) for v in (beta, gamma, thr, done)]
+        return (lambda: tl.fused_fista_packed_step(Ap, bp, *rows, *lanes,
+                                                   136, 2, restart=True),
+                _jax_cost(jl.fused_fista_packed_step,
+                          *(jnp.asarray(_np(t)) for t in (Ap, bp, *rows,
+                                                          *lanes)),
+                          N=136, pack=2, interpret=True, restart=True))
     if name == "fista_k_steps":
         A, b, x, z, gamma, thr, done = _lasso_operands(B, Mk, Nk)
         ops = (A, b, x, z, torch.ones(B), gamma, thr, done)
@@ -223,7 +235,8 @@ def _trip_overhead_bench():
 
 
 @pytest.mark.parametrize("name", [
-    "fb_step", "fb_step_bf16", "fista_step", "fista_k_steps", "pg_step",
+    "fb_step", "fb_step_bf16", "fista_step", "fista_packed_step",
+    "fista_k_steps", "pg_step",
     "pg_k_steps", "cp_k_steps", "read_reduce", "read_reduce_bf16"])
 def test_kernel_cost_on_the_plain_route(name):
     call, want = _case(name)

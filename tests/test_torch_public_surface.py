@@ -19,13 +19,8 @@ import proxtpu_torch
 from proxtpu.algorithms.common import resolve_gamma as jresolve_gamma
 from proxtpu_torch.algorithms.common import resolve_gamma
 
-# left out on purpose (ROADMAP.md, "Left out on purpose"): the TPU packing
-# transform and its kernel, and the lane count of the TPU layout
-LEFT_OUT = {
-    ("kernels.common", "auto_lanes"),
-    ("kernels.lasso", "fused_fista_packed_step"),
-    ("kernels.lasso", "pack_lasso_batch"),
-}
+# left out on purpose: nothing
+LEFT_OUT = set()
 
 
 def _modules(package):
