@@ -2989,8 +2989,9 @@ def lane_residual(it, k, s):
 def counting_syncs():
     """Count the host's waits on the card inside the block: PyTorch's sync
     debug mode warns at every synchronizing operation (``.item()``,
-    ``bool`` of a tensor, a copy to the host), and the warnings are
-    counted.  Yields an object whose ``n`` is set on exit."""
+    ``bool`` of a tensor, a copy to the host), and those warnings are
+    counted (not the one that switching the mode on gives once a process).
+    Yields an object whose ``n`` is set on exit."""
     import types
     import warnings
 
@@ -3002,7 +3003,8 @@ def counting_syncs():
             yield counter
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    counter.n = sum("synchroniz" in str(w.message) for w in caught)
+    counter.n = sum("called a synchronizing" in str(w.message)
+                    for w in caught)
 
 
 def drivers_blocking(card):

@@ -41,6 +41,7 @@ from __future__ import annotations
 import torch
 
 from ..parallel.sharded_ops import holds_row_stripes
+from ..utils.tracing import span
 from ..utils.tree import real_dtype_of
 # problems per packed row (lasso.py): decides, as in the reference, which
 # problems take the packed solver, and its layout
@@ -279,7 +280,8 @@ def match_kernel_solver(factory, kwargs, *, tol, maxit, stop=None,
     x0 = torch.as_tensor(x0)
     if x0.is_complex():
         return None  # the kernel legs solve real problems only
-    x0_pass = x0 if bool(x0.any()) else None
+    with span("sync.x0_any"):
+        x0_pass = x0 if bool(x0.any()) else None
 
     from ..utils.shared import Shared
 

@@ -55,6 +55,7 @@ from ..parallel.sharded_ops import (
 from ..utils.host_loop import run_host_loop
 from ..utils.precision import require_full_f32_matmul
 from ..utils.profiling import estimate, kernel_cost
+from ..utils.tracing import span
 from . import _build
 
 # t after a restart: the simple t-sequence one step from t = 1
@@ -616,7 +617,8 @@ class _Layout:
         self.nfull = (self.N // 128) * 128
         self.shape = (self.B,) if pack == 1 else (self.B // pack, pack)
         if pack > 1:
-            self.Ap, self.bp = pack_lasso_batch(A, b, pack)
+            with span("solve.pack"):
+                self.Ap, self.bp = pack_lasso_batch(A, b, pack)
 
     def step(self, x, z_prev, beta, gamma, thr, done_mask, restart):
         if self.pack == 1:
@@ -911,7 +913,8 @@ def solve_lasso_batch(A, b, lam, Lf, tol, maxit=1000, use_kernel=True,
     thr = gamma * lam
     shrink = None if lam2 is None else 1.0 + gamma * _per_lane(lam2, B, A)
     step = fused_fb_prox_grad if use_kernel else reference_fb_prox_grad
-    z0, res0 = step(A, b, x0, gamma, thr, shrink)
+    with span("solve.init"):
+        z0, res0 = step(A, b, x0, gamma, thr, shrink)
     # the init FB step counts as iteration 1; its extrapolation coefficient
     # is 0 (t = 1), so the next point is z0 itself, with t advanced once
     t0 = torch.ones((B,), dtype=dtype, device=A.device)
@@ -1127,8 +1130,9 @@ def _solve_packed_core(lay, lam, Lf, tol, x0, *, maxit, restart, mf=None):
     thr = gamma * lay.lanes(_per_lane(lam, B, A))
     zeros = torch.zeros(shape, dtype=dtype, device=A.device)
     x0 = lay.rows(x0)
-    x, z_prev, res0, _ = lay.step(x0.clone(), x0.clone(), zeros, gamma, thr,
-                                  zeros, restart)
+    with span("solve.init"):
+        x, z_prev, res0, _ = lay.step(x0.clone(), x0.clone(), zeros, gamma,
+                                      thr, zeros, restart)
     t1 = torch.full(shape, _PHI, dtype=dtype, device=A.device)
     iters0 = torch.ones(shape, dtype=torch.int32, device=A.device)
     beta_const = None
@@ -1164,7 +1168,11 @@ def solve_lasso_batch_packed_tail(A, b, lam, Lf, tol, maxit=2000, k1=192,
 
     The branch is chosen on the host from one count.  Reported counts are
     ``k1 + phase 2`` for continued lanes.  ``use_kernel=False`` runs the
-    plain route.  Returns ``(xs (B, N), iters (B,), done (B,))``."""
+    plain route.  Returns ``(xs (B, N), iters (B,), done (B,))``.
+
+    Traced (:mod:`..utils.tracing`): ``solve.phase1``,
+    ``sync.phase_count`` (the count), then ``solve.phase2_full`` or
+    ``solve.phase2_tail``."""
     _real_operands(A, b)
     B, M, N = A.shape
     if not 0 < tail <= B:
@@ -1172,22 +1180,28 @@ def solve_lasso_batch_packed_tail(A, b, lam, Lf, tol, maxit=2000, k1=192,
     k1 = min(k1, maxit)  # a small maxit caps phase 1, not the reverse
     lam = _per_lane(lam, B, A)
     Lf = _per_lane(Lf, B, A)
-    xs1, it1, dn1 = solve_lasso_batch_packed(
-        A, b, lam, Lf, tol, maxit=k1, restart=restart, use_kernel=use_kernel)
+    with span("solve.phase1"):
+        xs1, it1, dn1 = solve_lasso_batch_packed(
+            A, b, lam, Lf, tol, maxit=k1, restart=restart,
+            use_kernel=use_kernel)
     if k1 >= maxit:
         return xs1, it1, dn1
-    if B - int(dn1.sum().item()) > tail:
-        xs2, it2, dn2 = solve_lasso_batch_packed(
-            A, b, lam, Lf, tol, maxit=maxit - k1, restart=restart, x0=xs1,
-            use_kernel=use_kernel)
+    with span("sync.phase_count"):
+        wide = B - int(dn1.sum().item()) > tail
+    if wide:
+        with span("solve.phase2_full"):
+            xs2, it2, dn2 = solve_lasso_batch_packed(
+                A, b, lam, Lf, tol, maxit=maxit - k1, restart=restart,
+                x0=xs1, use_kernel=use_kernel)
         return (torch.where(dn1[:, None], xs1, xs2),
                 torch.where(dn1, it1, it1 + it2), dn1 | dn2)
     # unconverged lanes first; ties keep their order, as in JAX
     idx = torch.argsort(dn1.to(torch.int32), stable=True)[:tail]
     was_done = dn1[idx]
-    xs2, it2, dn2 = solve_lasso_batch(
-        A[idx], b[idx], lam[idx], Lf[idx], tol, maxit=maxit - k1,
-        restart=restart, x0=xs1[idx], use_kernel=use_kernel)
+    with span("solve.phase2_tail"):
+        xs2, it2, dn2 = solve_lasso_batch(
+            A[idx], b[idx], lam[idx], Lf[idx], tol, maxit=maxit - k1,
+            restart=restart, x0=xs1[idx], use_kernel=use_kernel)
     # keep the CERTIFIED phase-1 solution of fill lanes that were already
     # done: phase 2's first step may re-check an at-threshold residual just
     # above tol, and must not replace a certified iterate
@@ -1219,7 +1233,8 @@ def solve_lasso_batch_blocked(A, b, lam, Lf, tol, maxit=2000, iter_block=8,
     K = int(iter_block)
     x0 = _x0_or_zeros(x0, B, N, A)
     fb = fused_fb_prox_grad if use_kernel else reference_fb_prox_grad
-    z0, res0 = fb(A, b, x0, gamma, thr)
+    with span("solve.init"):
+        z0, res0 = fb(A, b, x0, gamma, thr)
     t1 = torch.full((B,), _PHI, dtype=dtype, device=A.device)
     iters0 = torch.ones((B,), dtype=torch.int32, device=A.device)
 

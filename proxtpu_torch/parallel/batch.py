@@ -27,6 +27,7 @@ import torch
 
 from ..utils.host_loop import run_host_loop
 from ..utils.shared import Shared, unwrap_shared
+from ..utils.tracing import span
 from ..utils.tree import _children, flatten, real_dtype_of, tree_leaves, \
     tree_map
 from .sharded_ops import lane_parallel
@@ -536,7 +537,10 @@ class BatchedAlgorithm:
     flat trial/commit machines; anything else runs the generic driver,
     :func:`batched_run_loop`.  ``use_kernels=False`` forces the generic
     driver.  ``verbose`` and ``halt_nonfinite`` also force it (the other
-    routes have neither)."""
+    routes have neither).
+
+    Traced (:mod:`..utils.tracing`): ``batched.match`` around the matchers
+    and ``batched.solve`` around the route they chose."""
 
     def __init__(self, iteration_factory, *, maxit, tol, stop=None,
                  solution=None, use_kernels="auto", check_every=None,
@@ -584,20 +588,25 @@ class BatchedAlgorithm:
                 match_tv_solver,
             )
 
-            for match, extra in (
-                    (match_kernel_solver, {}), (match_tv_solver, {}),
-                    # the flat machines' counts do not depend on the block
-                    # of trips between host tests; 8 for the adaptive
-                    # FB / FISTA machine, the matcher's choice otherwise
-                    (match_flat_adaptive,
-                     dict(check_every=self.check_every or 8)),
-                    (match_flat_linesearch,
-                     dict(check_every=self.check_every))):
-                run = match(
-                    self.iteration_factory, merged, tol=self.tol,
-                    maxit=self.maxit, stop=self.stop, solution=self.solution,
-                    **extra)
-                if run is not None:
+            with span("batched.match"):
+                for match, extra in (
+                        (match_kernel_solver, {}), (match_tv_solver, {}),
+                        # the flat machines' counts do not depend on the
+                        # block of trips between host tests; 8 for the
+                        # adaptive FB / FISTA machine, the matcher's choice
+                        # otherwise
+                        (match_flat_adaptive,
+                         dict(check_every=self.check_every or 8)),
+                        (match_flat_linesearch,
+                         dict(check_every=self.check_every))):
+                    run = match(
+                        self.iteration_factory, merged, tol=self.tol,
+                        maxit=self.maxit, stop=self.stop,
+                        solution=self.solution, **extra)
+                    if run is not None:
+                        break
+            if run is not None:
+                with span("batched.solve"):
                     return run()
         # injected after the match, so that a matcher sees backtrack_limit
         # only when the caller set it

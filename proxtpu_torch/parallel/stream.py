@@ -13,6 +13,8 @@ from collections import deque
 
 import torch
 
+from ..utils.tracing import span
+
 
 def _cuda_tensors(out):
     """The CUDA tensors among the leaves of tuples, lists and dicts."""
@@ -46,6 +48,9 @@ def stream_solve(solve, problems, depth=2, fence=None):
     call and synchronises on it before yielding; for an output that holds
     no CUDA tensor it does nothing.  Recording at call time, not at fence
     time, keeps the fence from waiting on the solves dispatched after it.
+
+    Traced (:mod:`..utils.tracing`): ``stream.dispatch`` around each
+    ``solve(p)``.
     """
     if depth < 0:
         raise ValueError(f"depth must be >= 0, got {depth}")
@@ -61,7 +66,8 @@ def stream_solve(solve, problems, depth=2, fence=None):
     def _gen():
         q = deque()
         for p in problems:
-            out = solve(p)
+            with span("stream.dispatch"):
+                out = solve(p)
             q.append((out, _record_events(out) if fence is None else None))
             if len(q) > depth:
                 yield _fenced(*q.popleft())

@@ -3,6 +3,8 @@ batched driver."""
 
 from __future__ import annotations
 
+from .tracing import span
+
 # iterations between the host's all-done checks (see run_host_loop)
 CHECK_EVERY = 16
 
@@ -22,12 +24,19 @@ def run_host_loop(body, state, done_of, maxit, k_step=1,
     every call: once a lane is done its iterate, carries and count never
     change (frozen lanes are selected out, and counts move only for live
     lanes), so calls made after every lane is done change nothing.  Only
-    the returned ``k`` may then run past the reference's."""
+    the returned ``k`` may then run past the reference's.
+
+    Traced (:mod:`.tracing`): ``sync.loop_check`` around each all-done
+    test and ``loop.issue`` around the calls between two tests."""
     per_check = max(1, check_every // k_step)
-    while k < maxit and not bool(done_of(state).all()):
-        for _ in range(per_check):
-            if k >= maxit:
+    while k < maxit:
+        with span("sync.loop_check"):
+            if bool(done_of(state).all()):
                 break
-            k += k_step
-            state = body(k, state)
+        # the calls before the next test: per_check, or fewer to maxit
+        n = min(per_check, -(-(maxit - k) // k_step))
+        with span("loop.issue", n):
+            for _ in range(n):
+                k += k_step
+                state = body(k, state)
     return state, k
